@@ -1,0 +1,121 @@
+"""Where a grouped verify spends its time on the GPU.
+
+    python -m fusion_cryptography_tpu_torch.profile_verify [--groups 8192] [--out DIR]
+
+Builds a secpar=256, N=4 fleet on the first CUDA device, then
+  1. times each stage of one verify (prehash, signer hash, group hash,
+     lattice) between device synchronisations;
+  2. traces one verify with torch.profiler and prints the device time by
+     kernel and the device's busy share of the call.
+Stage times include the synchronisations, so they sum to a little more than
+an unsynchronised call.  With ``--out`` the chrome trace and the kernel table
+are written there.  Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+
+def _timed(fn, acc: dict, name: str):
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    return wrapper
+
+
+def main() -> None:
+    from .params import fusion_setup
+    from .scheme import device_pipeline as dp
+    from .scheme.device_setup import build_fleet
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--groups", type=int, default=8192)
+    ap.add_argument("--group-chunk", type=int, default=dp.DEFAULT_GROUP_CHUNK)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile: no CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    print(f"card: {card}")
+    dev = torch.device("cuda", 0)
+    G, N = args.groups, 4
+    params = fusion_setup(256, 42)
+    vks, msgs, aggs = build_fleet(params, G, N, device=dev, group_chunk=args.group_chunk)
+
+    def verify():
+        out = dp.verify_batch_device(params, vks, msgs, aggs, group_chunk=args.group_chunk)
+        torch.cuda.synchronize()
+        return out
+
+    verify()  # warm
+    t0 = time.perf_counter()
+    verify()
+    wall = time.perf_counter() - t0
+
+    # 1. stage breakdown
+    P = dp.get_pipeline(params, N, str(dev))
+    stages = {
+        "prehash": "prehash (SHA3 + decimal)",
+        "signer": "signer hash (vk, challenge, decode, NTT, triple)",
+        "group": "group hash (agg preimage, SHAKE, decode)",
+        "lattice": "lattice (sums, INTT kernel)",
+    }
+    acc: dict = {}
+    saved = {attr: getattr(P, attr) for attr in stages}
+    for attr, label in stages.items():
+        setattr(P, attr, _timed(saved[attr], acc, label))
+    try:
+        verify()
+    finally:
+        for attr, fn in saved.items():
+            setattr(P, attr, fn)
+    print(f"verify G={G}: {wall * 1e3:.2f} ms per call (unsynchronised stages)")
+    for k, v in acc.items():
+        print(f"  {k:52s} {v * 1e3:9.2f} ms")
+
+    # 2. profiler trace
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        verify()
+        traced = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        events = list(prof.key_averages())
+
+    def dev_us(e) -> float:
+        return getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
+
+    rows = sorted(((e.key, dev_us(e), e.count) for e in events), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows) / 1e3
+    print(f"traced call {traced * 1e3:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / (traced * 1e3):.1f}% of the call)")
+    for name, us, n in rows[:25]:
+        print(f"  {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    if args.out:
+        out = Path(args.out)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / "verify_trace.json"))
+        (out / "verify_kernels.json").write_text(json.dumps(
+            {"card": card, "groups": G, "wall_ms": wall * 1e3, "traced_ms": traced * 1e3,
+             "busy_ms": busy, "stages_ms": {k: v * 1e3 for k, v in acc.items()},
+             "kernels": [{"name": k, "ms": us / 1e3, "count": n} for k, us, n in rows]},
+            indent=1))
+
+
+if __name__ == "__main__":
+    main()

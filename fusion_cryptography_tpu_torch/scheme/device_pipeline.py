@@ -1,0 +1,256 @@
+"""Grouped aggregate-verify with the whole hash pipeline on the device.
+
+Port of the default configuration of the JAX package's
+``scheme/device_pipeline.py`` (packed-word hash path, SHA3 prehash on the
+device, fused sponge, fused INTT + norm/weight):
+
+  vks int32[G, N, 2, d], ``dst + "," + message`` bytes, aggs int32[G, rank, d]
+    -> prehash:     SHA3-256 (sponge kernels) + 78-digit decimal render
+    -> signer hash: str(vk) chunk, challenge preimage, SHAKE256 (sponge
+                    kernels), challenge decode, challenge NTT, triple preimage
+    -> group hash:  aggregation preimage, SHAKE256, per-signer alpha decode
+    -> lattice:     target/observed sums (ops/field), INTT + norm/weight
+                    (CUDA kernel)
+
+Groups are processed in chunks of ``group_chunk`` complete groups (every
+chunk holds all N signers of its groups, so its aggregation preimages close
+over its own triples), which bounds the working set at any G.  Results are
+bool[G] tensors on the device the inputs live on: on a CUDA device the
+sponge and INTT stages run the CUDA kernels, on the CPU their plain versions.
+"""
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..hashing.xof import agg_block_len, challenge_xof_len
+from ..interop import device_serial as ds
+from ..ops import ragged_words as rw
+from ..ops import xof_decode
+from ..ops.intt_norm_weight import intt_norm_weight
+from ..ops.keccak import RATE
+from ..ops.keccak_sponge import sha3_256_words_w, shake256_words_w
+from ..ops.ntt import ntt_fwd_u
+from ..params import Params
+
+DEFAULT_GROUP_CHUNK = 8192
+
+
+def _pad_rate(n: int) -> int:
+    return -(-(n + 1) // RATE) * RATE  # +1: the pad byte may start a block
+
+
+@lru_cache(maxsize=16)
+def _geometries(params: Params) -> dict:
+    bound_ch = max(1, min(params.modulus // 2, params.beta_ch))
+    bound_ag = max(1, min(params.modulus // 2, params.beta_ag))
+    ch_spec = ds.challenge_preimage_spec(params)
+    tri_spec = ds.triple_spec(params)
+    n_xof_ch = challenge_xof_len(
+        params.secpar, params.degree, params.modulus, params.beta_ch, params.omega_ch
+    )
+    geom_ch = xof_decode.geometry(
+        params.secpar, params.modulus, params.degree, bound_ch, params.omega_ch
+    )
+    return dict(
+        ch_spec=ch_spec,
+        tri_spec=tri_spec,
+        tri_min=ds.spec_min_total(tri_spec, [1]),
+        # the decoder never reads the stream tail: squeeze only the prefix
+        n_xof_ch_used=xof_decode.consumed_bytes(geom_ch, n_xof_ch),
+        block_ag=agg_block_len(
+            params.secpar, params.degree, params.modulus, params.beta_ag, params.omega_ag
+        ),
+        geom_ch=geom_ch,
+        geom_ag=xof_decode.geometry(
+            params.secpar, params.modulus, params.degree, bound_ag, params.omega_ag
+        ),
+    )
+
+
+def make_stages(params: Params, n_signers: int):
+    """The hash stages shared by grouped verify and the fleet build
+    (scheme/device_setup.py), as (prehash_stage, signer_stage, group_stage):
+
+    prehash_stage(msg_words int32[Wt, B], msg_len int32[B])
+        -> (pre_w int32[20, B], pre_len int32[B])
+    signer_stage(vk2d_t int32[2d, B], pre_w int32[20, B], pre_len int32[B])
+        -> (cc int32[B, d], c_hat_u int64[B, d], tbuf int32[Lt, B], tlen int32[B])
+    group_stage(tbs [N x int32[Lt, G]], tls [N x int32[G]])
+        -> alphas int32[G, N, d]
+    """
+    plan = params.plan
+    F = plan.field
+    g = _geometries(params)
+    d = params.degree
+    N = n_signers
+    ch_spec, tri_spec = g["ch_spec"], g["tri_spec"]
+    agg_spec = ds.agg_preimage_spec(params, N, tri_spec.out_max)
+    tri_bounds = [(g["tri_min"], tri_spec.out_max)] * N
+    n_ch_words = -(-g["n_xof_ch_used"] // 4)
+    n_ag_words = -(-(N * g["block_ag"]) // 4)
+
+    def prehash_stage(msg_words, msg_len):
+        """RAW message preimage words (dst + "," + message) -> prehash digit
+        words: SHA3-256 on the sponge kernels, then the decimal render."""
+        Wt = msg_words.shape[0]
+        pad = _pad_rate(Wt * 4) // 4 - Wt
+        if pad > 0:
+            msg_words = torch.nn.functional.pad(msg_words, (0, 0, 0, pad))
+        chunk = rw.render_bigint_dec_w(sha3_256_words_w(msg_words.contiguous(), msg_len))
+        return chunk.buf, chunk.length
+
+    def signer_stage(vk2d_t, pre_w, pre_len):
+        """The str(vk) subtree is assembled once and folded into both the
+        challenge preimage and the triple."""
+        pre_chunk = rw.WChunk(buf=pre_w, length=pre_len.to(torch.int32),
+                              max_len=ds.PREHASH_W, min_len=1)
+        vk_chunk = ds.vk_chunk_w(params, vk2d_t)
+        wbuf, total = ds.fold_challenge_preimage_w(
+            params, vk_chunk, pre_chunk, pad_words=_pad_rate(ch_spec.out_max) // 4
+        )
+        xw = shake256_words_w(wbuf, total, n_ch_words)
+        cc = xof_decode.decode_coeffs_w(xw, g["geom_ch"], g["n_xof_ch_used"]).t()  # [B, d]
+        c_hat_u = ntt_fwd_u(plan, F.to_unsigned(cc))  # [B, d]
+        c_hat_t = F.to_centered(c_hat_u).t().contiguous()  # [d, B]
+        tbuf, tlen = ds.fold_triple_w(params, vk_chunk, pre_chunk, c_hat_t)
+        return cc, c_hat_u, tbuf, tlen
+
+    def group_stage(tbs, tls):
+        G = tbs[0].shape[1]
+        extras = [(tbs[k], tls[k]) for k in range(N)]
+        wbuf, total = ds.assemble_chunks_words(
+            agg_spec, values=None, extras=extras, extra_bounds=tri_bounds,
+            pad_words=_pad_rate(agg_spec.out_max) // 4,
+        )
+        blob_w = shake256_words_w(wbuf, total, n_ag_words)  # [ceil(N*block/4), G]
+        per_w = xof_decode.split_streams_w(blob_w, N, g["block_ag"])  # [bw, G, N]
+        al_t = xof_decode.decode_coeffs_w(
+            per_w.reshape(per_w.shape[0], G * N), g["geom_ag"], g["block_ag"]
+        )  # [d, G*N]
+        return al_t.t().reshape(G, N, d)
+
+    return prehash_stage, signer_stage, group_stage
+
+
+def msg_preimage_words(params: Params, messages: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
+    """Host prep for the device prehash: ``dst + "," + message`` preimages as
+    packed words (uint32[B, Wt], int32[B]); Wt is the tight word count of the
+    longest message, rounded up to 8 words."""
+    prefix = bytes(params.sign_pre_hash_dst) + b","
+    bufs = [prefix + m.encode("utf-8") for m in messages]
+    B = len(bufs)
+    lens = np.fromiter((len(b) for b in bufs), np.int32, B)
+    L = int(lens.max(initial=1))
+    Wt = -(-(-(-L // 4)) // 8) * 8
+    arr = np.zeros((B, Wt * 4), dtype=np.uint8)
+    if B:
+        mask = np.arange(Wt * 4) < lens[:, None]
+        arr[mask] = np.frombuffer(b"".join(bufs), np.uint8)
+    return arr.view("<u4"), lens
+
+
+class _Pipeline:
+    """Stage functions and device constants for one (params, N, device)."""
+
+    def __init__(self, params: Params, n_signers: int, device: torch.device):
+        self.params = params
+        self.N = n_signers
+        self.plan = params.plan
+        F = self.plan.field
+        self.a_mont = F.to_mont(F.to_unsigned(
+            torch.as_tensor(params.public_challenge, device=device)))  # [rank, d]
+        self.prehash, self.signer, self.group = make_stages(params, n_signers)
+
+    def hash_chunk(self, vkc: torch.Tensor, mwc: torch.Tensor, mlc: torch.Tensor):
+        """One chunk of complete groups: vkc int32[c, N, 2, d], message words
+        int32[c*N, Wt], lengths int32[c*N] -> (cc int32[c*N, d],
+        c_hat_u int64[c*N, d], alphas int32[c, N, d])."""
+        c = vkc.shape[0]
+        d = self.params.degree
+        pre_w, pre_len = self.prehash(mwc.t(), mlc)
+        vk2d_t = vkc.reshape(c * self.N, 2 * d).t().contiguous()
+        cc, c_hat_u, tbuf, tlen = self.signer(vk2d_t, pre_w, pre_len)
+        tb = tbuf.reshape(tbuf.shape[0], c, self.N)
+        tl = tlen.reshape(c, self.N)
+        al = self.group(
+            [tb[:, :, k].contiguous() for k in range(self.N)],
+            [tl[:, k].contiguous() for k in range(self.N)],
+        )
+        return cc, c_hat_u, al
+
+    def lattice(self, vks, c_hat_u, al, aggs):
+        """Lattice verification (reference fusion.py:680-728 semantics) ->
+        (eq, norm_ok, weight_ok) bool[G]."""
+        params = self.params
+        F = self.plan.field
+        G, N, d = vks.shape[0], self.N, params.degree
+        vk_u = F.to_unsigned(vks)  # [G, N, 2, d]
+        c_u = c_hat_u.reshape(G, N, d)
+        alpha_u = ntt_fwd_u(self.plan, F.to_unsigned(al))  # [G, N, d]
+        t = F.add_mod(F.mont_mul(F.to_mont(c_u), vk_u[..., 0, :]), vk_u[..., 1, :])
+        target = F.sum_mod(F.mont_mul(F.to_mont(alpha_u), t), axis=-2)  # [G, d]
+        agg_u = F.to_unsigned(aggs)  # [G, rank, d]
+        observed = F.dot_mod(self.a_mont, agg_u, axis=-2)  # [G, d]
+        eq = torch.all(target == observed, dim=-1)
+        nrm, wgt = intt_norm_weight(self.plan, agg_u)  # [G, rank]
+        norm_ok = nrm.amax(dim=-1) <= min(params.beta_vf, 2**31 - 1)
+        weight_ok = wgt.amax(dim=-1) <= params.omega_vf
+        return eq, norm_ok, weight_ok
+
+
+@lru_cache(maxsize=16)
+def get_pipeline(params: Params, n_signers: int, device: str) -> _Pipeline:
+    return _Pipeline(params, n_signers, torch.device(device))
+
+
+def _message_tensors(params: Params, messages: Sequence[str], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    mw, ml = msg_preimage_words(params, messages)
+    return (torch.from_numpy(mw.view(np.int32)).to(device),
+            torch.from_numpy(ml).to(device))
+
+
+def _verify_chunks(params: Params, vks, messages: Sequence[str], aggs,
+                   group_chunk: int, want_coeffs: bool):
+    vks = torch.as_tensor(vks)
+    aggs = torch.as_tensor(aggs, device=vks.device)
+    G, N = vks.shape[0], vks.shape[1]
+    msgs = list(messages)
+    if len(msgs) != G * N:
+        raise ValueError(f"need {G * N} messages, got {len(msgs)}")
+    P = get_pipeline(params, N, str(vks.device))
+    mw, ml = _message_tensors(params, msgs, vks.device)
+    outs, ccs, als = [], [], []
+    for lo in range(0, G, max(1, group_chunk)):
+        hi = min(G, lo + group_chunk)
+        cc, c_hat_u, al = P.hash_chunk(vks[lo:hi], mw[lo * N : hi * N], ml[lo * N : hi * N])
+        outs.append(P.lattice(vks[lo:hi], c_hat_u, al, aggs[lo:hi]))
+        if want_coeffs:
+            ccs.append(cc.reshape(hi - lo, N, -1))
+            als.append(al)
+    eq, norm_ok, weight_ok = (torch.cat([o[k] for o in outs]) for k in range(3))
+    if not want_coeffs:
+        return eq, norm_ok, weight_ok
+    return eq, norm_ok, weight_ok, torch.cat(ccs), torch.cat(als)
+
+
+def verify_batch_device(params: Params, vks, messages: Sequence[str], aggs, *,
+                        group_chunk: int = DEFAULT_GROUP_CHUNK):
+    """Grouped verify with the full hash pipeline on the device of ``vks``.
+
+    vks int32[G, N, 2, d] (sorted within each group by vk repr — the
+    reference's canonical order, fusion.py:661-663); messages flat G*N
+    strings in the same order; aggs int32[G, rank, d].  Returns
+    (eq, norm_ok, weight_ok) bool[G] tensors on that device.
+    """
+    return _verify_chunks(params, vks, messages, aggs, group_chunk, False)
+
+
+def derive_coeffs_device(params: Params, vks, messages: Sequence[str], aggs, *,
+                         group_chunk: int = DEFAULT_GROUP_CHUNK):
+    """Debug/test entry: (eq, norm_ok, weight_ok, challenge coefficients
+    int32[G, N, d], alpha coefficients int32[G, N, d])."""
+    return _verify_chunks(params, vks, messages, aggs, group_chunk, True)

@@ -1,0 +1,160 @@
+"""On-device fleet construction: keygen -> sort -> sign -> aggregate.
+
+Port of the JAX package's ``scheme/device_setup.py``:
+
+  host:   C MT19937 sampling of the short secret coefficients
+          (native/fusion_native.c, CPython-exact), message byte packing
+  device: NTT keygen + vk = A·sk (fusion.py:338-373), the sort-by-str(vk)
+          ranks inside each group (fusion.py:661-663), the verifier's hash
+          stages (scheme/device_pipeline), sig = sk_l⊙c + sk_r
+          (fusion.py:534-557), and the alpha-weighted aggregate
+          (fusion.py:632-677)
+
+With integer seeds the reference re-seeds per matrix entry, so all ``rank``
+entries of a key are identical: sk/sig carry one polynomial per side,
+vk = (Σ_r A_r)·sk, and the aggregate is one polynomial per group broadcast
+to the int32[G, rank, d] layout the verifier reads.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .. import native
+from ..hashing.sampler import sample_short_poly_coeffs
+from ..interop import device_serial as ds
+from ..ops import ragged_words as rw
+from ..ops.ntt import ntt_fwd_u
+from ..params import Params
+from . import device_pipeline as dp
+
+
+def _sample_sk(params: Params, seeds: Sequence[int]) -> np.ndarray:
+    """Short secret coefficients int32[B, 2, d]: left from seed, right from
+    seed+1 (reference keygen, fusion.py:339-362)."""
+    B = len(seeds)
+    d = params.degree
+    if native.available():
+        interleaved = [x for s in seeds for x in (s, s + 1)]
+        return native.sample_short_batch(
+            interleaved, d, params.beta_sk, params.omega_sk, params.modulus
+        ).reshape(B, 2, d)
+    out = np.empty((B, 2, d), dtype=np.int32)
+    for b, s in enumerate(seeds):
+        out[b, 0] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s)
+        out[b, 1] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s + 1)
+    return out
+
+
+def _keygen(params: Params, sk_coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int[B, 2, d] short coefficients -> (sk_hat_u int64[B, 2, d],
+    vk int32[B, 2, d] centered)."""
+    plan = params.plan
+    F = plan.field
+    pub = torch.as_tensor(params.public_challenge, device=sk_coeffs.device)
+    # Σ_r A_r in Montgomery form: exact vs the rank-wise dot because all rank
+    # entries of sk are identical (per-entry reseed quirk)
+    a_mont_sum = F.sum_mod(F.to_mont(F.to_unsigned(pub)), axis=0)  # [d]
+    sk_u = ntt_fwd_u(plan, F.to_unsigned(sk_coeffs))
+    return sk_u, F.to_centered(F.mont_mul(a_mont_sum, sk_u))
+
+
+def vk_sort_ranks(params: Params, vk: torch.Tensor, n_signers: int) -> torch.Tensor:
+    """vk int32[B, 2, d] with groups of ``n_signers`` contiguous -> ranks
+    int32[G, N]: each key's position in its group under the reference's
+    stable sort by str(vk) (fusion.py:661-663).
+
+    Key of a rendered number: ``str(v) ++ terminator`` (the template byte
+    after it, interop/device_serial.number_terminators), zero-padded to 12
+    bytes; str(vk) order is the lexicographic order of the concatenated keys.
+    A pair's order is decided at its first differing key byte; ties keep the
+    original order (the sort's stability)."""
+    d = params.degree
+    N = n_signers
+    B = vk.shape[0]
+    G = B // N
+    terms = torch.as_tensor(ds.number_terminators(ds.vk_body_spec(params)), device=vk.device)
+    chars, length = rw.decimal_chars(vk.reshape(B, 2 * d))  # [B, 2d, 11], [B, 2d]
+    keys = torch.nn.functional.pad(chars, (0, 1))  # [B, 2d, 12]
+    keys.scatter_(2, length.unsqueeze(-1), terms.view(1, 2 * d, 1).expand(B, 2 * d, 1))
+    keys = keys.reshape(G, N, 2 * d * 12)
+    rank = torch.zeros((G, N), dtype=torch.int32, device=vk.device)
+    for i in range(N):
+        for j in range(i + 1, N):
+            ki, kj = keys[:, i], keys[:, j]
+            first = (ki != kj).to(torch.uint8).argmax(dim=1, keepdim=True)  # 0 when equal
+            i_first = torch.gather(ki, 1, first) <= torch.gather(kj, 1, first)
+            i_first = i_first.squeeze(1)
+            rank[:, j] += i_first.to(torch.int32)
+            rank[:, i] += (~i_first).to(torch.int32)
+    return rank
+
+
+def _math(params: Params, n_signers: int, sk_hat_u: torch.Tensor, c_hat_u: torch.Tensor,
+          al: torch.Tensor) -> torch.Tensor:
+    """sig = sk_l⊙c + sk_r; agg = Σ α̂⊙sig -> aggs int32[G, d] centered, one
+    polynomial per group."""
+    plan = params.plan
+    F = plan.field
+    d = params.degree
+    B = sk_hat_u.shape[0]
+    G = B // n_signers
+    sig_u = F.add_mod(F.mont_mul(F.to_mont(c_hat_u), sk_hat_u[:, 0]), sk_hat_u[:, 1])
+    alpha_u = ntt_fwd_u(plan, F.to_unsigned(al))
+    agg_u = F.sum_mod(
+        F.mont_mul(F.to_mont(alpha_u), sig_u.reshape(G, n_signers, d)), axis=1
+    )
+    return F.to_centered(agg_u)
+
+
+def build_fleet(
+    params: Params,
+    n_groups: int,
+    n_signers: int,
+    *,
+    seed0: int = 1,
+    messages: Optional[Sequence[str]] = None,
+    group_chunk: int = dp.DEFAULT_GROUP_CHUNK,
+    device="cpu",
+) -> Tuple[torch.Tensor, List[str], torch.Tensor]:
+    """Build G aggregate-signature groups of N signers on ``device``.
+
+    Key k of the flat batch uses seeds (seed0 + k, seed0 + k + 1).  Returns
+    (vks int32[G, N, 2, d] sorted within groups by str(vk), messages flat
+    G*N strings in that order, aggs int32[G, rank, d]) — valid under
+    verify_batch_device and the reference verify.  The hash half runs on the
+    verifier's stages, in the same ``group_chunk`` chunks.
+    """
+    G, N = n_groups, n_signers
+    B = G * N
+    d = params.degree
+    device = torch.device(device)
+    if messages is None:
+        messages = [f"group{g}:msg{i}" for g in range(G) for i in range(N)]
+    messages = list(messages)
+    if len(messages) != B:
+        raise ValueError(f"need {B} messages, got {len(messages)}")
+
+    sk = _sample_sk(params, [seed0 + k for k in range(B)])
+    # the short coefficients (|c| <= beta_sk = 52) travel as int8
+    sk_hat_u, vk = _keygen(params, torch.from_numpy(sk.astype(np.int8)).to(device))
+
+    ranks = vk_sort_ranks(params, vk, N).cpu().numpy()
+    order = np.argsort(ranks, axis=1)  # ranks are a permutation per group
+    flat = (order + np.arange(G)[:, None] * N).reshape(-1)
+    s_msgs = [messages[i] for i in flat]
+    oflat = torch.from_numpy(flat).to(device)
+    sk_s = sk_hat_u.index_select(0, oflat)
+    vks = vk.index_select(0, oflat).reshape(G, N, 2, d)
+
+    P = dp.get_pipeline(params, N, str(device))
+    mw, ml = dp._message_tensors(params, s_msgs, device)
+    aggs = torch.empty((G, params.rank, d), dtype=torch.int32, device=device)
+    for lo in range(0, G, max(1, group_chunk)):
+        hi = min(G, lo + group_chunk)
+        _, c_hat_u, al = P.hash_chunk(vks[lo:hi], mw[lo * N : hi * N], ml[lo * N : hi * N])
+        agg = _math(params, N, sk_s[lo * N : hi * N], c_hat_u, al)
+        aggs[lo:hi] = agg.unsqueeze(1)
+    return vks, s_msgs, aggs

@@ -1,0 +1,24 @@
+"""The PyTorch port imports neither JAX nor the JAX package."""
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_port_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import fusion_cryptography_tpu_torch\n"
+        "import fusion_cryptography_tpu_torch.scheme.device_setup\n"
+        "import fusion_cryptography_tpu_torch.profile_verify\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'fusion_cryptography_tpu' or m.startswith('fusion_cryptography_tpu.'))\n"
+        "print(','.join(bad))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", f"port pulled in: {out.stdout.strip()}"

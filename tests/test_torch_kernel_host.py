@@ -1,0 +1,149 @@
+"""The CUDA kernels' arithmetic, compiled for the host CPU.
+
+``csrc/*.cu`` keep each kernel's per-lane and per-row work (Keccak-f and the
+sponge lanes; the Gentleman-Sande butterflies, Shoup multiplies and centered
+reduction) in functions that also compile as plain C++: without nvcc,
+``FCT_HD`` is ``static inline`` and the ``__global__`` parts drop out.  These
+tests build them with the host C++ compiler, with a serial loop in place of
+the CUDA grid, and hold them against the plain torch versions and hashlib.
+The launch geometry, the warp reductions and the ctypes binding run only on
+the card (tests/test_torch_cuda_kernels.py, marked ``cuda``)."""
+import ctypes
+import shutil
+import subprocess
+from hashlib import sha3_256, shake_256
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from fusion_cryptography_tpu_torch.ops import keccak as tk
+from fusion_cryptography_tpu_torch.ops.field import Q
+from fusion_cryptography_tpu_torch.ops.intt_norm_weight import intt_norm_weight_plain
+from fusion_cryptography_tpu_torch.ops.ntt import make_plan, ntt_fwd_u
+
+CSRC = Path(__file__).resolve().parents[1] / "fusion_cryptography_tpu_torch" / "csrc"
+
+# A serial loop over the batch (sponge) or the rows and butterflies (INTT)
+# around the kernels' own device functions.
+HOST_LOOPS = r"""
+#include "keccak_sponge.cu"
+#include "intt_norm_weight.cu"
+
+extern "C" void host_absorb(const uint32_t* words, const int32_t* nblk,
+                            uint32_t* state, int max_blocks, int64_t batch) {
+  for (int64_t b = 0; b < batch; ++b)
+    sponge_absorb_lane(words, nblk, state, max_blocks, batch, b);
+}
+
+extern "C" void host_squeeze(const uint32_t* state, uint32_t* out,
+                             int n_words, int64_t batch) {
+  for (int64_t b = 0; b < batch; ++b)
+    sponge_squeeze_lane(state, out, n_words, batch, b);
+}
+
+extern "C" void host_intt_norm_weight(const int64_t* x, int64_t rows, int d,
+                                      const uint32_t* tw, const uint32_t* tw_sh,
+                                      uint32_t n_inv, uint32_t n_inv_sh,
+                                      uint32_t q, int32_t* nrm, int32_t* wgt) {
+  uint32_t a[1024];
+  const int half = d / 2;
+  for (int64_t row = 0; row < rows; ++row) {
+    for (int k = 0; k < d; ++k) a[k] = (uint32_t)x[row * d + k];
+    for (int h = half; h >= 1; h >>= 1)
+      for (int i = 0; i < half; ++i) gs_butterfly(a, i, h, half, tw, tw_sh, q);
+    uint32_t m = 0;
+    int32_t c = 0;
+    for (int k = 0; k < d; ++k) {
+      const uint32_t v = mulmod_shoup(a[k], n_inv, n_inv_sh, q);
+      const uint32_t ab = centered_abs(v, q);
+      m = ab > m ? ab : m;
+      c += v != 0;
+    }
+    nrm[row] = (int32_t)m;
+    wgt[row] = c;
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    out = tmp_path_factory.mktemp("kernel_host")
+    src = out / "host_loops.cpp"
+    src.write_text(HOST_LOOPS)
+    so = out / "libkernel_host.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", f"-I{CSRC}",
+                    "-o", str(so), str(src)], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    P, I32, I64, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
+    lib.host_absorb.argtypes = [P, P, P, I32, I64]
+    lib.host_squeeze.argtypes = [P, P, I32, I64]
+    lib.host_intt_norm_weight.argtypes = [P, I64, I32, P, P, U32, U32, U32, P, P]
+    return lib
+
+
+def _absorb(lib, padded, nblk):
+    state = torch.empty((50, padded.shape[1]), dtype=torch.int32)
+    lib.host_absorb(padded.data_ptr(), nblk.data_ptr(), state.data_ptr(),
+                    padded.shape[0] // tk.RATE_WORDS, padded.shape[1])
+    return state
+
+
+def _squeeze(lib, state, n_words):
+    out = torch.empty((n_words, state.shape[1]), dtype=torch.int32)
+    lib.host_squeeze(state.data_ptr(), out.data_ptr(), n_words, state.shape[1])
+    return out
+
+
+@pytest.mark.parametrize("pad_head", [0x1F, 0x06], ids=["shake256", "sha3_256"])
+def test_sponge_lanes_match_plain_and_hashlib(lib, pad_head):
+    rng = np.random.default_rng(pad_head)
+    lens = np.array([0, 1, 135, 136, 137, 271, 272, 700]
+                    + list(rng.integers(0, 800, 24)), np.int32)
+    rows = -(-(800 + 1) // tk.RATE) * tk.RATE_WORDS
+    by = rng.integers(0, 256, size=(lens.size, 4 * rows), dtype=np.uint8)
+    by[np.arange(4 * rows)[None, :] >= lens[:, None]] = 0
+    words = torch.from_numpy(by.view(np.int32).T.copy())
+    padded, nblk = tk.pad_words(words, torch.from_numpy(lens), pad_head, assume_clean=True)
+    state = _absorb(lib, padded, nblk)
+    np.testing.assert_array_equal(state.numpy(), tk.absorb_padded(padded, nblk).numpy())
+    for n_words in (1, 8, 34, 35, 300):
+        out = _squeeze(lib, state, n_words)
+        np.testing.assert_array_equal(
+            out.numpy(), tk.shake256_squeeze_words(state, n_words).numpy())
+    got = _squeeze(lib, state, 300).t().contiguous().view(torch.uint8).numpy()
+    for i, n in enumerate(lens):
+        msg = by[i, :n].tobytes()
+        want = shake_256(msg).digest(1200) if pad_head == 0x1F else sha3_256(msg).digest()
+        assert got[i, : len(want)].tobytes() == want, int(n)
+
+
+@pytest.mark.parametrize("d,root", [(64, 23584283), (256, 3337519)])
+def test_intt_norm_weight_rows_match_plain(lib, d, root):
+    plan = make_plan(Q, d, root)
+    rng = np.random.default_rng(d + 1)
+    x = rng.integers(0, Q, size=(40, d), dtype=np.int64)
+    x[0] = 0
+    x[1] = Q - 1
+    x[2, :3] = [0, 1, Q - 1]
+    for k in range(4):  # NTTs of sparse polynomials: weights below d
+        poly = np.zeros(d, np.int64)
+        poly[rng.choice(d, size=k + 1, replace=False)] = rng.integers(1, Q, size=k + 1)
+        x[3 + k] = ntt_fwd_u(plan, torch.from_numpy(poly)).numpy()
+    x = torch.from_numpy(x)
+    tw = torch.from_numpy(plan.brp_inv.view(np.int32))
+    tw_sh = torch.from_numpy(plan.brp_inv_shoup.view(np.int32))
+    nrm = torch.empty(x.shape[0], dtype=torch.int32)
+    wgt = torch.empty(x.shape[0], dtype=torch.int32)
+    lib.host_intt_norm_weight(x.data_ptr(), x.shape[0], d, tw.data_ptr(), tw_sh.data_ptr(),
+                              plan.n_inv, plan.n_inv_shoup, plan.modulus,
+                              nrm.data_ptr(), wgt.data_ptr())
+    want_n, want_w = intt_norm_weight_plain(plan, x)
+    np.testing.assert_array_equal(nrm.numpy(), want_n.numpy())
+    np.testing.assert_array_equal(wgt.numpy(), want_w.numpy())
+    assert int(wgt[0]) == 0 and sorted(wgt[3:7].tolist()) != [d] * 4
