@@ -9,14 +9,18 @@ secpar=256 configuration — ``build_fleet`` of G=8192 groups of N=4 signers
 torch version at the main path's shapes (exact equality: all integer).
 
 Phases (each fails loudly; any failure exits non-zero):
-  1. card, versions, kernel build
-  2. kernels vs plain versions (and the sponge vs hashlib), with timings
-  3. fleet build, keys/s
-  4. verify: one warm call, per-call latency (median of 5 synced calls),
-     5 calls with one final sync;
-     all verdicts true, and a tampered aggregate fails in exactly its group
-  5. derive_coeffs_device on CUDA equals the same call on CPU tensors
-  6. every kernel of the path was launched during phases 3-4
+  1. card, versions, kernel build (one nvcc per source, in parallel)
+  2. kernels vs plain versions (and the sponge vs hashlib), with timings and
+     each kernel's bound
+  3. main path: fleet build (keys/s), verify: one warm call, per-call
+     latency (median of 5 synced calls), 5 calls with one final sync; all
+     verdicts true, a tampered aggregate fails in exactly its group;
+     derive_coeffs_device on CUDA equals the CPU run (the kernels' plain
+     versions) on 16 groups
+  4. the secpar=128 lane (G=1024, N=4): all verdicts true, CUDA equals the
+     CPU on 16 groups
+  5. every kernel was launched while the main path was driven (counts
+     cleared just before it, read just after)
 
 The last two lines of stdout are the kernel table {"kernels": [...]} and
 {"ok": true, "device": {...}}; the card's name and power limit come just
@@ -36,6 +40,28 @@ import torch
 
 SEED = 42
 SECPAR, N_GROUPS, N_SIGNERS = 256, 8192, 4
+LANE128_GROUPS = 1024
+
+# The least time of a kernel: the larger of its bytes over the HBM rate and
+# its 32-bit integer instructions over the card's INT32 issue rate.  The
+# H100 SXM's published peaks give 3.35 TB/s and 67 TFLOP/s float32 (an FMA
+# counted as two) from 132 SMs of 128 float32 lanes, i.e. 1.98 GHz; an SM
+# has 64 INT32 lanes, so 132 * 64 * 1.98e9 = 16.7e12 integer instructions/s.
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit instructions one Keccak-f[1600] needs at least, its 64-bit lanes
+# split in halves and three-input XORs fused (LOP3), per round: theta 20
+# LOP3 for the column parities, 10 funnel shifts to rotate them, 50 LOP3 to
+# apply them; rho 48 funnel shifts (24 rotations); chi 50 LOP3; iota 2.
+KECCAK_OPS = 24 * (20 + 10 + 50 + 48 + 50 + 2)
+# Estimates, not counts: decimal rendering of one value (digit count, ten
+# divide-by-10 steps, byte packing) and the word stream per output word.
+# The fold kernels' bounds are set by their bytes, several times above
+# these operations at the main path's shapes.
+RENDER_OPS, WORD_OPS, AGG_WORD_OPS = 70, 4, 20
+
+MAIN_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight",
+                     "signer_fold_a", "signer_fold_b", "agg_fold")
 
 
 def log(msg: str) -> None:
@@ -64,6 +90,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def bound(n_bytes: float, n_ops: float) -> dict:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
@@ -73,6 +106,11 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def live_bytes(lens: torch.Tensor) -> int:
+    """Bytes of the whole words that carry ``lens`` bytes per lane."""
+    return int(((lens.to(torch.int64) + 3) // 4 * 4).sum().item())
 
 
 def sponge_inputs(rng, B: int, max_len: int, dev):
@@ -131,22 +169,29 @@ def phase_kernels(dev, kernel_rows: list) -> None:
     nw = -(-15872 // 4)
     t_sq = cuda_ms(lambda: ks.squeeze(st_k, nw), 5)
     t_sq_p = cuda_ms(lambda: keccak.shake256_squeeze_words(st_p, nw), 1)
-    log(f"  keccak_absorb  {t_abs:.3f} ms  (plain {t_abs_p:.3f} ms)")
-    log(f"  keccak_squeeze {t_sq:.3f} ms  (plain {t_sq_p:.3f} ms)  [{nw} words]")
+    n_perm = int(nblk.to(torch.int64).sum().item())
+    b_abs = bound(n_perm * 136 + 4 * B + 200 * B, n_perm * KECCAK_OPS)
+    b_sq = bound(200 * B + 4 * nw * B, B * (-(-nw // 34) - 1) * KECCAK_OPS)
+    log(f"  keccak_absorb  {t_abs:.3f} ms  (plain {t_abs_p:.3f} ms, bound "
+        f"{b_abs['bound_ms']:.4f} ms by {b_abs['bound_by']}: {n_perm} permutations)")
+    log(f"  keccak_squeeze {t_sq:.3f} ms  (plain {t_sq_p:.3f} ms, bound "
+        f"{b_sq['bound_ms']:.4f} ms by {b_sq['bound_by']})  [{nw} words]")
     kernel_rows += [
         dict(name="keccak_absorb", route="cuda",
              source="fusion_cryptography_tpu_torch/csrc/keccak_sponge.cu",
              replaces="fusion_cryptography_tpu/ops/keccak_pallas.py:81",
-             max_abs_err=err_a, ms=t_abs, plain_ms=t_abs_p),
+             max_abs_err=err_a, ms=t_abs, plain_ms=t_abs_p, **b_abs, library_ms=None),
         dict(name="keccak_squeeze", route="cuda",
              source="fusion_cryptography_tpu_torch/csrc/keccak_sponge.cu",
              replaces="fusion_cryptography_tpu/ops/keccak_pallas.py:123",
-             max_abs_err=max(errs_s), ms=t_sq, plain_ms=t_sq_p),
+             max_abs_err=max(errs_s), ms=t_sq, plain_ms=t_sq_p, **b_sq, library_ms=None),
     ]
+    del padded, words, by, st_k, st_p
     # -- INTT + norm/weight at the lattice's rows (rank 83 x 4096 groups) ---
     plan = fusion_setup(SECPAR, SEED).plan
     M = 83 * 4096
-    x = torch.randint(0, Q, (M, plan.degree), dtype=torch.int64, device=dev,
+    d = plan.degree
+    x = torch.randint(0, Q, (M, d), dtype=torch.int64, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(SEED))
     x[::97] = 0  # all-zero rows: weight 0, norm 0
     nk, wk = intt_norm_weight(plan, x)
@@ -156,48 +201,124 @@ def phase_kernels(dev, kernel_rows: list) -> None:
     require(int(wk[0]) == 0 and int(nk[0]) == 0, "zero row must give norm 0, weight 0")
     t_i = cuda_ms(lambda: intt_norm_weight(plan, x), 10)
     t_i_p = cuda_ms(lambda: intt_norm_weight_plain(plan, x), 2)
-    log(f"intt_norm_weight: [{M}, {plan.degree}] equal the plain version; "
-        f"{t_i:.3f} ms (plain {t_i_p:.3f} ms)")
+    # butterflies: Shoup multiply (5) + add/sub with reductions (4); per
+    # coefficient: n^-1 scale (5), centering and the two reductions (6)
+    log2d = d.bit_length() - 1
+    b_i = bound(M * d * 8 + M * 8, M * (9 * (d // 2) * log2d + 11 * d))
+    log(f"intt_norm_weight: [{M}, {d}] equal the plain version; {t_i:.3f} ms "
+        f"(plain {t_i_p:.3f} ms, bound {b_i['bound_ms']:.4f} ms by {b_i['bound_by']})")
     kernel_rows.append(
         dict(name="intt_norm_weight", route="cuda",
              source="fusion_cryptography_tpu_torch/csrc/intt_norm_weight.cu",
              replaces="fusion_cryptography_tpu/ops/ntt_mxu_pallas.py:174",
-             max_abs_err=err_i, ms=t_i, plain_ms=t_i_p))
-    del x, padded, words, by, st_k, st_p
+             max_abs_err=err_i, ms=t_i, plain_ms=t_i_p, **b_i, library_ms=None))
+    del x
     torch.cuda.empty_cache()
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    from fusion_cryptography_tpu_torch import kernels
-    from fusion_cryptography_tpu_torch.ops.field import Q
+def fold_inputs(params, B: int, dev):
+    """Seeded lanes at the signer stage's shapes: centered values with 0,
+    +-1 and +-(q-1)/2 among them, prehash digits of 1..78 bytes; lane 0
+    renders every value as "0" with one digit (the shortest triple), lane 1
+    every value as -(q-1)/2 with 78 digits (the longest)."""
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+    from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
+
+    d, q = params.degree, params.modulus
+    rng = np.random.default_rng(SEED + d)
+    vals = rng.integers(-(q // 2), q // 2 + 1, (3 * d, B), dtype=np.int64)
+    edge = rng.random((3 * d, B)) < 0.05
+    vals[edge] = rng.choice([0, 1, -1, q // 2, -(q // 2)], size=int(edge.sum()))
+    vals[:, 0] = 0
+    vals[:, 1] = -(q // 2)
+    lens = rng.integers(1, ds.PREHASH_W + 1, B).astype(np.int32)
+    lens[:2] = [1, ds.PREHASH_W]
+    by = rng.integers(ord("0"), ord("9") + 1, (B, 4 * pf.PRE_ROWS), dtype=np.uint8)
+    by[np.arange(4 * pf.PRE_ROWS)[None, :] >= lens[:, None]] = 0
+    vals = torch.from_numpy(vals.astype(np.int32)).to(dev)
+    return (vals[: 2 * d].contiguous(), vals[2 * d :].contiguous(),
+            torch.from_numpy(by.view(np.int32).T.copy()).to(dev), torch.from_numpy(lens).to(dev))
+
+
+def phase_fold_kernels(dev, kernel_rows: list) -> None:
+    """The three fold kernels at the main path's shapes: B = G*N = 32,768
+    signer lanes, G = 8,192 groups of N = 4 triples."""
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+    from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
     from fusion_cryptography_tpu_torch.params import fusion_setup
+
+    params = fusion_setup(SECPAR, SEED)
+    d, G, N = params.degree, N_GROUPS, N_SIGNERS
+    B = G * N
+    vk2d_t, c_hat_t, pre_w, pre_len = fold_inputs(params, B, dev)
+    got_a = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
+    want_a = pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)
+    err_a = max(max_abs_err(x, y) for x, y in zip(got_a, want_a))
+    require(err_a == 0, "signer_fold_a != plain version")
+    got_b = pf.signer_fold_b(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t)
+    want_b = pf.signer_fold_b_plain(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t)
+    err_b = max(max_abs_err(x, y) for x, y in zip(got_b, want_b))
+    require(err_b == 0, "signer_fold_b != plain version")
+    tri_spec = ds.triple_spec(params)
+    tri_min = ds.spec_min_total(tri_spec, [1])
+    tlen = got_b[1]
+    require(int(tlen[0]) == tri_min and int(tlen[1]) == tri_spec.out_max,
+            f"triple lengths {int(tlen[0])}, {int(tlen[1])} must span "
+            f"{tri_min}..{tri_spec.out_max}")
+    tb = got_b[0].reshape(-1, G, N)  # group g = lanes 4g..4g+3, as the pipeline lays them
+    tl = tlen.reshape(G, N)
+    tbs = [tb[:, :, k] for k in range(N)]
+    tls = [tl[:, k] for k in range(N)]
+    got_g = pf.agg_fold(params, N, tbs, tls)
+    want_g = pf.agg_fold_plain(params, N, tbs, tls)
+    err_g = max(max_abs_err(x, y) for x, y in zip(got_g, want_g))
+    require(err_g == 0, "agg_fold != plain version")
+    log(f"folds: B={B} lanes (secpar={SECPAR}), G={G} x N={N} triples of "
+        f"{int(tlen.min())}..{int(tlen.max())} B: signer_fold_a, signer_fold_b and "
+        "agg_fold equal their plain versions (every word, zero tails included)")
+    del want_a, want_b, want_g
+
+    ch_w, vk_w = ds.signer_fold_a_table(params).widths
+    (tri_w,) = ds.signer_fold_b_table(params).widths
+    (agg_w,) = ds.agg_fold_table(params, N).widths
+    pre_live = live_bytes(pre_len)
+    cases = [
+        ("signer_fold_a", "fusion_cryptography_tpu/ops/fold_pallas.py:502", err_a,
+         lambda: pf.signer_fold_a(params, vk2d_t, pre_w, pre_len),
+         lambda: pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len),
+         bound(4 * 2 * d * B + pre_live + 4 * B + 4 * (ch_w + vk_w + 2) * B,
+               B * (2 * d * RENDER_OPS + (ch_w + vk_w) * WORD_OPS))),
+        ("signer_fold_b", "fusion_cryptography_tpu/ops/fold_pallas.py:587", err_b,
+         lambda: pf.signer_fold_b(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t),
+         lambda: pf.signer_fold_b_plain(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t),
+         bound(live_bytes(got_a[3]) + pre_live + 4 * d * B + 8 * B + 4 * (tri_w + 1) * B,
+               B * (d * RENDER_OPS + tri_w * WORD_OPS))),
+        ("agg_fold", "fusion_cryptography_tpu/ops/fold_pallas.py:675", err_g,
+         lambda: pf.agg_fold(params, N, tbs, tls),
+         lambda: pf.agg_fold_plain(params, N, tbs, tls),
+         bound(live_bytes(tlen) + 4 * B + 4 * (agg_w + 1) * G, G * agg_w * AGG_WORD_OPS)),
+    ]
+    for name, replaces, err, kernel, plain, bnd in cases:
+        t_k = cuda_ms(kernel, 10)
+        t_p = cuda_ms(plain, 2)
+        log(f"  {name:14s} {t_k:.3f} ms  (plain {t_p:.3f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']})")
+        kernel_rows.append(dict(
+            name=name, route="cuda",
+            source="fusion_cryptography_tpu_torch/csrc/preimage_fold.cu",
+            replaces=replaces, max_abs_err=err, ms=t_k, plain_ms=t_p, **bnd,
+            library_ms=None))
+    del got_a, got_b, got_g, tb, tbs
+    torch.cuda.empty_cache()
+
+
+def drive_main_path(params, G: int, N: int, dev) -> tuple:
+    """Fleet build (twice, fresh seeds) and grouped verify -> (fleet tensors,
+    metrics, kernel launches while they ran)."""
+    from fusion_cryptography_tpu_torch import kernels
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
     from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
 
-    dev = torch.device("cuda", 0)
-    card = card_line()
-    log(f"card: {card}")
-    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-
-    # -- 1. build -----------------------------------------------------------
-    t0 = time.time()
-    kernels.library()
-    log(f"kernels built and loaded in {time.time() - t0:.1f} s")
-    for line in kernels.build_report().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
-
-    # -- 2. kernels vs plain ------------------------------------------------
-    kernel_rows: list = []
-    phase_kernels(dev, kernel_rows)
-
-    # -- 3./4. main path ----------------------------------------------------
-    G, N = N_GROUPS, N_SIGNERS
-    params = fusion_setup(SECPAR, SEED)
     kernels.LAUNCHES.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -238,40 +359,112 @@ def main() -> int:
     vps = reps * G / t_tp
     launches = dict(kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"verify: warm call {t_warm:.3f} s; per-call latency median {median(lat):.4f} s "
-        f"({', '.join(f'{x:.4f}' for x in lat)}); {reps} calls, one sync: "
-        f"{t_tp:.3f} s -> {vps:,.0f} verifies/s; peak device memory {peak_gb:.2f} GB")
+    log(f"verify: warm call {t_warm:.3f} s; per-call latency median "
+        f"{median(lat):.4f} s ({', '.join(f'{x:.4f}' for x in lat)}); {reps} calls, one "
+        f"sync: {t_tp:.3f} s -> {vps:,.0f} verifies/s; peak device memory {peak_gb:.2f} GB")
     log(f"kernel launches during fleet build + verify: {launches}")
+    metrics = {
+        "fleet_keys_per_s": G * N / t_fleet, "fleet_first_s": t_fleet_cold,
+        "fleet_s": t_fleet, "verify_warm_s": t_warm,
+        "verify_latency_s": median(lat), "verify_latency_all_s": lat,
+        "verifies_per_s": vps, "verify_reps": reps,
+        "verify_reps_s": t_tp, "peak_mem_gb": peak_gb,
+    }
+    return (vks, msgs, aggs), metrics, launches
 
-    bad_g = G // 3
+
+def check_tamper(params, fleet) -> None:
+    from fusion_cryptography_tpu_torch.ops.field import Q
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    vks, msgs, aggs = fleet
+    bad_g = vks.shape[0] // 3
     bad = aggs.clone()
     bad[bad_g, 0, 0] = (bad[bad_g, 0, 0] + 1) % Q
     eq_b, _, _ = dp.verify_batch_device(params, vks, msgs, bad)
     rejected = torch.nonzero(~eq_b).flatten().tolist()
     require(rejected == [bad_g], f"tampered group {bad_g}: rejected {rejected}")
     log(f"tampered aggregate: rejected exactly group {bad_g}")
-    del bad
 
-    # -- 5. CUDA vs CPU on the first 16 groups -------------------------------
-    g16 = 16
-    out_c = dp.derive_coeffs_device(params, vks[:g16], msgs[: g16 * N], aggs[:g16])
-    out_h = dp.derive_coeffs_device(params, vks[:g16].cpu(), msgs[: g16 * N], aggs[:g16].cpu())
+
+def check_cuda_vs_cpu(params, fleet, groups: int = 16) -> None:
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    vks, msgs, aggs = fleet
+    N = vks.shape[1]
+    m = msgs[: groups * N]
+    out_c = dp.derive_coeffs_device(params, vks[:groups], m, aggs[:groups])
+    out_h = dp.derive_coeffs_device(params, vks[:groups].cpu(), m, aggs[:groups].cpu())
     for name, a, b in zip(("eq", "norm_ok", "weight_ok", "cc", "alphas"), out_c, out_h):
         require(torch.equal(a.cpu(), b), f"derive_coeffs_device {name}: CUDA != CPU")
-    log("derive_coeffs_device: CUDA run equals the CPU run (plain versions) "
-        f"on {g16} groups (eq, norms, weights, challenge and alpha coefficients)")
+    require(bool(out_h[0].all()), "CPU run must verify")
+    log(f"secpar={params.secpar}: derive_coeffs_device on CUDA equals the CPU run (plain versions) on {groups} "
+        "groups (eq, norms, weights, challenge and alpha coefficients)")
 
-    # -- 6. the main path went through every kernel ---------------------------
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from fusion_cryptography_tpu_torch import kernels
+    from fusion_cryptography_tpu_torch.params import fusion_setup
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    t_start = time.time()
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card}")
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    # -- 1. build -----------------------------------------------------------
+    t0 = time.time()
+    kernels.library()
+    log(f"kernels built and loaded in {time.time() - t0:.1f} s")
+    for line in kernels.build_report().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # -- 2. kernels vs plain ------------------------------------------------
+    kernel_rows: list = []
+    phase_kernels(dev, kernel_rows)
+    phase_fold_kernels(dev, kernel_rows)
+
+    # -- 3. main path -------------------------------------------------------
+    G, N = N_GROUPS, N_SIGNERS
+    params = fusion_setup(SECPAR, SEED)
+    fleet, metrics, launches = drive_main_path(params, G, N, dev)
+    check_tamper(params, fleet)
+    check_cuda_vs_cpu(params, fleet)
+    del fleet
+    torch.cuda.empty_cache()
+
+    # -- 4. the secpar=128 lane ---------------------------------------------
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    p128 = fusion_setup(128, SEED)
+    t0 = time.time()
+    fleet128 = build_fleet(p128, LANE128_GROUPS, N, seed0=1, device=dev)
+    eq, norm_ok, weight_ok = dp.verify_batch_device(p128, *fleet128)
+    require(bool(eq.all() & norm_ok.all() & weight_ok.all()), "secpar=128 lane must verify")
+    torch.cuda.synchronize()
+    t128 = time.time() - t0
+    log(f"secpar=128 lane: fleet of {LANE128_GROUPS} groups x {N} built and verified in "
+        f"{t128:.3f} s (first calls), every verdict true")
+    check_cuda_vs_cpu(p128, fleet128)
+    metrics["lane128_groups"] = LANE128_GROUPS
+    metrics["lane128_fleet_and_verify_s"] = t128
+    del fleet128
+
+    # -- 5. the main path went through every kernel ---------------------------
+    require(sorted(r["name"] for r in kernel_rows) == sorted(MAIN_PATH_KERNELS),
+            "kernel table must list every kernel of the main path")
     for row in kernel_rows:
         row["launches"] = int(launches.get(row["name"], 0))
         require(row["launches"] > 0, f"kernel {row['name']} never launched on the main path")
 
-    metrics = dict(
-        card=card, secpar=SECPAR, groups=G, signers=N, group_chunk=dp.DEFAULT_GROUP_CHUNK,
-        fleet_keys_per_s=G * N / t_fleet, fleet_first_s=t_fleet_cold, fleet_s=t_fleet,
-        verify_warm_s=t_warm, verify_latency_s=median(lat), verify_latency_all_s=lat,
-        verifies_per_s=vps, verify_reps=reps, verify_reps_s=t_tp, peak_mem_gb=peak_gb,
-    )
+    metrics.update(card=card, secpar=SECPAR, groups=G, signers=N,
+                   group_chunk=dp.DEFAULT_GROUP_CHUNK, total_s=time.time() - t_start)
     log(json.dumps({"metrics": metrics}))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernel_rows}))

@@ -10,9 +10,11 @@ neither JAX nor the JAX package.
 Entry points::
 
     params = fusion_setup(256, seed)
-    vks, msgs, aggs = build_fleet(params, n_groups, n_signers, device="cuda")
+    vks, msgs, aggs = build_fleet(params, n_groups, n_signers)  # on the card
     eq, norm_ok, weight_ok = verify_batch_device(params, vks, msgs, aggs)
 
+The entry points run on the CUDA device unless given ``device="cpu"`` (or,
+for the verify entry points, CPU tensors), and raise when there is no card.
 Tensors on a CUDA device run the CUDA kernels (built by nvcc at first use);
 tensors on the CPU run the kernels' plain torch versions.
 """

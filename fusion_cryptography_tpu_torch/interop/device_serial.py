@@ -12,7 +12,7 @@ packed words byte-identical to the JAX package's and so to the reference
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from functools import lru_cache
 from typing import List, Optional, Sequence, Tuple
 
@@ -362,3 +362,116 @@ def spec_min_total(spec: PreimageSpec, extra_min_lens: Sequence[int]) -> int:
     """Static lower bound on a spec's assembled length: every const byte, at
     least one digit per number, plus the given per-extra minimums."""
     return int(spec.const_len.sum()) + spec.num_numbers + sum(extra_min_lens)
+
+
+# ---------------------------------------------------------------------------
+# Op tables of the preimage fold kernels (ops/preimage_fold.py)
+# ---------------------------------------------------------------------------
+
+# op kinds; an op is int32[OP_FIELDS] = (kind, writer mask, a0, a1, a2, a3):
+#   const: a0 = pool word offset, a1 = byte count
+#   cells: a0 = separator's pool word offset, a1 = its byte count,
+#          a2 = first value row, a3 = number of values (sep ++ str(v) each)
+#   extra: a0 = extra index (a per-lane string in packed words)
+OP_CONST, OP_CELLS, OP_EXTRA = 0, 1, 2
+OP_FIELDS = 6
+
+
+def _pad_rate_words(out_max: int) -> int:
+    """Words of a preimage padded to whole SHAKE256 rate blocks (+1: the pad
+    byte may start a block)."""
+    return -(-(out_max + 1) // 136) * 34
+
+
+@dataclass(frozen=True, eq=False)
+class FoldTable:
+    """A fold kernel's program: ops over a const-byte pool, evaluated per lane
+    into one or two packed-word outputs (the ``writer mask`` bits), each
+    zero-filled to its width."""
+
+    pool: np.ndarray  # int32 words; every const and separator starts a word
+    ops: np.ndarray  # int32[n_ops, OP_FIELDS]
+    widths: Tuple[int, ...]  # output words per writer
+    _device: dict = field(default_factory=dict, repr=False)
+
+    def on(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(ops, pool) tensors on ``device``, made once per device."""
+        key = str(device)
+        if key not in self._device:
+            self._device[key] = (torch.as_tensor(self.ops, device=device),
+                                 torch.as_tensor(self.pool, device=device))
+        return self._device[key]
+
+
+class _TableBuilder:
+    def __init__(self):
+        self._pool: List[int] = []
+        self._at: dict = {}
+        self._ops: List[Tuple[int, ...]] = []
+
+    def _intern(self, data: bytes) -> int:
+        if data not in self._at:
+            self._at[data] = len(self._pool)
+            padded = data + b"\0" * (-len(data) % 4)
+            self._pool.extend(int(w) for w in np.frombuffer(padded, "<u4"))
+        return self._at[data]
+
+    def const(self, data: bytes, mask: int = 1) -> "_TableBuilder":
+        if data:
+            self._ops.append((OP_CONST, mask, self._intern(data), len(data), 0, 0))
+        return self
+
+    def extra(self, e: int, mask: int = 1) -> "_TableBuilder":
+        self._ops.append((OP_EXTRA, mask, e, 0, 0, 0))
+        return self
+
+    def nodes(self, nodes, mask: int = 1) -> "_TableBuilder":
+        """A spec's evaluation nodes, in order."""
+        for node in nodes:
+            if node[0] == "const":
+                self.const(node[1], mask)
+            elif node[0] == "cells":
+                _, sep, i0, count = node
+                if len(sep) > _MAX_SEP:
+                    raise ValueError(f"cell separator of {len(sep)} bytes > {_MAX_SEP}")
+                off = self._intern(sep) if sep else 0
+                self._ops.append((OP_CELLS, mask, off, len(sep), i0, count))
+            else:
+                self.extra(node[1], mask)
+        return self
+
+    def build(self, widths: Sequence[int]) -> FoldTable:
+        ops = np.asarray(self._ops, dtype=np.int32).reshape(-1, OP_FIELDS)
+        pool = np.asarray(self._pool or [0], dtype=np.uint32).view(np.int32)
+        return FoldTable(pool=pool, ops=ops, widths=tuple(widths))
+
+
+@lru_cache(maxsize=32)
+def signer_fold_a_table(params) -> FoldTable:
+    """Writers: 1 = the challenge preimage dst + "," + str(vk) + "," + str(i)
+    padded to whole rate blocks, 2 = the str(vk) chunk; extra 0 = the prehash
+    digits.  Values: vk[0] ++ vk[1] centered (2*degree)."""
+    b = _TableBuilder()
+    b.const(bytes(params.sign_hash_dst) + b",", 1)
+    b.nodes(vk_body_spec(params).nodes, 3)
+    b.const(b",", 1).extra(0, 1)
+    return b.build((_pad_rate_words(challenge_preimage_spec(params).out_max),
+                    rw.words_for(vk_body_spec(params).out_max)))
+
+
+@lru_cache(maxsize=32)
+def signer_fold_b_table(params) -> FoldTable:
+    """Writer 1 = the triple str((vk, i, challenge)); extra 0 = the str(vk)
+    chunk, extra 1 = the prehash digits.  Values: c_hat centered (degree)."""
+    b = _TableBuilder()
+    b.const(b"(").extra(0).const(b", ").extra(1).const(b", ")
+    b.nodes(challenge_body_spec(params).nodes).const(b")")
+    return b.build((rw.words_for(triple_spec(params).out_max),))
+
+
+@lru_cache(maxsize=32)
+def agg_fold_table(params, n_signers: int) -> FoldTable:
+    """Writer 1 = the aggregation preimage dst + "," + str(list(zip(...)))
+    padded to whole rate blocks; extra k = signer k's triple."""
+    spec = agg_preimage_spec(params, n_signers, triple_spec(params).out_max)
+    return _TableBuilder().nodes(spec.nodes).build((_pad_rate_words(spec.out_max),))

@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled by ``nvcc`` for Hopper (``sm_90a``) at first use
-into ``build/kernels/<hash>/`` and loaded with ctypes through a plain C
-interface (no PyTorch headers, so a build takes seconds).  Only the wrappers
-in ``ops/keccak_sponge.py`` and ``ops/intt_norm_weight.py`` call into the
+Each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``) at first
+use, all of them at once, into ``build/kernels_<source>/<hash>/``, and loaded
+with ctypes through a plain C interface (no PyTorch headers, so a build takes
+seconds).  Only the wrappers in ``ops/keccak_sponge.py``,
+``ops/intt_norm_weight.py`` and ``ops/preimage_fold.py`` call into the
 library; each adds one to ``LAUNCHES[name]`` where it launches its kernel,
 so a run can show that its main path went through the kernels.
 """
@@ -13,23 +14,45 @@ import ctypes
 import shutil
 import threading
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from types import SimpleNamespace
+from typing import List, Optional
 
 import torch
 
 from ._build import build_log, build_shared_library
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "keccak_sponge.cu", CSRC / "intt_norm_weight.cu")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_P, _I32, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
+# source -> its C entry points and their argtypes; every entry point returns
+# cudaGetLastError()
+SOURCES = {
+    "keccak_sponge.cu": {
+        "fct_keccak_absorb": [_P, _P, _P, _I32, _I64, _P],
+        "fct_keccak_squeeze": [_P, _P, _I32, _I64, _P],
+    },
+    "intt_norm_weight.cu": {
+        "fct_intt_norm_weight": [_P, _I64, _I32, _P, _P, _U32, _U32, _U32, _P, _P, _P],
+    },
+    "preimage_fold.cu": {
+        "fct_signer_fold_a": [_P, _I32, _P, _P, _P, _I32, _P, _I64, _P, _I32, _P, _P, _I32,
+                              _P, _P],
+        "fct_signer_fold_b": [_P, _I32, _P, _P, _I32, _P, _P, _I32, _P, _P, _I64, _P, _I32,
+                              _P, _P],
+        "fct_agg_fold": [_P, _I32, _P, _P, _I32, _I64, _I64, _I64, _I32, _I64, _P, _I32, _P,
+                         _P],
+    },
+}
 
 # kernel name -> launches since the last clear()
 LAUNCHES: Counter = Counter()
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_lib_path: Optional[Path] = None
+_lib: Optional[SimpleNamespace] = None
+_lib_paths: List[Path] = []
 
 
 def _nvcc() -> str:
@@ -42,36 +65,44 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _command(out: Path) -> list:
-    return [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
-        "-shared", "-Xcompiler", "-fPIC", "-o", str(out), *map(str, SOURCES),
-    ]
+def _command(src: Path):
+    def command(out: Path) -> list:
+        return [
+            _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v",
+            "-shared", "-Xcompiler", "-fPIC", "-o", str(out), str(src),
+        ]
+    return command
 
 
-def library() -> ctypes.CDLL:
-    """The kernel library, built on first call (raises if nvcc fails)."""
-    global _lib, _lib_path
+def _build(name: str) -> Path:
+    src = CSRC / name
+    return build_shared_library(f"kernels_{src.stem}", [src], _command(src))
+
+
+def library() -> SimpleNamespace:
+    """Every entry point of ``SOURCES``, built on first call: one nvcc per
+    source, all started together (raises if a build fails)."""
+    global _lib, _lib_paths
     with _lock:
         if _lib is not None:
             return _lib
-        path = build_shared_library("kernels", SOURCES, _command)
-        lib = ctypes.CDLL(str(path))
-        P, I32, I64, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
-        lib.fct_keccak_absorb.argtypes = [P, P, P, I32, I64, P]
-        lib.fct_keccak_absorb.restype = I32
-        lib.fct_keccak_squeeze.argtypes = [P, P, I32, I64, P]
-        lib.fct_keccak_squeeze.restype = I32
-        lib.fct_intt_norm_weight.argtypes = [P, I64, I32, P, P, U32, U32, U32, P, P, P]
-        lib.fct_intt_norm_weight.restype = I32
-        _lib, _lib_path = lib, path
-        return lib
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            paths = list(pool.map(_build, SOURCES))
+        fns = {}
+        for path, entries in zip(paths, SOURCES.values()):
+            dll = ctypes.CDLL(str(path))
+            for name, argtypes in entries.items():
+                fn = getattr(dll, name)
+                fn.argtypes, fn.restype = argtypes, _I32
+                fns[name] = fn
+        _lib, _lib_paths = SimpleNamespace(**fns), paths
+        return _lib
 
 
 def build_report() -> str:
-    """nvcc's output for the loaded library (``-Xptxas -v`` register and
+    """nvcc's output for the loaded libraries (``-Xptxas -v`` register and
     spill report per kernel)."""
-    return build_log(_lib_path) if _lib_path is not None else ""
+    return "".join(build_log(p) for p in _lib_paths)
 
 
 def cuda_stream() -> ctypes.c_void_p:

@@ -1,22 +1,30 @@
 """Grouped aggregate-verify with the whole hash pipeline on the device.
 
-Port of the default configuration of the JAX package's
-``scheme/device_pipeline.py`` (packed-word hash path, SHA3 prehash on the
-device, fused sponge, fused INTT + norm/weight):
+Port of the JAX package's ``scheme/device_pipeline.py`` (packed-word hash
+path, SHA3 prehash on the device, fused sponge, preimage folds, fused INTT +
+norm/weight):
 
   vks int32[G, N, 2, d], ``dst + "," + message`` bytes, aggs int32[G, rank, d]
     -> prehash:     SHA3-256 (sponge kernels) + 78-digit decimal render
-    -> signer hash: str(vk) chunk, challenge preimage, SHAKE256 (sponge
-                    kernels), challenge decode, challenge NTT, triple preimage
-    -> group hash:  aggregation preimage, SHAKE256, per-signer alpha decode
+    -> signer hash: str(vk) chunk + challenge preimage (signer_fold_a
+                    kernel), SHAKE256 (sponge kernels), challenge decode,
+                    challenge NTT, triple preimage (signer_fold_b kernel)
+    -> group hash:  aggregation preimage (agg_fold kernel), SHAKE256,
+                    per-signer alpha decode
     -> lattice:     target/observed sums (ops/field), INTT + norm/weight
                     (CUDA kernel)
+
+The three preimages come from the fold kernels of ops/preimage_fold.py, the
+JAX package's ``make_stages(pallas_folds=True)`` configuration; on the CPU
+their plain versions assemble the same bytes by prefix sum + scatter
+(interop/device_serial, ops/ragged_words).
 
 Groups are processed in chunks of ``group_chunk`` complete groups (every
 chunk holds all N signers of its groups, so its aggregation preimages close
 over its own triples), which bounds the working set at any G.  Results are
 bool[G] tensors on the device the inputs live on: on a CUDA device the
-sponge and INTT stages run the CUDA kernels, on the CPU their plain versions.
+kernels run, on the CPU their plain versions.  Numpy inputs go to the card
+unless ``device="cpu"`` is given.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ import numpy as np
 import torch
 
 from ..hashing.xof import agg_block_len, challenge_xof_len
-from ..interop import device_serial as ds
+from ..ops import preimage_fold as pf
 from ..ops import ragged_words as rw
 from ..ops import xof_decode
 from ..ops.intt_norm_weight import intt_norm_weight
@@ -47,8 +55,6 @@ def _pad_rate(n: int) -> int:
 def _geometries(params: Params) -> dict:
     bound_ch = max(1, min(params.modulus // 2, params.beta_ch))
     bound_ag = max(1, min(params.modulus // 2, params.beta_ag))
-    ch_spec = ds.challenge_preimage_spec(params)
-    tri_spec = ds.triple_spec(params)
     n_xof_ch = challenge_xof_len(
         params.secpar, params.degree, params.modulus, params.beta_ch, params.omega_ch
     )
@@ -56,9 +62,6 @@ def _geometries(params: Params) -> dict:
         params.secpar, params.modulus, params.degree, bound_ch, params.omega_ch
     )
     return dict(
-        ch_spec=ch_spec,
-        tri_spec=tri_spec,
-        tri_min=ds.spec_min_total(tri_spec, [1]),
         # the decoder never reads the stream tail: squeeze only the prefix
         n_xof_ch_used=xof_decode.consumed_bytes(geom_ch, n_xof_ch),
         block_ag=agg_block_len(
@@ -71,6 +74,15 @@ def _geometries(params: Params) -> dict:
     )
 
 
+def resolve_device(device) -> torch.device:
+    """``device``, or the CUDA device when it is None; raises when that
+    device is CUDA and there is none (nothing falls back to the CPU)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
 def make_stages(params: Params, n_signers: int):
     """The hash stages shared by grouped verify and the fleet build
     (scheme/device_setup.py), as (prehash_stage, signer_stage, group_stage):
@@ -79,7 +91,8 @@ def make_stages(params: Params, n_signers: int):
         -> (pre_w int32[20, B], pre_len int32[B])
     signer_stage(vk2d_t int32[2d, B], pre_w int32[20, B], pre_len int32[B])
         -> (cc int32[B, d], c_hat_u int64[B, d], tbuf int32[Lt, B], tlen int32[B])
-    group_stage(tbs [N x int32[Lt, G]], tls [N x int32[G]])
+    group_stage(tbs [N x int32[Lt, G]], tls [N x int32[G]]; strided views
+                with one shared stride allowed)
         -> alphas int32[G, N, d]
     """
     plan = params.plan
@@ -87,9 +100,6 @@ def make_stages(params: Params, n_signers: int):
     g = _geometries(params)
     d = params.degree
     N = n_signers
-    ch_spec, tri_spec = g["ch_spec"], g["tri_spec"]
-    agg_spec = ds.agg_preimage_spec(params, N, tri_spec.out_max)
-    tri_bounds = [(g["tri_min"], tri_spec.out_max)] * N
     n_ch_words = -(-g["n_xof_ch_used"] // 4)
     n_ag_words = -(-(N * g["block_ag"]) // 4)
 
@@ -104,28 +114,20 @@ def make_stages(params: Params, n_signers: int):
         return chunk.buf, chunk.length
 
     def signer_stage(vk2d_t, pre_w, pre_len):
-        """The str(vk) subtree is assembled once and folded into both the
-        challenge preimage and the triple."""
-        pre_chunk = rw.WChunk(buf=pre_w, length=pre_len.to(torch.int32),
-                              max_len=ds.PREHASH_W, min_len=1)
-        vk_chunk = ds.vk_chunk_w(params, vk2d_t)
-        wbuf, total = ds.fold_challenge_preimage_w(
-            params, vk_chunk, pre_chunk, pad_words=_pad_rate(ch_spec.out_max) // 4
-        )
+        """The str(vk) chunk of signer_fold_a is folded into both the
+        challenge preimage and the triple (JAX device_pipeline.py:261-275)."""
+        pre_len = pre_len.to(torch.int32)
+        wbuf, total, vk_buf, vk_len = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
         xw = shake256_words_w(wbuf, total, n_ch_words)
         cc = xof_decode.decode_coeffs_w(xw, g["geom_ch"], g["n_xof_ch_used"]).t()  # [B, d]
         c_hat_u = ntt_fwd_u(plan, F.to_unsigned(cc))  # [B, d]
-        c_hat_t = F.to_centered(c_hat_u).t().contiguous()  # [d, B]
-        tbuf, tlen = ds.fold_triple_w(params, vk_chunk, pre_chunk, c_hat_t)
+        c_hat_t = F.to_centered(c_hat_u).t().contiguous()
+        tbuf, tlen = pf.signer_fold_b(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t)
         return cc, c_hat_u, tbuf, tlen
 
     def group_stage(tbs, tls):
         G = tbs[0].shape[1]
-        extras = [(tbs[k], tls[k]) for k in range(N)]
-        wbuf, total = ds.assemble_chunks_words(
-            agg_spec, values=None, extras=extras, extra_bounds=tri_bounds,
-            pad_words=_pad_rate(agg_spec.out_max) // 4,
-        )
+        wbuf, total = pf.agg_fold(params, N, tbs, tls)
         blob_w = shake256_words_w(wbuf, total, n_ag_words)  # [ceil(N*block/4), G]
         per_w = xof_decode.split_streams_w(blob_w, N, g["block_ag"])  # [bw, G, N]
         al_t = xof_decode.decode_coeffs_w(
@@ -176,10 +178,8 @@ class _Pipeline:
         cc, c_hat_u, tbuf, tlen = self.signer(vk2d_t, pre_w, pre_len)
         tb = tbuf.reshape(tbuf.shape[0], c, self.N)
         tl = tlen.reshape(c, self.N)
-        al = self.group(
-            [tb[:, :, k].contiguous() for k in range(self.N)],
-            [tl[:, k].contiguous() for k in range(self.N)],
-        )
+        # agg_fold reads signer k's columns through strides: no copies
+        al = self.group([tb[:, :, k] for k in range(self.N)], [tl[:, k] for k in range(self.N)])
         return cc, c_hat_u, al
 
     def lattice(self, vks, c_hat_u, al, aggs):
@@ -214,9 +214,13 @@ def _message_tensors(params: Params, messages: Sequence[str], device) -> Tuple[t
 
 
 def _verify_chunks(params: Params, vks, messages: Sequence[str], aggs,
-                   group_chunk: int, want_coeffs: bool):
-    vks = torch.as_tensor(vks)
-    aggs = torch.as_tensor(aggs, device=vks.device)
+                   group_chunk: int, want_coeffs: bool, device):
+    if device is None and isinstance(vks, torch.Tensor):
+        dev = vks.device
+    else:
+        dev = resolve_device(device)
+    vks = torch.as_tensor(vks, device=dev)
+    aggs = torch.as_tensor(aggs, device=dev)
     G, N = vks.shape[0], vks.shape[1]
     msgs = list(messages)
     if len(msgs) != G * N:
@@ -238,19 +242,22 @@ def _verify_chunks(params: Params, vks, messages: Sequence[str], aggs,
 
 
 def verify_batch_device(params: Params, vks, messages: Sequence[str], aggs, *,
-                        group_chunk: int = DEFAULT_GROUP_CHUNK):
-    """Grouped verify with the full hash pipeline on the device of ``vks``.
+                        group_chunk: int = DEFAULT_GROUP_CHUNK, device=None):
+    """Grouped verify with the full hash pipeline on one device.
 
     vks int32[G, N, 2, d] (sorted within each group by vk repr — the
     reference's canonical order, fusion.py:661-663); messages flat G*N
-    strings in the same order; aggs int32[G, rank, d].  Returns
-    (eq, norm_ok, weight_ok) bool[G] tensors on that device.
+    strings in the same order; aggs int32[G, rank, d].  The device is
+    ``device`` if given, else that of a ``vks`` tensor, else CUDA (numpy
+    inputs; raises without a card).  Returns (eq, norm_ok, weight_ok) bool[G]
+    tensors on that device.
     """
-    return _verify_chunks(params, vks, messages, aggs, group_chunk, False)
+    return _verify_chunks(params, vks, messages, aggs, group_chunk, False, device)
 
 
 def derive_coeffs_device(params: Params, vks, messages: Sequence[str], aggs, *,
-                         group_chunk: int = DEFAULT_GROUP_CHUNK):
+                         group_chunk: int = DEFAULT_GROUP_CHUNK, device=None):
     """Debug/test entry: (eq, norm_ok, weight_ok, challenge coefficients
-    int32[G, N, d], alpha coefficients int32[G, N, d])."""
-    return _verify_chunks(params, vks, messages, aggs, group_chunk, True)
+    int32[G, N, d], alpha coefficients int32[G, N, d]); arguments as
+    :func:`verify_batch_device`."""
+    return _verify_chunks(params, vks, messages, aggs, group_chunk, True, device)

@@ -117,9 +117,11 @@ def build_fleet(
     seed0: int = 1,
     messages: Optional[Sequence[str]] = None,
     group_chunk: int = dp.DEFAULT_GROUP_CHUNK,
-    device="cpu",
+    device=None,
 ) -> Tuple[torch.Tensor, List[str], torch.Tensor]:
-    """Build G aggregate-signature groups of N signers on ``device``.
+    """Build G aggregate-signature groups of N signers on ``device`` (CUDA
+    when None; raises without a card, and only ``device="cpu"`` runs on the
+    CPU).
 
     Key k of the flat batch uses seeds (seed0 + k, seed0 + k + 1).  Returns
     (vks int32[G, N, 2, d] sorted within groups by str(vk), messages flat
@@ -130,7 +132,7 @@ def build_fleet(
     G, N = n_groups, n_signers
     B = G * N
     d = params.degree
-    device = torch.device(device)
+    device = dp.resolve_device(device)
     if messages is None:
         messages = [f"group{g}:msg{i}" for g in range(G) for i in range(N)]
     messages = list(messages)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels, compiled, vs their plain torch versions.
 
 Marked ``cuda``: they need an NVIDIA GPU with nvcc (sm_90a) and skip
-without one.  Run on the GPU machine with
-``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``."""
+without one.  Run on the GPU machine (which has no JAX, hence no conftest) with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``."""
 from hashlib import shake_256
 
 import numpy as np
@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from fusion_cryptography_tpu_torch import kernels
+from fusion_cryptography_tpu_torch import fusion_setup
+from fusion_cryptography_tpu_torch.interop import device_serial as ds
 from fusion_cryptography_tpu_torch.ops import keccak, keccak_sponge as ks
+from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
 from fusion_cryptography_tpu_torch.ops.field import Q
 from fusion_cryptography_tpu_torch.ops.intt_norm_weight import (
     intt_norm_weight,
@@ -70,20 +73,75 @@ def test_wrappers_check_their_inputs(dev):
     with pytest.raises(ValueError):
         ks.absorb(torch.zeros((34, 8), dtype=torch.int64, device=dev),
                   torch.ones(8, dtype=torch.int32, device=dev))
+    params = fusion_setup(128, 1)
+    d, B = params.degree, 8
+    z = torch.zeros((2 * d, B), dtype=torch.int32, device=dev)
+    pre_w = torch.zeros((pf.PRE_ROWS, B), dtype=torch.int32, device=dev)
+    pre_len = torch.ones(B, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # prehash digits on the CPU
+        pf.signer_fold_a(params, z, pre_w.cpu(), pre_len)
+    with pytest.raises(ValueError):  # int64 lengths
+        pf.signer_fold_a(params, z, pre_w, pre_len.long())
+    with pytest.raises(ValueError):  # triples of different strides
+        tri = torch.zeros((801, 2 * B), dtype=torch.int32, device=dev)
+        pf.agg_fold(params, 2, [tri[:, :B], tri[:, ::2]], [pre_len, pre_len])
 
 
-def test_pipeline_on_cuda_equals_cpu(dev):
-    from fusion_cryptography_tpu_torch import fusion_setup
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_fold_kernels_match_plain(dev, secpar):
+    """B=300 lanes (a ragged edge of every launch geometry)."""
+    params = fusion_setup(secpar, 2)
+    d, q, B, N = params.degree, params.modulus, 300, 4
+    rng = np.random.default_rng(secpar)
+    vals = rng.integers(-(q // 2), q // 2 + 1, (3 * d, B), dtype=np.int64)
+    vals[:5, 0] = [0, 1, -1, q // 2, -(q // 2)]
+    vals = torch.from_numpy(vals.astype(np.int32)).to(dev)
+    vk2d_t, c_hat_t = vals[: 2 * d].contiguous(), vals[2 * d :].contiguous()
+    lens = rng.integers(1, ds.PREHASH_W + 1, B).astype(np.int32)
+    by = rng.integers(ord("0"), ord("9") + 1, (B, 4 * pf.PRE_ROWS), dtype=np.uint8)
+    by[np.arange(4 * pf.PRE_ROWS)[None, :] >= lens[:, None]] = 0
+    pre_w = torch.from_numpy(by.view(np.int32).T.copy()).to(dev)
+    pre_len = torch.from_numpy(lens).to(dev)
+
+    before = dict(kernels.LAUNCHES)
+    got_a = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
+    got_b = pf.signer_fold_b(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t)
+    G = B // N
+    tb = got_b[0][:, : G * N].reshape(-1, G, N)
+    tl = got_b[1][: G * N].reshape(G, N)
+    got_g = pf.agg_fold(params, N, [tb[:, :, k] for k in range(N)], [tl[:, k] for k in range(N)])
+    torch.cuda.synchronize()
+    assert all(kernels.LAUNCHES[k] == before.get(k, 0) + 1
+               for k in ("signer_fold_a", "signer_fold_b", "agg_fold"))
+    want_a = pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)
+    want_b = pf.signer_fold_b_plain(params, want_a[2], want_a[3], pre_w, pre_len, c_hat_t)
+    wtb = want_b[0][:, : G * N].reshape(-1, G, N)
+    wtl = want_b[1][: G * N].reshape(G, N)
+    want_g = pf.agg_fold_plain(params, N, [wtb[:, :, k].contiguous() for k in range(N)],
+                               [wtl[:, k].contiguous() for k in range(N)])
+    for got, want in zip((*got_a, *got_b, *got_g), (*want_a, *want_b, *want_g)):
+        assert torch.equal(got, want)
+    # separate contiguous buffers (no shared base) through the pointer table
+    got_c = pf.agg_fold(params, N, [tb[:, :, k].contiguous() for k in range(N)],
+                        [tl[:, k].contiguous() for k in range(N)])
+    assert all(torch.equal(g, w) for g, w in zip(got_c, want_g))
+
+
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_pipeline_on_cuda_equals_cpu(dev, secpar):
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
     from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
 
-    params = fusion_setup(256, 3)
-    vks, msgs, aggs = build_fleet(params, 5, 3, seed0=9, device=dev)
+    params = fusion_setup(secpar, 3)
     before = dict(kernels.LAUNCHES)
+    vks, msgs, aggs = build_fleet(params, 5, 3, seed0=9, device=dev)
     out_c = dp.derive_coeffs_device(params, vks, msgs, aggs, group_chunk=2)
     assert all(kernels.LAUNCHES[k] > before.get(k, 0)
-               for k in ("keccak_absorb", "keccak_squeeze", "intt_norm_weight"))
-    out_h = dp.derive_coeffs_device(params, vks.cpu(), msgs, aggs.cpu())
+               for k in ("keccak_absorb", "keccak_squeeze", "intt_norm_weight",
+                         "signer_fold_a", "signer_fold_b", "agg_fold"))
+    hv, hm, ha = build_fleet(params, 5, 3, seed0=9, device="cpu")
+    assert torch.equal(vks.cpu(), hv) and msgs == hm and torch.equal(aggs.cpu(), ha)
+    out_h = dp.derive_coeffs_device(params, hv, hm, ha)
     for a, b in zip(out_c, out_h):
         assert torch.equal(a.cpu(), b)
     assert bool(out_c[0].all())

@@ -2,7 +2,8 @@
 
 ``csrc/*.cu`` keep each kernel's per-lane and per-row work (Keccak-f and the
 sponge lanes; the Gentleman-Sande butterflies, Shoup multiplies and centered
-reduction) in functions that also compile as plain C++: without nvcc,
+reduction; the preimage folds' op-table walk, decimal rendering and word
+stream) in functions that also compile as plain C++: without nvcc,
 ``FCT_HD`` is ``static inline`` and the ``__global__`` parts drop out.  These
 tests build them with the host C++ compiler, with a serial loop in place of
 the CUDA grid, and hold them against the plain torch versions and hashlib.
@@ -18,7 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from fusion_cryptography_tpu_torch import fusion_setup
+from fusion_cryptography_tpu_torch.interop import device_serial as ds
 from fusion_cryptography_tpu_torch.ops import keccak as tk
+from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
 from fusion_cryptography_tpu_torch.ops.field import Q
 from fusion_cryptography_tpu_torch.ops.intt_norm_weight import intt_norm_weight_plain
 from fusion_cryptography_tpu_torch.ops.ntt import make_plan, ntt_fwd_u
@@ -30,6 +34,7 @@ CSRC = Path(__file__).resolve().parents[1] / "fusion_cryptography_tpu_torch" / "
 HOST_LOOPS = r"""
 #include "keccak_sponge.cu"
 #include "intt_norm_weight.cu"
+#include "preimage_fold.cu"
 
 extern "C" void host_absorb(const uint32_t* words, const int32_t* nblk,
                             uint32_t* state, int max_blocks, int64_t batch) {
@@ -65,6 +70,44 @@ extern "C" void host_intt_norm_weight(const int64_t* x, int64_t rows, int d,
     wgt[row] = c;
   }
 }
+
+extern "C" void host_signer_fold_a(const int32_t* ops, int n_ops, const uint32_t* pool,
+                                   const int32_t* vk2d_t, const uint32_t* pre_w,
+                                   int pre_rows, const int32_t* pre_len, int64_t batch,
+                                   uint32_t* ch_out, int ch_width, int32_t* ch_total,
+                                   uint32_t* vk_out, int vk_width, int32_t* vk_len) {
+  for (int64_t b = 0; b < batch; ++b)
+    signer_fold_a_lane(ops, n_ops, pool, vk2d_t, pre_w, pre_rows, pre_len, batch, b,
+                       ch_out, ch_width, ch_total, vk_out, vk_width, vk_len);
+}
+
+extern "C" void host_signer_fold_b(const int32_t* ops, int n_ops, const uint32_t* pool,
+                                   const uint32_t* vk_buf, int vk_rows,
+                                   const int32_t* vk_len, const uint32_t* pre_w,
+                                   int pre_rows, const int32_t* pre_len,
+                                   const int32_t* c_hat_t, int64_t batch,
+                                   uint32_t* tri_out, int tri_width, int32_t* tri_total) {
+  for (int64_t b = 0; b < batch; ++b)
+    signer_fold_b_lane(ops, n_ops, pool, vk_buf, vk_rows, vk_len, pre_w, pre_rows,
+                       pre_len, c_hat_t, batch, b, tri_out, tri_width, tri_total);
+}
+
+// runs of ``run`` words per group, as the grid's word axis splits them
+extern "C" void host_agg_fold(const int32_t* ops, int n_ops, const uint32_t* pool,
+                              const int64_t* ptrs, int n_signers, int64_t row_stride,
+                              int64_t col_stride, int64_t len_stride, int tri_rows,
+                              int64_t groups, uint32_t* out, int out_width,
+                              int32_t* total, int run) {
+  const uint32_t* const* tb = reinterpret_cast<const uint32_t* const*>(ptrs);
+  const int32_t* const* tl = reinterpret_cast<const int32_t* const*>(ptrs + n_signers);
+  for (int64_t g = 0; g < groups; ++g) {
+    const AggGroup a = make_agg_group(ops, n_ops, pool, tb, tl, row_stride, col_stride,
+                                      len_stride, tri_rows, g);
+    for (int w0 = 0; w0 < out_width; w0 += run)
+      agg_fold_words(a, w0, w0 + run < out_width ? w0 + run : out_width, out + g, groups);
+    total[g] = agg_total(a);
+  }
+}
 """
 
 
@@ -84,6 +127,9 @@ def lib(tmp_path_factory):
     lib.host_absorb.argtypes = [P, P, P, I32, I64]
     lib.host_squeeze.argtypes = [P, P, I32, I64]
     lib.host_intt_norm_weight.argtypes = [P, I64, I32, P, P, U32, U32, U32, P, P]
+    lib.host_signer_fold_a.argtypes = [P, I32, P, P, P, I32, P, I64, P, I32, P, P, I32, P]
+    lib.host_signer_fold_b.argtypes = [P, I32, P, P, I32, P, P, I32, P, P, I64, P, I32, P]
+    lib.host_agg_fold.argtypes = [P, I32, P, P, I32, I64, I64, I64, I32, I64, P, I32, P, I32]
     return lib
 
 
@@ -147,3 +193,81 @@ def test_intt_norm_weight_rows_match_plain(lib, d, root):
     np.testing.assert_array_equal(nrm.numpy(), want_n.numpy())
     np.testing.assert_array_equal(wgt.numpy(), want_w.numpy())
     assert int(wgt[0]) == 0 and sorted(wgt[3:7].tolist()) != [d] * 4
+
+
+def _fold_inputs(params, B, seed):
+    """Centered values with the edge cases 0, +-1, +-(q-1)/2 and the int32
+    extremes; prehash digit words with ragged lengths 1..78 and stray bytes
+    past each length (both versions must ignore them)."""
+    d, q = params.degree, params.modulus
+    rng = np.random.default_rng(seed)
+    vals = rng.integers(-(q // 2), q // 2 + 1, (3 * d, B), dtype=np.int64)
+    edges = [0, 1, -1, q // 2, -(q // 2), 9, -10, 2**31 - 1, -(2**31)]
+    vals[: len(edges), 0] = edges
+    vals[:, 1] = 0
+    vals[:, 2] = rng.integers(-9, 10, 3 * d)
+    vals = torch.from_numpy(vals.astype(np.int32))
+    lens = rng.integers(1, ds.PREHASH_W + 1, B).astype(np.int32)
+    lens[:3] = [1, ds.PREHASH_W, 4]
+    by = rng.integers(0, 256, (B, 4 * pf.PRE_ROWS), dtype=np.uint8)
+    digits = rng.integers(ord("0"), ord("9") + 1, (B, 4 * pf.PRE_ROWS), dtype=np.uint8)
+    live = np.arange(4 * pf.PRE_ROWS)[None, :] < lens[:, None]
+    by = np.where(live, digits, by)
+    pre_w = torch.from_numpy(by.view(np.int32).T.copy())
+    return vals[: 2 * d].contiguous(), vals[2 * d :].contiguous(), pre_w, torch.from_numpy(lens)
+
+
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_fold_lanes_match_plain(lib, secpar):
+    params = fusion_setup(secpar, 3)
+    B, N = 37, 3
+    vk2d_t, c_hat_t, pre_w, pre_len = _fold_inputs(params, B, secpar)
+
+    ta = ds.signer_fold_a_table(params)
+    ch_words, vk_words = ta.widths
+    chb = torch.full((ch_words, B), -1, dtype=torch.int32)  # every word must be written
+    cht = torch.empty(B, dtype=torch.int32)
+    vkb = torch.full((vk_words, B), -1, dtype=torch.int32)
+    vkl = torch.empty(B, dtype=torch.int32)
+    ops, pool = ta.on("cpu")
+    lib.host_signer_fold_a(ops.data_ptr(), ops.shape[0], pool.data_ptr(), vk2d_t.data_ptr(),
+                           pre_w.data_ptr(), pf.PRE_ROWS, pre_len.data_ptr(), B,
+                           chb.data_ptr(), ch_words, cht.data_ptr(), vkb.data_ptr(),
+                           vk_words, vkl.data_ptr())
+    want = pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)
+    for got, exp in zip((chb, cht, vkb, vkl), want):
+        np.testing.assert_array_equal(got.numpy(), exp.numpy())
+
+    tb_table = ds.signer_fold_b_table(params)
+    (tri_words,) = tb_table.widths
+    trib = torch.full((tri_words, B), -1, dtype=torch.int32)
+    trit = torch.empty(B, dtype=torch.int32)
+    ops, pool = tb_table.on("cpu")
+    lib.host_signer_fold_b(ops.data_ptr(), ops.shape[0], pool.data_ptr(), vkb.data_ptr(),
+                           vk_words, vkl.data_ptr(), pre_w.data_ptr(), pf.PRE_ROWS,
+                           pre_len.data_ptr(), c_hat_t.data_ptr(), B, trib.data_ptr(),
+                           tri_words, trit.data_ptr())
+    want = pf.signer_fold_b_plain(params, vkb, vkl, pre_w, pre_len, c_hat_t)
+    np.testing.assert_array_equal(trib.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(trit.numpy(), want[1].numpy())
+
+    # agg_fold over G = 12 groups of N = 3 signers, through strided views of
+    # the [Wtri, G*N] triple buffer, in word runs of 7 and of the full width
+    G = B // N
+    tb = trib[:, : G * N].reshape(tri_words, G, N)
+    tl = trit[: G * N].reshape(G, N)
+    tbs = [tb[:, :, k] for k in range(N)]
+    tls = [tl[:, k] for k in range(N)]
+    want = pf.agg_fold_plain(params, N, tbs, tls)
+    tg = ds.agg_fold_table(params, N)
+    (out_words,) = tg.widths
+    ops, pool = tg.on("cpu")
+    ptrs = torch.tensor([t.data_ptr() for t in (*tbs, *tls)], dtype=torch.int64)
+    for run in (7, out_words):
+        out = torch.full((out_words, G), -1, dtype=torch.int32)
+        total = torch.empty(G, dtype=torch.int32)
+        lib.host_agg_fold(ops.data_ptr(), ops.shape[0], pool.data_ptr(), ptrs.data_ptr(), N,
+                          tbs[0].stride(0), tbs[0].stride(1), tls[0].stride(0), tri_words, G,
+                          out.data_ptr(), out_words, total.data_ptr(), run)
+        np.testing.assert_array_equal(out.numpy(), want[0].numpy())
+        np.testing.assert_array_equal(total.numpy(), want[1].numpy())

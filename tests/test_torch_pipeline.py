@@ -77,7 +77,7 @@ def fleets():
     jp = ftpu.fusion_setup(128, 7)
     p = params_from_numpy(jp)
     jv, jm, ja = jsetup.build_fleet(jp, 4, 3, seed0=41)
-    tv, tm, ta = tsetup.build_fleet(p, 4, 3, seed0=41)
+    tv, tm, ta = tsetup.build_fleet(p, 4, 3, seed0=41, device="cpu")
     return jp, p, (np.array(jv), jm, np.array(ja)), (tv, tm, ta)
 
 
