@@ -4,9 +4,11 @@
 Drives the port's main path through its public entry points at the full
 secpar=256 configuration — ``build_fleet`` of G=8192 groups of N=4 signers
 (32,768 one-time keys, aggregates int32[8192, 83, 256]) and grouped
-``verify_batch_device`` — after building every CUDA kernel of that path from
-``fusion_cryptography_tpu_torch/csrc`` and holding each one against its plain
-torch version at the main path's shapes (exact equality: all integer).
+``verify_batch_device`` — and the batched lifecycle (keygen, sign, aggregate,
+verify, verify_many, verify_batch) at the same widths, after building every
+CUDA kernel of those paths from ``fusion_cryptography_tpu_torch/csrc`` and
+holding each one against its plain torch version at the paths' shapes (exact
+equality: all integer).
 
 Phases (each fails loudly; any failure exits non-zero):
   1. card, versions, kernel build (one nvcc per source, in parallel)
@@ -17,10 +19,17 @@ Phases (each fails loudly; any failure exits non-zero):
      verdicts true, a tampered aggregate fails in exactly its group;
      derive_coeffs_device on CUDA equals the CPU run (the kernels' plain
      versions) on 16 groups
+  L. lifecycle, with phase 3's fleet alive: keygen of the fleet's 32,768
+     keys (vk equals the fleet's), sign of all of them, aggregate and verify
+     of 64 groups one call each (each aggregate equals the fleet's), a
+     tampered aggregate, verify_many over the 64 groups plus a tampered and
+     a short group, verify_batch at G=8192 on the fleet's coefficients;
+     CUDA equals the CPU for one group of 4 keys
   4. the secpar=128 lane (G=1024, N=4): all verdicts true, CUDA equals the
      CPU on 16 groups
-  5. every kernel was launched while the main path was driven (counts
-     cleared just before it, read just after)
+  5. every kernel was launched while the main path or the lifecycle was
+     driven (counts cleared just before each, read just after), and the
+     NTT kernel ``ntt_u`` by the main path itself
 
 The last two lines of stdout are the kernel table {"kernels": [...]} and
 {"ok": true, "device": {...}}; the card's name and power limit come just
@@ -61,7 +70,10 @@ KECCAK_OPS = 24 * (20 + 10 + 50 + 48 + 50 + 2)
 RENDER_OPS, WORD_OPS, AGG_WORD_OPS = 70, 4, 20
 
 MAIN_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight",
-                     "signer_fold_a", "signer_fold_b", "agg_fold")
+                     "signer_fold_a", "signer_fold_b", "agg_fold", "ntt_u")
+# launched by the lifecycle only (keygen's sk_hat = NTT(sk))
+LIFECYCLE_KERNELS = ("ntt_centered",)
+LIFE_GROUPS = 64  # aggregate and verify calls of the lifecycle phase, one group each
 
 
 def log(msg: str) -> None:
@@ -213,6 +225,58 @@ def phase_kernels(dev, kernel_rows: list) -> None:
              replaces="fusion_cryptography_tpu/ops/ntt_mxu_pallas.py:174",
              max_abs_err=err_i, ms=t_i, plain_ms=t_i_p, **b_i, library_ms=None))
     del x
+    torch.cuda.empty_cache()
+
+
+def phase_ntt_kernels(dev, kernel_rows: list) -> None:
+    """The two NTT kernels: ``ntt_u`` on the signer stage's residues
+    [32,768, 256], ``ntt_centered`` on keygen's centered int32 [65,536, 256]
+    (32,768 keys x 2 sides); forward (the direction the paths run) and
+    inverse, each against its plain version."""
+    from fusion_cryptography_tpu_torch.ops import ntt
+    from fusion_cryptography_tpu_torch.params import fusion_setup
+
+    plan = fusion_setup(SECPAR, SEED).plan
+    d, q = plan.degree, plan.modulus
+    B = N_GROUPS * N_SIGNERS
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    u = torch.randint(0, q, (B, d), dtype=torch.int64, device=dev, generator=g)
+    u[0], u[1] = 0, q - 1
+    c = (torch.randint(0, q, (2 * B, d), dtype=torch.int64, device=dev, generator=g)
+         - q // 2).to(torch.int32)
+    c[0, :5] = torch.tensor([0, 1, -1, q // 2, -(q // 2)], dtype=torch.int32)
+    c[1], c[2], c[3] = 0, -(q // 2), q // 2
+    log2d = d.bit_length() - 1
+    cases = [
+        ("ntt_u", "fusion_cryptography_tpu/ops/ntt_mxu_pallas.py:87", u, 16,
+         ntt.ntt_fwd_u, ntt.ntt_fwd_u_plain, ntt.ntt_inv_u, ntt.ntt_inv_u_plain),
+        ("ntt_centered", "fusion_cryptography_tpu/ops/ntt_pallas.py:94", c, 8,
+         ntt.ntt_fwd, ntt.ntt_fwd_plain, ntt.ntt_inv, ntt.ntt_inv_plain),
+    ]
+    for name, replaces, x, bytes_per_coef, fwd, fwd_p, inv, inv_p in cases:
+        y = fwd(plan, x)
+        err = max(max_abs_err(y, fwd_p(plan, x)), max_abs_err(inv(plan, y), inv_p(plan, y)))
+        require(err == 0, f"{name} != plain version")
+        require(torch.equal(inv(plan, y), x), f"{name}: inverse(forward(x)) != x")
+        t_f = cuda_ms(lambda: fwd(plan, x), 20)
+        t_fp = cuda_ms(lambda: fwd_p(plan, x), 3)
+        t_i = cuda_ms(lambda: inv(plan, y), 20)
+        t_ip = cuda_ms(lambda: inv_p(plan, y), 3)
+        rows = x.numel() // d
+        # butterflies: Shoup multiply (5) + add/sub with reductions (4); per
+        # coefficient: the load and store conversions (2), and in the
+        # inverse the n^-1 scale (5)
+        b_f = bound(rows * d * bytes_per_coef, rows * (9 * (d // 2) * log2d + 2 * d))
+        b_i = bound(rows * d * bytes_per_coef, rows * (9 * (d // 2) * log2d + 7 * d))
+        log(f"{name}: [{rows}, {d}] {x.dtype} forward and inverse equal the plain versions; "
+            f"forward {t_f:.3f} ms (plain {t_fp:.3f} ms, bound {b_f['bound_ms']:.4f} ms by "
+            f"{b_f['bound_by']}), inverse {t_i:.3f} ms (plain {t_ip:.3f} ms, bound "
+            f"{b_i['bound_ms']:.4f} ms)")
+        kernel_rows.append(dict(
+            name=name, route="cuda", source="fusion_cryptography_tpu_torch/csrc/ntt.cu",
+            replaces=replaces, max_abs_err=err, ms=t_f, plain_ms=t_fp, **b_f, library_ms=None,
+            inverse_ms=t_i, inverse_plain_ms=t_ip, inverse_bound_ms=b_i["bound_ms"]))
+    del u, c, y
     torch.cuda.empty_cache()
 
 
@@ -402,6 +466,112 @@ def check_cuda_vs_cpu(params, fleet, groups: int = 16) -> None:
         "groups (eq, norms, weights, challenge and alpha coefficients)")
 
 
+def drive_lifecycle(params, fleet, dev) -> tuple:
+    """The batched lifecycle at full width beside phase 3's fleet (same
+    seeds and messages) -> (metrics, kernel launches while it ran, one
+    aggregate for the CUDA-vs-CPU check)."""
+    from fusion_cryptography_tpu_torch import kernels
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+    from fusion_cryptography_tpu_torch.scheme.device_setup import vk_sort_ranks
+
+    vks_f, _, aggs_f = fleet
+    G, N = vks_f.shape[0], vks_f.shape[1]
+    B, d, rank = G * N, params.degree, params.rank
+    messages = [f"group{g}:msg{i}" for g in range(G) for i in range(N)]  # the fleet's, unsorted
+    # verify_batch's coefficients, derived before the counts are cleared
+    _, _, _, cc, al = dp.derive_coeffs_device(params, *fleet)
+
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    keys = lc.keygen(params, range(1, B + 1), device=dev)
+    torch.cuda.synchronize()
+    t_keygen = time.time() - t0
+    order = torch.argsort(vk_sort_ranks(params, keys.vk, N), dim=1)
+    order = (order + torch.arange(G, device=dev)[:, None] * N).reshape(-1)
+    require(torch.equal(keys.vk[order].reshape(G, N, 2, d), vks_f),
+            "keygen's vks, sorted within groups, != the fleet's")
+    t0 = time.time()
+    sigs = lc.sign(params, keys, messages)
+    torch.cuda.synchronize()
+    t_sign = time.time() - t0
+    require(tuple(sigs.sig.shape) == (B, rank, d), "signature shape")
+    log(f"lifecycle: keygen of {B} keys {t_keygen:.3f} s -> {B / t_keygen:,.0f} keys/s "
+        f"(vk equals the fleet's); sign {t_sign:.3f} s -> {B / t_sign:,.0f} signatures/s")
+
+    t_agg, t_ver, aggs = [], [], []
+    for g in range(LIFE_GROUPS):
+        sl = slice(g * N, (g + 1) * N)
+        t0 = time.time()
+        agg = lc.aggregate(params, keys.vk[sl], messages[sl], sigs.sig[sl])
+        torch.cuda.synchronize()
+        t_agg.append(time.time() - t0)
+        require(torch.equal(agg, aggs_f[g]), f"aggregate of group {g} != the fleet's")
+        t0 = time.time()
+        verdict = lc.verify(params, keys.vk[sl], messages[sl], agg)
+        t_ver.append(time.time() - t0)
+        require(verdict == (True, ""), f"verify of group {g}: {verdict}")
+        aggs.append(agg)
+    bad = aggs[0].clone()
+    bad[0, 0] += 1
+    require(lc.verify(params, keys.vk[:N], messages[:N], bad) == (False, lc.REASON_TARGET),
+            "a tampered aggregate must fail the target check")
+    log(f"lifecycle: {LIFE_GROUPS} groups, one call each: aggregate median "
+        f"{median(t_agg) * 1e3:.2f} ms (each equals the fleet's), verify median "
+        f"{median(t_ver) * 1e3:.2f} ms (all true); the tampered aggregate fails the target")
+
+    groups = [(keys.vk[g * N:(g + 1) * N], messages[g * N:(g + 1) * N], aggs[g])
+              for g in range(LIFE_GROUPS)]
+    groups += [(keys.vk[:N], messages[:N], bad), (keys.vk[N:2 * N], messages[N:2 * N - 1], aggs[1])]
+    want = [(True, "")] * LIFE_GROUPS + [(False, lc.REASON_TARGET), (False, lc.REASON_LEN_MISMATCH)]
+    t0 = time.time()
+    got = lc.verify_many(params, groups)
+    t_many = time.time() - t0
+    require(got == want, "verify_many verdicts")
+
+    lc.verify_batch(params, vks_f, cc, al, aggs_f)  # warm
+    t_vb = []
+    for _ in range(3):
+        t0 = time.time()
+        out = lc.verify_batch(params, vks_f, cc, al, aggs_f)
+        require(bool(out[0].all() & out[1].all() & out[2].all()), "verify_batch verdicts")
+        t_vb.append(time.time() - t0)
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"lifecycle: verify_many of {len(groups)} groups {t_many:.3f} s -> "
+        f"{len(groups) / t_many:,.0f} groups/s (expected verdicts); verify_batch G={G}: "
+        f"median {median(t_vb):.4f} s -> {G / median(t_vb):,.0f} verifies/s (all true); "
+        f"peak device memory {peak_gb:.2f} GB")
+    log(f"kernel launches during the lifecycle: {launches}")
+    metrics = {
+        "life_keygen_keys_per_s": B / t_keygen, "life_sign_per_s": B / t_sign,
+        "life_aggregate_ms": median(t_agg) * 1e3, "life_verify_ms": median(t_ver) * 1e3,
+        "life_verify_many_groups_per_s": len(groups) / t_many,
+        "life_verify_batch_per_s": G / median(t_vb), "life_peak_mem_gb": peak_gb,
+    }
+    return metrics, launches
+
+
+def check_lifecycle_cuda_vs_cpu(params, dev) -> None:
+    """keygen -> sign -> aggregate -> verify of one group of 4 keys on the
+    card and on the CPU (the plain versions)."""
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+
+    seeds, msgs = [5, 6, 7, 8], ["p", "q", "r", "s"]
+    out = {}
+    for where in (dev, "cpu"):
+        keys = lc.keygen(params, seeds, device=where)
+        sigs = lc.sign(params, keys, msgs)
+        agg = lc.aggregate(params, keys.vk, msgs, sigs.sig)
+        out[where] = (keys.sk_hat, keys.vk, sigs.sig, agg), lc.verify(params, keys.vk, msgs, agg)
+    for name, a, b in zip(("sk_hat", "vk", "sig", "aggregate"), out[dev][0], out["cpu"][0]):
+        require(torch.equal(a.cpu(), b), f"lifecycle {name}: CUDA != CPU")
+    require(out[dev][1] == out["cpu"][1] == (True, ""), "lifecycle verify: CUDA != CPU")
+    log("lifecycle: keygen, sign, aggregate and verify of 4 keys on CUDA equal the CPU run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -429,6 +599,7 @@ def main() -> int:
     kernel_rows: list = []
     phase_kernels(dev, kernel_rows)
     phase_fold_kernels(dev, kernel_rows)
+    phase_ntt_kernels(dev, kernel_rows)
 
     # -- 3. main path -------------------------------------------------------
     G, N = N_GROUPS, N_SIGNERS
@@ -436,6 +607,11 @@ def main() -> int:
     fleet, metrics, launches = drive_main_path(params, G, N, dev)
     check_tamper(params, fleet)
     check_cuda_vs_cpu(params, fleet)
+
+    # -- L. lifecycle ---------------------------------------------------------
+    life_metrics, life_launches = drive_lifecycle(params, fleet, dev)
+    metrics.update(life_metrics)
+    check_lifecycle_cuda_vs_cpu(params, dev)
     del fleet
     torch.cuda.empty_cache()
 
@@ -456,12 +632,18 @@ def main() -> int:
     metrics["lane128_fleet_and_verify_s"] = t128
     del fleet128
 
-    # -- 5. the main path went through every kernel ---------------------------
-    require(sorted(r["name"] for r in kernel_rows) == sorted(MAIN_PATH_KERNELS),
-            "kernel table must list every kernel of the main path")
+    # -- 5. the paths went through every kernel --------------------------------
+    require(sorted(r["name"] for r in kernel_rows)
+            == sorted(MAIN_PATH_KERNELS + LIFECYCLE_KERNELS),
+            "kernel table must list every kernel of the main path and the lifecycle")
     for row in kernel_rows:
-        row["launches"] = int(launches.get(row["name"], 0))
-        require(row["launches"] > 0, f"kernel {row['name']} never launched on the main path")
+        name = row["name"]
+        row["launches_main"] = int(launches.get(name, 0))
+        row["launches_lifecycle"] = int(life_launches.get(name, 0))
+        row["launches"] = row["launches_main"] + row["launches_lifecycle"]
+        if name in MAIN_PATH_KERNELS:
+            require(row["launches_main"] > 0, f"kernel {name} never launched on the main path")
+        require(row["launches_lifecycle"] > 0, f"kernel {name} never launched by the lifecycle")
 
     metrics.update(card=card, secpar=SECPAR, groups=G, signers=N,
                    group_chunk=dp.DEFAULT_GROUP_CHUNK, total_s=time.time() - t_start)

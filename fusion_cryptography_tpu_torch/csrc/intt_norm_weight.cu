@@ -23,48 +23,9 @@
 // is the floor at the card's memory bandwidth; the butterflies are a few
 // integer ops per byte read.  Reading centered int32 aggregates directly
 // (half the bytes) is left to a later change.
-#include <cstdint>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define FCT_HD __device__ __forceinline__
-#else
-#define FCT_HD static inline
-#endif
+#include "ntt_butterfly.cuh"  // FCT_HD, mulmod_shoup, gs_butterfly
 
 namespace {
-
-FCT_HD uint32_t umulhi32(uint32_t a, uint32_t b) {
-#ifdef __CUDA_ARCH__
-  return __umulhi(a, b);
-#else
-  return (uint32_t)(((uint64_t)a * b) >> 32);
-#endif
-}
-
-// (a * s) mod q for any 32-bit a and a constant s < q with its Shoup word
-// s_sh = floor(s * 2^32 / q); the result is the canonical residue.
-FCT_HD uint32_t mulmod_shoup(uint32_t a, uint32_t s, uint32_t s_sh, uint32_t q) {
-  const uint32_t r = a * s - umulhi32(a, s_sh) * q;
-  return r >= q ? r - q : r;
-}
-
-// Butterfly i (0 <= i < d/2) of the inverse stage with h blocks of span
-// 2t, t = (d/2)/h: (u, v) -> (u + v, (u - v) * w[h + j]) for block j.
-FCT_HD void gs_butterfly(uint32_t* a, int i, int h, int half,
-                         const uint32_t* tw, const uint32_t* tw_sh, uint32_t q) {
-  const int t = half / h;
-  const int j = i / t;
-  const int i0 = 2 * j * t + (i - j * t);
-  const int i1 = i0 + t;
-  const uint32_t u = a[i0];
-  const uint32_t v = a[i1];
-  uint32_t sum = u + v;  // u, v < q < 2^31: no wrap
-  if (sum >= q) sum -= q;
-  const uint32_t dif = u >= v ? u - v : u + (q - v);
-  a[i0] = sum;
-  a[i1] = mulmod_shoup(dif, tw[h + j], tw_sh[h + j], q);
-}
 
 // |centered(c)| = min(c, q - c) for a residue c, and its nonzero flag.
 FCT_HD uint32_t centered_abs(uint32_t c, uint32_t q) {

@@ -21,9 +21,7 @@ import torch
 
 from ..ops import ragged_words as rw
 from ..ops.ragged_words import DEC_W
-
-# wire-format constant (the reference's class path, algebra/matrices.py:40-41)
-NTT_CLASS = "<class 'algebra.polynomials.PolynomialNTTRepresentation'>"
+from .serial import NTT_CLASS
 
 _KIND_CONST, _KIND_NUMBER, _KIND_EXTRA = 0, 1, 2
 

@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
 Each source is compiled by its own ``nvcc`` for Hopper (``sm_90a``) at first
-use, all of them at once, into ``build/kernels_<source>/<hash>/``, and loaded
-with ctypes through a plain C interface (no PyTorch headers, so a build takes
-seconds).  Only the wrappers in ``ops/keccak_sponge.py``,
+use, all of them at once, into ``build/kernels_<source>/<hash>/`` (the hash
+covers the source and the shared ``csrc/*.cuh`` headers), and loaded with
+ctypes through a plain C interface (no PyTorch headers, so a build takes
+seconds).  Only the wrappers in ``ops/keccak_sponge.py``, ``ops/ntt.py``,
 ``ops/intt_norm_weight.py`` and ``ops/preimage_fold.py`` call into the
 library; each adds one to ``LAUNCHES[name]`` where it launches its kernel,
 so a run can show that its main path went through the kernels.
@@ -36,6 +37,10 @@ SOURCES = {
     },
     "intt_norm_weight.cu": {
         "fct_intt_norm_weight": [_P, _I64, _I32, _P, _P, _U32, _U32, _U32, _P, _P, _P],
+    },
+    "ntt.cu": {
+        "fct_ntt_u": [_P, _P, _I64, _I32, _P, _P, _I32, _U32, _U32, _U32, _P],
+        "fct_ntt_centered": [_P, _P, _I64, _I32, _P, _P, _I32, _U32, _U32, _U32, _P],
     },
     "preimage_fold.cu": {
         "fct_signer_fold_a": [_P, _I32, _P, _P, _P, _I32, _P, _I64, _P, _I32, _P, _P, _I32,
@@ -76,7 +81,8 @@ def _command(src: Path):
 
 def _build(name: str) -> Path:
     src = CSRC / name
-    return build_shared_library(f"kernels_{src.stem}", [src], _command(src))
+    return build_shared_library(f"kernels_{src.stem}", [src, *sorted(CSRC.glob("*.cuh"))],
+                                _command(src))
 
 
 def library() -> SimpleNamespace:

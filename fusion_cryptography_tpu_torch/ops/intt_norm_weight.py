@@ -10,27 +10,19 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from .. import kernels
-from .ntt import NTTPlan, ntt_inv_u
+from .ntt import NTTPlan, ntt_inv_u_plain
 
 
 def intt_norm_weight_plain(plan: NTTPlan, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """int64[..., d] NTT-domain residues -> (max |centered coefficient|,
-    nonzero-coefficient count), int32[...] each: ``ntt_inv_u``, centering
-    and the row reductions of the reference verify (fusion.py:722-727)."""
-    coef = plan.field.to_centered(ntt_inv_u(plan, x))
+    nonzero-coefficient count), int32[...] each: the plain inverse NTT,
+    centering and the row reductions of the reference verify
+    (fusion.py:722-727)."""
+    coef = plan.field.to_centered(ntt_inv_u_plain(plan, x))
     return coef.abs().amax(dim=-1), (coef != 0).sum(dim=-1, dtype=torch.int32)
-
-
-def _tables(plan: NTTPlan, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's twiddles and their Shoup words as int32 bit patterns."""
-    return plan.on_device("intt_norm_weight", device, lambda: tuple(
-        torch.as_tensor(t.view(np.int32), device=device)
-        for t in (plan.brp_inv, plan.brp_inv_shoup)
-    ))
 
 
 def intt_norm_weight(plan: NTTPlan, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -47,7 +39,7 @@ def intt_norm_weight(plan: NTTPlan, x: torch.Tensor) -> Tuple[torch.Tensor, torc
     x2 = x.reshape(-1, d)
     kernels.require_cuda_tensor(x2, "x", torch.int64, 2)
     rows = x2.shape[0]
-    tw, tw_sh = _tables(plan, x.device)
+    tw, tw_sh = plan.twiddles(True, x.device)
     nrm = torch.empty(rows, dtype=torch.int32, device=x.device)
     wgt = torch.empty(rows, dtype=torch.int32, device=x.device)
     lib = kernels.library()

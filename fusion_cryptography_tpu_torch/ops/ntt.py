@@ -1,15 +1,23 @@
-"""Batched negacyclic NTT / inverse NTT over Z_q on int64 torch tensors.
+"""Batched negacyclic NTT / inverse NTT over Z_q: CUDA kernels and their
+plain versions.
 
 Port of the JAX package's ``ops/ntt.py`` (the reference's algebra/ntt.py:216-291
-Cooley–Tukey forward and :294-377 Gentleman–Sande inverse), as radix-2 stage
-sweeps over the trailing axis: a stage with ``m`` blocks of span ``2t`` is a
-view ``(..., m, 2, t)`` and lane-wise butterflies.  Twiddles are the powers of
-the order-2d root in bit-reversed order, the reference's table layout, so the
-forward output is in the same bit-reversed order and the inverse takes it.
+Cooley–Tukey forward and :294-377 Gentleman–Sande inverse).  Twiddles are the
+powers of the order-2d root in bit-reversed order, the reference's table
+layout, so the forward output is in the same bit-reversed order and the
+inverse takes it.
 
-The JAX package computes these outside Pallas, so they stay plain torch.  The
-inverse transform fused with the verify's norm/weight reduction is the CUDA
-kernel of ``ops/intt_norm_weight.py``, which reads this plan's flat tables.
+Two forms, as in the JAX package: ``ntt_fwd_u`` / ``ntt_inv_u`` on int64
+residues in ``[0, q)``, and ``ntt_fwd`` / ``ntt_inv`` on centered int32.  On
+a CUDA tensor each launches one kernel of ``csrc/ntt.cu`` (or raises): the
+residue form is the counterpart of the JAX package's dense MXU kernel
+(``ops/ntt_mxu_pallas.py``), the centered form that of its fused stage kernel
+(``ops/ntt_pallas.py``).  On a CPU tensor they run the plain versions
+(``*_plain``), radix-2 stage sweeps over the trailing axis: a stage with
+``m`` blocks of span ``2t`` is a view ``(..., m, 2, t)`` and lane-wise
+butterflies.  The inverse transform fused with the verify's norm/weight
+reduction is the kernel of ``ops/intt_norm_weight.py``, which reads this
+plan's flat tables too.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from .field import Field, Q, get_field
 from .numtheory import bit_reverse_indices, is_odd_prime, is_primitive_root
 
@@ -38,8 +47,10 @@ class NTTPlan:
     inv_stages: Tuple[Tuple[int, int, np.ndarray], ...]
     n_inv: int
     n_inv_shoup: int
-    # flat bit-reversed inverse twiddles (stage with h blocks reads [h:2h])
-    # and their Shoup words, uint32 — the layout the CUDA INTT kernel reads
+    # flat bit-reversed twiddles (the stage with m blocks reads [m:2m]) and
+    # their Shoup words, uint32: the layout the CUDA kernels read
+    brp: np.ndarray
+    brp_shoup: np.ndarray
     brp_inv: np.ndarray
     brp_inv_shoup: np.ndarray
     _device_tables: Dict[tuple, object] = field(default_factory=dict, repr=False)
@@ -60,6 +71,14 @@ class NTTPlan:
         return self.on_device("stages", device, lambda: tuple(
             [torch.as_tensor(s, device=device).view(-1, 1) for _, _, s in stages]
             for stages in (self.fwd_stages, self.inv_stages)
+        ))
+
+    def twiddles(self, inverse: bool, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The CUDA kernels' flat twiddles and their Shoup words (``brp`` or
+        ``brp_inv``) on ``device``, as int32 bit patterns."""
+        tables = (self.brp_inv, self.brp_inv_shoup) if inverse else (self.brp, self.brp_shoup)
+        return self.on_device(f"twiddles_{int(inverse)}", device, lambda: tuple(
+            torch.as_tensor(t.view(np.int32), device=device) for t in tables
         ))
 
 
@@ -108,14 +127,16 @@ def make_plan(modulus: int = Q, degree: int = 256, root: Optional[int] = None) -
         inv_stages=tuple(inv),
         n_inv=n_inv,
         n_inv_shoup=fld.shoup(n_inv),
+        brp=np.array(brp, dtype=np.uint32),
+        brp_shoup=np.array([fld.shoup(x) for x in brp], dtype=np.uint32),
         brp_inv=np.array(brp_inv, dtype=np.uint32),
         brp_inv_shoup=np.array([fld.shoup(x) for x in brp_inv], dtype=np.uint32),
     )
 
 
-def ntt_fwd_u(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
+def ntt_fwd_u_plain(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
     """Forward negacyclic NTT of int64 residues along the trailing axis
-    (standard order in, bit-reversed order out)."""
+    (standard order in, bit-reversed order out): the stage sweep."""
     q = plan.modulus
     shape = x.shape
     lead = shape[:-1]
@@ -132,9 +153,9 @@ def ntt_fwd_u(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
     return x.reshape(shape)
 
 
-def ntt_inv_u(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
+def ntt_inv_u_plain(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
     """Inverse negacyclic NTT of int64 residues (bit-reversed order in,
-    standard order out, with the final n^-1 scale)."""
+    standard order out, with the final n^-1 scale): the stage sweep."""
     q = plan.modulus
     shape = x.shape
     lead = shape[:-1]
@@ -150,3 +171,78 @@ def ntt_inv_u(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
             dim=-2,
         )
     return (x.reshape(shape) * plan.n_inv) % q
+
+
+def ntt_fwd_plain(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
+    """Centered coefficients -> centered int32 NTT values (bit-reversed
+    order); the JAX package's ``ntt_fwd``."""
+    F = plan.field
+    return F.to_centered(ntt_fwd_u_plain(plan, F.to_unsigned(x)))
+
+
+def ntt_inv_plain(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
+    """Centered NTT values (bit-reversed order) -> centered int32
+    coefficients; the JAX package's ``ntt_inv``."""
+    F = plan.field
+    return F.to_centered(ntt_inv_u_plain(plan, F.to_unsigned(x)))
+
+
+def _launch(plan: NTTPlan, x: torch.Tensor, inverse: bool, centered: bool) -> torch.Tensor:
+    """One launch of ``fct_ntt_centered`` (int32) or ``fct_ntt_u`` (int64)
+    over the rows of ``x``'s trailing axis."""
+    d = plan.degree
+    name = "ntt_centered" if centered else "ntt_u"
+    if d < 64 or d > 1024 or d & (d - 1):
+        raise ValueError(f"{name} kernel needs a power-of-two degree in [64, 1024], got {d}")
+    if x.dim() == 0 or x.shape[-1] != d:
+        raise ValueError(f"{name}: trailing axis of shape {tuple(x.shape)} != degree {d}")
+    dtype = torch.int32 if centered else torch.int64
+    x2 = x.reshape(-1, d).contiguous()
+    kernels.require_cuda_tensor(x2, "x", dtype, 2)
+    y = torch.empty_like(x2)
+    rows = x2.shape[0]
+    if rows == 0:
+        return y.view(x.shape)
+    tw, tw_sh = plan.twiddles(inverse, x.device)
+    lib = kernels.library()
+    fn = lib.fct_ntt_centered if centered else lib.fct_ntt_u
+    rc = fn(x2.data_ptr(), y.data_ptr(), rows, d, tw.data_ptr(), tw_sh.data_ptr(),
+            int(inverse), plan.n_inv, plan.n_inv_shoup, plan.modulus, kernels.cuda_stream())
+    kernels.LAUNCHES[name] += 1
+    kernels.check_launch(rc, name)
+    return y.view(x.shape)
+
+
+def ntt_fwd_u(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
+    """Forward NTT of int64 residues in ``[0, q)`` along the trailing axis.
+    CPU tensors: :func:`ntt_fwd_u_plain`; CUDA tensors: kernel ``ntt_u``,
+    whose contract is canonical residues (every caller passes
+    ``to_unsigned`` output), any leading shape."""
+    if x.device.type == "cpu":
+        return ntt_fwd_u_plain(plan, x)
+    return _launch(plan, x, inverse=False, centered=False)
+
+
+def ntt_inv_u(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
+    """Inverse NTT of int64 residues in ``[0, q)``; dispatch as
+    :func:`ntt_fwd_u`."""
+    if x.device.type == "cpu":
+        return ntt_inv_u_plain(plan, x)
+    return _launch(plan, x, inverse=True, centered=False)
+
+
+def ntt_fwd(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
+    """Centered int32 coefficients -> centered int32 NTT values
+    (bit-reversed order).  CPU tensors: :func:`ntt_fwd_plain`; CUDA tensors
+    (int32): kernel ``ntt_centered``."""
+    if x.device.type == "cpu":
+        return ntt_fwd_plain(plan, x)
+    return _launch(plan, x, inverse=False, centered=True)
+
+
+def ntt_inv(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
+    """Centered int32 NTT values -> centered int32 coefficients; dispatch as
+    :func:`ntt_fwd`."""
+    if x.device.type == "cpu":
+        return ntt_inv_plain(plan, x)
+    return _launch(plan, x, inverse=True, centered=True)

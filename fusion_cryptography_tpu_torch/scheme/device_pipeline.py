@@ -8,11 +8,12 @@ norm/weight):
     -> prehash:     SHA3-256 (sponge kernels) + 78-digit decimal render
     -> signer hash: str(vk) chunk + challenge preimage (signer_fold_a
                     kernel), SHAKE256 (sponge kernels), challenge decode,
-                    challenge NTT, triple preimage (signer_fold_b kernel)
+                    challenge NTT (ntt_u kernel), triple preimage
+                    (signer_fold_b kernel)
     -> group hash:  aggregation preimage (agg_fold kernel), SHAKE256,
                     per-signer alpha decode
-    -> lattice:     target/observed sums (ops/field), INTT + norm/weight
-                    (CUDA kernel)
+    -> lattice:     alpha NTT (ntt_u kernel), target/observed sums
+                    (ops/field), INTT + norm/weight (CUDA kernel)
 
 The three preimages come from the fold kernels of ops/preimage_fold.py, the
 JAX package's ``make_stages(pallas_folds=True)`` configuration; on the CPU
@@ -81,6 +82,17 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def input_device(device, *inputs) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else that of
+    the first torch tensor among ``inputs``, else CUDA (numpy inputs; raises
+    without a card)."""
+    if device is None:
+        for x in inputs:
+            if isinstance(x, torch.Tensor):
+                return x.device
+    return resolve_device(device)
 
 
 def make_stages(params: Params, n_signers: int):
@@ -167,15 +179,20 @@ class _Pipeline:
             torch.as_tensor(params.public_challenge, device=device)))  # [rank, d]
         self.prehash, self.signer, self.group = make_stages(params, n_signers)
 
+    def challenges(self, vk: torch.Tensor, mw: torch.Tensor, ml: torch.Tensor):
+        """The signer half alone, for B keys in any grouping: vk int32[B, 2, d],
+        message words int32[B, Wt], lengths int32[B] -> (cc int32[B, d],
+        c_hat_u int64[B, d], triple words int32[Lt, B], lengths int32[B])."""
+        B, d = vk.shape[0], self.params.degree
+        pre_w, pre_len = self.prehash(mw.t(), ml)
+        return self.signer(vk.reshape(B, 2 * d).t().contiguous(), pre_w, pre_len)
+
     def hash_chunk(self, vkc: torch.Tensor, mwc: torch.Tensor, mlc: torch.Tensor):
         """One chunk of complete groups: vkc int32[c, N, 2, d], message words
         int32[c*N, Wt], lengths int32[c*N] -> (cc int32[c*N, d],
         c_hat_u int64[c*N, d], alphas int32[c, N, d])."""
         c = vkc.shape[0]
-        d = self.params.degree
-        pre_w, pre_len = self.prehash(mwc.t(), mlc)
-        vk2d_t = vkc.reshape(c * self.N, 2 * d).t().contiguous()
-        cc, c_hat_u, tbuf, tlen = self.signer(vk2d_t, pre_w, pre_len)
+        cc, c_hat_u, tbuf, tlen = self.challenges(vkc.reshape(c * self.N, 2, -1), mwc, mlc)
         tb = tbuf.reshape(tbuf.shape[0], c, self.N)
         tl = tlen.reshape(c, self.N)
         # agg_fold reads signer k's columns through strides: no copies
@@ -215,10 +232,7 @@ def _message_tensors(params: Params, messages: Sequence[str], device) -> Tuple[t
 
 def _verify_chunks(params: Params, vks, messages: Sequence[str], aggs,
                    group_chunk: int, want_coeffs: bool, device):
-    if device is None and isinstance(vks, torch.Tensor):
-        dev = vks.device
-    else:
-        dev = resolve_device(device)
+    dev = input_device(device, vks)
     vks = torch.as_tensor(vks, device=dev)
     aggs = torch.as_tensor(aggs, device=dev)
     G, N = vks.shape[0], vks.shape[1]

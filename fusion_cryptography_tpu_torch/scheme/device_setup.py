@@ -36,7 +36,8 @@ def _sample_sk(params: Params, seeds: Sequence[int]) -> np.ndarray:
     seed+1 (reference keygen, fusion.py:339-362)."""
     B = len(seeds)
     d = params.degree
-    if native.available():
+    # the C sampler takes uint64 seeds; others go through CPython's random
+    if native.available() and all(isinstance(s, int) and 0 <= s and s + 1 < 2**64 for s in seeds):
         interleaved = [x for s in seeds for x in (s, s + 1)]
         return native.sample_short_batch(
             interleaved, d, params.beta_sk, params.omega_sk, params.modulus
@@ -48,17 +49,23 @@ def _sample_sk(params: Params, seeds: Sequence[int]) -> np.ndarray:
     return out
 
 
+def vk_from_sk_hat(params: Params, sk_u: torch.Tensor) -> torch.Tensor:
+    """sk_hat residues int64[B, 2, d], one polynomial per side -> vk
+    int32[B, 2, d] centered: A·sk as (Σ_r A_r)·sk, exact vs the rank-wise
+    dot because all rank entries of sk are identical (per-entry reseed
+    quirk, fusion.py:338-373)."""
+    F = params.plan.field
+    pub = torch.as_tensor(params.public_challenge, device=sk_u.device)
+    a_mont_sum = F.sum_mod(F.to_mont(F.to_unsigned(pub)), axis=0)  # [d], Montgomery form
+    return F.to_centered(F.mont_mul(a_mont_sum, sk_u))
+
+
 def _keygen(params: Params, sk_coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """int[B, 2, d] short coefficients -> (sk_hat_u int64[B, 2, d],
     vk int32[B, 2, d] centered)."""
-    plan = params.plan
-    F = plan.field
-    pub = torch.as_tensor(params.public_challenge, device=sk_coeffs.device)
-    # Σ_r A_r in Montgomery form: exact vs the rank-wise dot because all rank
-    # entries of sk are identical (per-entry reseed quirk)
-    a_mont_sum = F.sum_mod(F.to_mont(F.to_unsigned(pub)), axis=0)  # [d]
-    sk_u = ntt_fwd_u(plan, F.to_unsigned(sk_coeffs))
-    return sk_u, F.to_centered(F.mont_mul(a_mont_sum, sk_u))
+    F = params.plan.field
+    sk_u = ntt_fwd_u(params.plan, F.to_unsigned(sk_coeffs))
+    return sk_u, vk_from_sk_hat(params, sk_u)
 
 
 def vk_sort_ranks(params: Params, vk: torch.Tensor, n_signers: int) -> torch.Tensor:

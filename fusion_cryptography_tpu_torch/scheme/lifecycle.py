@@ -1,0 +1,268 @@
+"""Batched Fusion lifecycle on tensors: keygen -> sign -> aggregate -> verify.
+
+Port of the JAX package's ``scheme/lifecycle.py``, its tensor API: the same
+names, shapes, dtypes and reason strings, and bit-identical outputs.  A batch
+of B one-time keys is a dense int32 tensor, and every stage runs on the
+device of its tensors: on a CUDA device the port's kernels, on the CPU their
+plain versions.
+
+* keygen: short coefficients from the CPython-exact sampler, sk_hat =
+  NTT(sk) (kernel ``ntt_centered``), vk = A·sk (fusion.py:338-373);
+* sign: the challenge from the verifier's prehash and signer stages
+  (scheme/device_pipeline), sig = sk_l ⊙ c + sk_r (fusion.py:534-557);
+* aggregate: the signers in str(vk) order (device_setup.vk_sort_ranks), the
+  alphas from the group stage, agg = Σ α̂ ⊙ sig (fusion.py:632-677);
+* verify, verify_many, verify_batch: the pipeline's hash stages and lattice
+  check, with the reference's reasons (fusion.py:680-728).
+
+The JAX package picks a host or a device hash route by batch size
+(``device_hash_threshold``, ``device_bucket_threshold``); both give the same
+bits.  The port has one route, the device stages, so it takes neither
+keyword.
+
+Devices: ``keygen`` runs on the card unless given ``device="cpu"``; the other
+entry points run where their tensors are, and numpy inputs go to the card
+unless given ``device="cpu"`` (``device_pipeline.input_device``).  Without a
+card they raise.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..hashing.sampler import sample_short_poly_coeffs
+from ..interop import serial
+from ..ops.ntt import ntt_fwd, ntt_fwd_u
+from ..params import Params
+from . import device_pipeline as dp
+from . import device_setup as ds
+
+# keys per pass of sign's challenge stages and signature product; the int64
+# temporaries of one pass at secpar=256 are 1.4 GB each
+SIGN_CHUNK = 8192
+
+# Reference-exact verification failure strings (fusion.py:687-727).
+REASON_TOO_MANY = "Too many keys."
+REASON_LEN_MISMATCH = "Number of keys and messages must be equal."
+REASON_TARGET = "Target doesn't match image of aggregate signature."
+REASON_NORM = "Norm of aggregate signature too large."
+REASON_WEIGHT = "Weight of aggregate signature too large."
+
+
+@dataclass
+class KeyBatch:
+    """A batch of one-time key pairs as dense tensors on one device.
+
+    sk_hat: int32[B, 2, rank, d] NTT-domain signing keys (left, right); from
+            :func:`keygen` a rank-broadcast view of int32[B, 2, d], since
+            every rank entry is the same polynomial
+    vk:     int32[B, 2, d]       NTT-domain verification keys (left, right)
+    """
+
+    params: Params
+    seeds: List[Optional[int]]
+    sk_hat: torch.Tensor
+    vk: torch.Tensor
+
+    def __len__(self) -> int:
+        return self.vk.shape[0]
+
+    def vk_np(self) -> np.ndarray:
+        return self.vk.cpu().numpy()
+
+    def vk_strs(self) -> List[str]:
+        vk = self.vk_np()
+        return [serial.vk_str(self.params, vk[i]) for i in range(len(self))]
+
+
+@dataclass
+class SignatureBatch:
+    """sig: int32[B, rank, d] NTT-domain signatures (rank x 1 matrices)."""
+
+    params: Params
+    sig: torch.Tensor
+
+    def __len__(self) -> int:
+        return self.sig.shape[0]
+
+
+def key_batch_from_numpy(params: Params, src, *, device=None) -> KeyBatch:
+    """The port's :class:`KeyBatch` from another implementation's: ``src``
+    carries ``seeds``, ``sk_hat`` int32[B, 2, rank, d] and ``vk``
+    int32[B, 2, d] as arrays numpy can read (for example the JAX package's
+    KeyBatch).  The tensors go to the card unless ``device="cpu"``."""
+    dev = dp.resolve_device(device)
+    return KeyBatch(
+        params=params,
+        seeds=list(src.seeds),
+        sk_hat=torch.as_tensor(np.asarray(src.sk_hat, dtype=np.int32), device=dev),
+        vk=torch.as_tensor(np.asarray(src.vk, dtype=np.int32), device=dev),
+    )
+
+
+def keygen(params: Params, seeds: Sequence[Optional[int]], *, device=None) -> KeyBatch:
+    """Batched one-time keygen (fusion.py:338-373 per key) on ``device``
+    (the card unless ``device="cpu"``).
+
+    Key b samples its left side from ``seeds[b]`` and its right side from
+    ``seeds[b] + 1``.  With integer seeds the reference's per-entry reseed
+    makes all rank entries identical, so one polynomial per side is
+    transformed and ``sk_hat`` is its rank-broadcast view.  ``seed=None`` is
+    rejected as the reference rejects it (it fails on ``seed + 1``).
+    """
+    seeds = list(seeds)
+    for seed in seeds:
+        if seed is None:
+            raise TypeError(
+                "keygen requires an integer seed: the reference implementation "
+                "fails on seed=None at fusion.py:352 (seed + 1)"
+            )
+    dev = dp.resolve_device(device)
+    B, d, rank = len(seeds), params.degree, params.rank
+    sk = ds._sample_sk(params, seeds)  # int32[B, 2, d]
+    if B:
+        # the reference leaves CPython's global random in the state of its
+        # last seeded sample (polynomials.py:447-448); the C sampler does not
+        sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk,
+                                 seeds[-1] + 1)
+    # the short coefficients (|c| <= beta_sk = 52) travel as int8
+    sk_c = torch.from_numpy(sk.astype(np.int8)).to(dev).to(torch.int32)
+    sk_hat = ntt_fwd(params.plan, sk_c)  # [B, 2, d] centered
+    vk = ds.vk_from_sk_hat(params, params.plan.field.to_unsigned(sk_hat))
+    return KeyBatch(params=params, seeds=seeds,
+                    sk_hat=sk_hat.unsqueeze(2).expand(B, 2, rank, d), vk=vk)
+
+
+def sign(params: Params, keys: KeyBatch, messages: Sequence[str]) -> SignatureBatch:
+    """Batched signing (fusion.py:534-557) on the device of ``keys``: one
+    challenge per (vk, message) from the verifier's prehash and signer
+    stages (``get_pipeline(params, 1)``), then sig = sk_l ⊙ c + sk_r for every
+    rank entry, ``SIGN_CHUNK`` keys at a time."""
+    msgs = list(messages)
+    if len(msgs) != len(keys):
+        raise ValueError("need exactly one message per key")
+    B, d, rank = len(keys), params.degree, params.rank
+    F = params.plan.field
+    dev = keys.vk.device
+    P = dp.get_pipeline(params, 1, str(dev))
+    mw, ml = dp._message_tensors(params, msgs, dev)
+    sig = torch.empty((B, rank, d), dtype=torch.int32, device=dev)
+    for lo in range(0, B, SIGN_CHUNK):
+        hi = min(B, lo + SIGN_CHUNK)
+        _, c_hat_u, _, _ = P.challenges(keys.vk[lo:hi], mw[lo:hi], ml[lo:hi])
+        c_mont = F.to_mont(c_hat_u).unsqueeze(1)  # [b, 1, d], broadcast over rank
+        sk_u = F.to_unsigned(keys.sk_hat[lo:hi])  # [b, 2, rank, d]
+        sig[lo:hi] = F.to_centered(F.add_mod(F.mont_mul(c_mont, sk_u[:, 0]), sk_u[:, 1]))
+    return SignatureBatch(params=params, sig=sig)
+
+
+def _sorted_group(params: Params, vks: torch.Tensor, messages: Sequence[str]):
+    """One group's signers in the reference's order, the stable sort by
+    str(vk) (fusion.py:661-663): (order int64[N], vks int32[1, N, 2, d],
+    messages)."""
+    msgs = list(messages)
+    order = torch.argsort(ds.vk_sort_ranks(params, vks, vks.shape[0])[0])
+    return order, vks[order].unsqueeze(0), [msgs[i] for i in order.tolist()]
+
+
+def _group_hash(params: Params, vks_s: torch.Tensor, msgs_s: List[str]):
+    """(pipeline, c_hat_u int64[N, d], alphas int32[1, N, d]) of one sorted
+    group."""
+    P = dp.get_pipeline(params, vks_s.shape[1], str(vks_s.device))
+    mw, ml = dp._message_tensors(params, msgs_s, vks_s.device)
+    _, c_hat_u, al = P.hash_chunk(vks_s, mw, ml)
+    return P, c_hat_u, al
+
+
+def aggregate(params: Params, vks, messages: Sequence[str], sigs, *, device=None) -> torch.Tensor:
+    """Aggregate N signatures (fusion.py:655-677): vks int32[N, 2, d],
+    messages, sigs int32[N, rank, d] in any order -> int32[rank, d]."""
+    dev = dp.input_device(device, vks, sigs)
+    vks = torch.as_tensor(vks, device=dev)
+    sigs = torch.as_tensor(sigs, device=dev)
+    if len(messages) != vks.shape[0] or sigs.shape[0] != vks.shape[0]:
+        raise ValueError("need exactly one message and one signature per key")
+    order, vks_s, msgs_s = _sorted_group(params, vks, messages)
+    _, _, al = _group_hash(params, vks_s, msgs_s)
+    F = params.plan.field
+    alpha_mont = F.to_mont(ntt_fwd_u(params.plan, F.to_unsigned(al[0]))).unsqueeze(1)
+    return F.to_centered(F.sum_mod(F.mont_mul(alpha_mont, F.to_unsigned(sigs[order])), axis=0))
+
+
+def _reason(eq: bool, norm_ok: bool, weight_ok: bool) -> Tuple[bool, str]:
+    if not eq:
+        return False, REASON_TARGET
+    if not norm_ok:
+        return False, REASON_NORM
+    if not weight_ok:
+        return False, REASON_WEIGHT
+    return True, ""
+
+
+def verify(params: Params, vks, messages: Sequence[str], aggregate_signature, *,
+           device=None) -> Tuple[bool, str]:
+    """Verify one aggregate signature (fusion.py:680-728): vks int32[N, 2, d]
+    in any order, messages, aggregate int32[rank, d] -> (ok, reason) with
+    the reference's exact reason strings."""
+    N = vks.shape[0]
+    if N > params.capacity:
+        return False, REASON_TOO_MANY
+    if N != len(messages):
+        return False, REASON_LEN_MISMATCH
+    dev = dp.input_device(device, vks, aggregate_signature)
+    vks = torch.as_tensor(vks, device=dev)
+    agg = torch.as_tensor(aggregate_signature, device=dev)
+    _, vks_s, msgs_s = _sorted_group(params, vks, messages)
+    P, c_hat_u, al = _group_hash(params, vks_s, msgs_s)
+    eq, norm_ok, weight_ok = P.lattice(vks_s, c_hat_u, al, agg.unsqueeze(0))
+    return _reason(bool(eq[0]), bool(norm_ok[0]), bool(weight_ok[0]))
+
+
+def verify_many(params: Params, groups: Sequence[tuple], *, device=None) -> List[Tuple[bool, str]]:
+    """Verify independent aggregates with any signer counts: ``groups`` holds
+    (vks int32[N_i, 2, d], messages, agg int32[rank, d]) -> one (ok, reason)
+    per group.  After the capacity and length guards the groups go in
+    buckets by N; each bucket is sorted by ``vk_sort_ranks`` and verified by
+    one ``verify_batch_device`` call."""
+    results: List[Optional[Tuple[bool, str]]] = [None] * len(groups)
+    by_n: dict = {}
+    for gi, (vks, messages, _) in enumerate(groups):
+        N = int(vks.shape[0])
+        if N > params.capacity:
+            results[gi] = (False, REASON_TOO_MANY)
+        elif N != len(messages):
+            results[gi] = (False, REASON_LEN_MISMATCH)
+        else:
+            by_n.setdefault(N, []).append(gi)
+    if not by_n:
+        return results
+    live = [groups[gi] for gis in by_n.values() for gi in gis]
+    dev = dp.input_device(device, *(x for g in live for x in (g[0], g[2])))
+    d = params.degree
+    for N, gis in sorted(by_n.items()):
+        Gb = len(gis)
+        vks_b = torch.stack([torch.as_tensor(groups[gi][0], device=dev) for gi in gis])
+        aggs_b = torch.stack([torch.as_tensor(groups[gi][2], device=dev) for gi in gis])
+        order = torch.argsort(ds.vk_sort_ranks(params, vks_b.reshape(Gb * N, 2, d), N), dim=1)
+        vks_s = torch.take_along_dim(vks_b, order[:, :, None, None], dim=1)
+        msgs_s = [list(groups[gi][1])[j] for gi, row in zip(gis, order.tolist()) for j in row]
+        eq, norm_ok, weight_ok = dp.verify_batch_device(params, vks_s, msgs_s, aggs_b)
+        for gi, e, n, w in zip(gis, eq.tolist(), norm_ok.tolist(), weight_ok.tolist()):
+            results[gi] = _reason(e, n, w)
+    return results
+
+
+def verify_batch(params: Params, vks, c_coeffs, alpha_coeffs, aggs, *, device=None):
+    """Grouped verify of G aggregates from pre-derived coefficients: vks
+    int32[G, N, 2, d] sorted within groups, challenge and alpha coefficients
+    int8 or int32 [G, N, d], aggs int32[G, rank, d] -> (eq, norm_ok,
+    weight_ok) bool[G] on the device."""
+    dev = dp.input_device(device, vks, c_coeffs, alpha_coeffs, aggs)
+    vks, c, al, aggs = (torch.as_tensor(x, device=dev)
+                        for x in (vks, c_coeffs, alpha_coeffs, aggs))
+    F = params.plan.field
+    P = dp.get_pipeline(params, vks.shape[1], str(vks.device))
+    return P.lattice(vks, ntt_fwd_u(params.plan, F.to_unsigned(c)), al, aggs)

@@ -19,6 +19,7 @@ from fusion_cryptography_tpu_torch.ops.intt_norm_weight import (
     intt_norm_weight,
     intt_norm_weight_plain,
 )
+from fusion_cryptography_tpu_torch.ops import ntt
 from fusion_cryptography_tpu_torch.ops.ntt import make_plan
 
 pytestmark = pytest.mark.cuda
@@ -66,8 +67,42 @@ def test_intt_norm_weight_kernel_matches_plain(dev, d, root, rows):
     assert torch.equal(nk, np_) and torch.equal(wk, wp)
 
 
+@pytest.mark.parametrize("d,root,rows", [(64, 23584283, 333), (256, 3337519, 1001),
+                                         (64, 23584283, 1001), (256, 3337519, 333)])
+def test_ntt_kernels_match_plain(dev, d, root, rows):
+    """Both kernels, both directions: residues with rows of 0 and q-1,
+    centered values with 0, +-1 and +-(q-1)/2."""
+    plan = make_plan(Q, d, root)
+    g = torch.Generator(device=dev).manual_seed(rows + d)
+    u = torch.randint(0, Q, (rows, d), dtype=torch.int64, device=dev, generator=g)
+    u[0], u[1] = 0, Q - 1
+    c = (torch.randint(0, Q, (rows, d), dtype=torch.int64, device=dev, generator=g)
+         - Q // 2).to(torch.int32)
+    c[0, :5] = torch.tensor([0, 1, -1, Q // 2, -(Q // 2)], dtype=torch.int32)
+    c[1] = -(Q // 2)
+    before = dict(kernels.LAUNCHES)
+    pairs = [(ntt.ntt_fwd_u(plan, u), ntt.ntt_fwd_u_plain(plan, u)),
+             (ntt.ntt_inv_u(plan, u), ntt.ntt_inv_u_plain(plan, u)),
+             (ntt.ntt_fwd(plan, c), ntt.ntt_fwd_plain(plan, c)),
+             (ntt.ntt_inv(plan, c), ntt.ntt_inv_plain(plan, c))]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ntt_u"] == before.get("ntt_u", 0) + 2
+    assert kernels.LAUNCHES["ntt_centered"] == before.get("ntt_centered", 0) + 2
+    for got, want in pairs:
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(ntt.ntt_inv_u(plan, pairs[0][0]), u)
+    lead = c[:15].reshape(3, 5, d)  # any leading shape
+    assert torch.equal(ntt.ntt_fwd(plan, lead), pairs[2][0][:15].reshape(3, 5, d))
+
+
 def test_wrappers_check_their_inputs(dev):
     plan = make_plan(Q, 256, 3337519)
+    with pytest.raises(ValueError):  # residues as int32
+        ntt.ntt_fwd_u(plan, torch.zeros((4, 256), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):  # centered values as int64
+        ntt.ntt_fwd(plan, torch.zeros((4, 256), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):  # trailing axis is not the degree
+        ntt.ntt_inv_u(plan, torch.zeros((4, 64), dtype=torch.int64, device=dev))
     with pytest.raises(ValueError):
         intt_norm_weight(plan, torch.zeros((8, 512), dtype=torch.int64, device=dev)[:, ::2])
     with pytest.raises(ValueError):
@@ -145,3 +180,53 @@ def test_pipeline_on_cuda_equals_cpu(dev, secpar):
     for a, b in zip(out_c, out_h):
         assert torch.equal(a.cpu(), b)
     assert bool(out_c[0].all())
+
+
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_lifecycle_on_cuda_equals_cpu(dev, secpar):
+    """keygen -> sign -> aggregate/verify of every prefix N = 1..4 (the fold
+    kernels at N != 4) -> verify_many, on the card and on the CPU."""
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+
+    params = fusion_setup(secpar, 3)
+    seeds, msgs = [31, 32, 33, 31], ["a", "b", "c", "d"]  # key 31 twice: a tie in the sort
+    out = {}
+    for where in (dev, "cpu"):
+        keys = lc.keygen(params, seeds, device=where)
+        sigs = lc.sign(params, keys, msgs)
+        aggs = [lc.aggregate(params, keys.vk[:n], msgs[:n], sigs.sig[:n]) for n in range(1, 5)]
+        verdicts = [lc.verify(params, keys.vk[:n], msgs[:n], a) for n, a in zip(range(1, 5), aggs)]
+        many = lc.verify_many(params, [(keys.vk[:n], msgs[:n], a)
+                                       for n, a in zip(range(1, 5), aggs)])
+        out[where] = [keys.sk_hat, keys.vk, sigs.sig, *aggs], verdicts, many
+    for a, b in zip(out[dev][0], out["cpu"][0]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert out[dev][1:] == out["cpu"][1:]
+    assert out["cpu"][1] == [(True, "")] * 4 and out["cpu"][2] == [(True, "")] * 4
+
+
+def test_card_paths_run_no_plain_ntt(dev, monkeypatch):
+    """With the plain NTTs made to fail, the fleet build, the grouped verify
+    and the lifecycle still run on the card: every NTT there is a kernel."""
+    from fusion_cryptography_tpu_torch.ops import intt_norm_weight as inw
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    def plain_ntt(*args, **kwargs):
+        raise AssertionError("a plain NTT ran on a card path")
+
+    for name in ("ntt_fwd_u_plain", "ntt_inv_u_plain", "ntt_fwd_plain", "ntt_inv_plain"):
+        monkeypatch.setattr(ntt, name, plain_ntt)
+    monkeypatch.setattr(inw, "ntt_inv_u_plain", plain_ntt)
+    params = fusion_setup(256, 3)
+    vks, msgs, aggs = build_fleet(params, 3, 4, seed0=9, device=dev)
+    assert all(bool(t.all()) for t in dp.verify_batch_device(params, vks, msgs, aggs))
+    _, _, _, cc, al = dp.derive_coeffs_device(params, vks, msgs, aggs)
+    assert all(bool(t.all()) for t in lc.verify_batch(params, vks, cc, al, aggs))
+    keys = lc.keygen(params, [9, 10, 11, 12], device=dev)
+    m = ["w", "x", "y", "z"]
+    sigs = lc.sign(params, keys, m)
+    agg = lc.aggregate(params, keys.vk, m, sigs.sig)
+    assert lc.verify(params, keys.vk, m, agg) == (True, "")
+    assert lc.verify_many(params, [(keys.vk, m, agg)]) == [(True, "")]

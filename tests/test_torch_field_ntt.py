@@ -102,7 +102,7 @@ PLANS = [(64, 23584283), (256, 3337519)]
 @pytest.mark.parametrize("d,root", PLANS)
 def test_plan_tables_match(d, root):
     jp, tp = jntt.make_plan(Q, d, root), tntt.make_plan(Q, d, root)
-    for name in ("brp_inv", "brp_inv_shoup"):
+    for name in ("brp", "brp_shoup", "brp_inv", "brp_inv_shoup"):
         np.testing.assert_array_equal(getattr(tp, name), getattr(jp, name))
     assert (tp.n_inv, tp.n_inv_shoup, tp.inv_root) == (jp.n_inv, jp.n_inv_shoup, jp.inv_root)
 

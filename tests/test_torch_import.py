@@ -13,6 +13,9 @@ def test_port_import_leaves_jax_out():
         "import fusion_cryptography_tpu_torch.scheme.device_setup\n"
         "import fusion_cryptography_tpu_torch.profile_verify\n"
         "import fusion_cryptography_tpu_torch.ops.preimage_fold\n"
+        "import fusion_cryptography_tpu_torch.ops.ntt\n"
+        "import fusion_cryptography_tpu_torch.scheme.lifecycle\n"
+        "import fusion_cryptography_tpu_torch.interop.serial\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'fusion_cryptography_tpu' or m.startswith('fusion_cryptography_tpu.'))\n"

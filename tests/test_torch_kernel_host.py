@@ -1,9 +1,10 @@
 """The CUDA kernels' arithmetic, compiled for the host CPU.
 
 ``csrc/*.cu`` keep each kernel's per-lane and per-row work (Keccak-f and the
-sponge lanes; the Gentleman-Sande butterflies, Shoup multiplies and centered
-reduction; the preimage folds' op-table walk, decimal rendering and word
-stream) in functions that also compile as plain C++: without nvcc,
+sponge lanes; the Cooley-Tukey and Gentleman-Sande butterflies, Shoup
+multiplies, the NTT's centered loads and stores and the centered reduction;
+the preimage folds' op-table walk, decimal rendering and word stream) in
+functions that also compile as plain C++: without nvcc,
 ``FCT_HD`` is ``static inline`` and the ``__global__`` parts drop out.  These
 tests build them with the host C++ compiler, with a serial loop in place of
 the CUDA grid, and hold them against the plain torch versions and hashlib.
@@ -25,6 +26,7 @@ from fusion_cryptography_tpu_torch.ops import keccak as tk
 from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
 from fusion_cryptography_tpu_torch.ops.field import Q
 from fusion_cryptography_tpu_torch.ops.intt_norm_weight import intt_norm_weight_plain
+from fusion_cryptography_tpu_torch.ops import ntt as tntt
 from fusion_cryptography_tpu_torch.ops.ntt import make_plan, ntt_fwd_u
 
 CSRC = Path(__file__).resolve().parents[1] / "fusion_cryptography_tpu_torch" / "csrc"
@@ -34,6 +36,7 @@ CSRC = Path(__file__).resolve().parents[1] / "fusion_cryptography_tpu_torch" / "
 HOST_LOOPS = r"""
 #include "keccak_sponge.cu"
 #include "intt_norm_weight.cu"
+#include "ntt.cu"
 #include "preimage_fold.cu"
 
 extern "C" void host_absorb(const uint32_t* words, const int32_t* nblk,
@@ -69,6 +72,40 @@ extern "C" void host_intt_norm_weight(const int64_t* x, int64_t rows, int d,
     nrm[row] = (int32_t)m;
     wgt[row] = c;
   }
+}
+
+// the NTT kernels' row: load, log2(d) stages of d/2 butterflies, the n^-1
+// scale (inverse), store
+template <typename T>
+static void host_ntt_rows(const T* x, T* y, int64_t rows, int d, const uint32_t* tw,
+                          const uint32_t* tw_sh, int inverse, uint32_t n_inv,
+                          uint32_t n_inv_sh, uint32_t q) {
+  uint32_t a[1024];
+  const int half = d / 2;
+  for (int64_t row = 0; row < rows; ++row) {
+    for (int k = 0; k < d; ++k) a[k] = load_coef(x[row * d + k], q);
+    if (inverse) {
+      for (int h = half; h >= 1; h >>= 1)
+        for (int i = 0; i < half; ++i) gs_butterfly(a, i, h, half, tw, tw_sh, q);
+    } else {
+      for (int m = 1; m < d; m <<= 1)
+        for (int i = 0; i < half; ++i) ct_butterfly(a, i, m, half, tw, tw_sh, q);
+    }
+    for (int k = 0; k < d; ++k)
+      store_coef(y + row * d + k, inverse ? mulmod_shoup(a[k], n_inv, n_inv_sh, q) : a[k], q);
+  }
+}
+
+extern "C" void host_ntt_u(const int64_t* x, int64_t* y, int64_t rows, int d,
+                           const uint32_t* tw, const uint32_t* tw_sh, int inverse,
+                           uint32_t n_inv, uint32_t n_inv_sh, uint32_t q) {
+  host_ntt_rows(x, y, rows, d, tw, tw_sh, inverse, n_inv, n_inv_sh, q);
+}
+
+extern "C" void host_ntt_centered(const int32_t* x, int32_t* y, int64_t rows, int d,
+                                  const uint32_t* tw, const uint32_t* tw_sh, int inverse,
+                                  uint32_t n_inv, uint32_t n_inv_sh, uint32_t q) {
+  host_ntt_rows(x, y, rows, d, tw, tw_sh, inverse, n_inv, n_inv_sh, q);
 }
 
 extern "C" void host_signer_fold_a(const int32_t* ops, int n_ops, const uint32_t* pool,
@@ -127,6 +164,8 @@ def lib(tmp_path_factory):
     lib.host_absorb.argtypes = [P, P, P, I32, I64]
     lib.host_squeeze.argtypes = [P, P, I32, I64]
     lib.host_intt_norm_weight.argtypes = [P, I64, I32, P, P, U32, U32, U32, P, P]
+    lib.host_ntt_u.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
+    lib.host_ntt_centered.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
     lib.host_signer_fold_a.argtypes = [P, I32, P, P, P, I32, P, I64, P, I32, P, P, I32, P]
     lib.host_signer_fold_b.argtypes = [P, I32, P, P, I32, P, P, I32, P, P, I64, P, I32, P]
     lib.host_agg_fold.argtypes = [P, I32, P, P, I32, I64, I64, I64, I32, I64, P, I32, P, I32]
@@ -193,6 +232,32 @@ def test_intt_norm_weight_rows_match_plain(lib, d, root):
     np.testing.assert_array_equal(nrm.numpy(), want_n.numpy())
     np.testing.assert_array_equal(wgt.numpy(), want_w.numpy())
     assert int(wgt[0]) == 0 and sorted(wgt[3:7].tolist()) != [d] * 4
+
+
+@pytest.mark.parametrize("d,root", [(64, 23584283), (256, 3337519)])
+def test_ntt_rows_match_plain(lib, d, root):
+    """Both I/O forms, both directions, on residues with rows of 0 and q-1
+    and on centered values with 0, +-1 and +-(q-1)/2."""
+    plan = make_plan(Q, d, root)
+    rng = np.random.default_rng(d + 2)
+    u = rng.integers(0, Q, size=(37, d), dtype=np.int64)
+    u[0], u[1], u[2, :3] = 0, Q - 1, [0, 1, Q - 1]
+    c = rng.integers(-(Q // 2), Q // 2 + 1, size=(37, d), dtype=np.int64)
+    c[0], c[1, :5], c[2] = 0, [0, 1, -1, Q // 2, -(Q // 2)], -(Q // 2)
+    forms = [(lib.host_ntt_u, torch.from_numpy(u), tntt.ntt_fwd_u_plain, tntt.ntt_inv_u_plain),
+             (lib.host_ntt_centered, torch.from_numpy(c.astype(np.int32)), tntt.ntt_fwd_plain,
+              tntt.ntt_inv_plain)]
+    def run(host, x, inverse):
+        tw, tw_sh = plan.twiddles(bool(inverse), torch.device("cpu"))
+        y = torch.full_like(x, -1)
+        host(x.data_ptr(), y.data_ptr(), x.shape[0], d, tw.data_ptr(), tw_sh.data_ptr(),
+             inverse, plan.n_inv, plan.n_inv_shoup, plan.modulus)
+        return y
+
+    for host, x, fwd, inv in forms:
+        for inverse, plain in ((0, fwd), (1, inv)):
+            np.testing.assert_array_equal(run(host, x, inverse).numpy(), plain(plan, x).numpy())
+        np.testing.assert_array_equal(run(host, run(host, x, 0), 1).numpy(), x.numpy())
 
 
 def _fold_inputs(params, B, seed):
