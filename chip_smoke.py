@@ -4,21 +4,29 @@
 Drives the port's main path through its public entry points at the full
 secpar=256 configuration — ``build_fleet`` of G=8192 groups of N=4 signers
 (32,768 one-time keys, aggregates int32[8192, 83, 256]) and grouped
-``verify_batch_device`` — and the batched lifecycle (keygen, sign, aggregate,
-verify, verify_many, verify_batch) at the same widths, after building every
-CUDA kernel of those paths from ``fusion_cryptography_tpu_torch/csrc`` and
-holding each one against its plain torch version at the paths' shapes (exact
-equality: all integer).
+``verify_batch_device`` — then the same two entry points in the ``"spec"``
+assembly configuration, the batched lifecycle (keygen, sign, aggregate,
+verify, verify_many, verify_batch) at the same widths, and the object API
+(the KAT corpus and one lifecycle), after building every CUDA kernel of
+those paths from ``fusion_cryptography_tpu_torch/csrc`` and holding each one
+against its plain torch version at the paths' shapes (exact equality: all
+integer).
 
 Phases (each fails loudly; any failure exits non-zero):
   1. card, versions, kernel build (one nvcc per source, in parallel)
   2. kernels vs plain versions (and the sponge vs hashlib), with timings and
-     each kernel's bound
+     each kernel's bound; ``assemble_spec`` on the challenge, triple and
+     aggregation specs, its outputs on memory filled with -1
   3. main path: fleet build (keys/s), verify: one warm call, per-call
      latency (median of 5 synced calls), 5 calls with one final sync; all
      verdicts true, a tampered aggregate fails in exactly its group;
      derive_coeffs_device on CUDA equals the CPU run (the kernels' plain
      versions) on 16 groups
+  S. the "spec" assembly, with phase 3's fleet alive: build_fleet gives the
+     same fleet, verify (the same measurements) gives all verdicts true and
+     rejects a tampered aggregate in exactly its group, derive_coeffs_device
+     equals the "fold" configuration's over all 8,192 groups; kernel
+     ``assemble_spec`` runs twice per verify call, the signer folds never
   L. lifecycle, with phase 3's fleet alive: keygen of the fleet's 32,768
      keys (vk equals the fleet's), sign of all of them, aggregate and verify
      of 64 groups one call each (each aggregate equals the fleet's), a
@@ -27,9 +35,14 @@ Phases (each fails loudly; any failure exits non-zero):
      CUDA equals the CPU for one group of 4 keys
   4. the secpar=128 lane (G=1024, N=4): all verdicts true, CUDA equals the
      CPU on 16 groups
-  5. every kernel was launched while the main path or the lifecycle was
-     driven (counts cleared just before each, read just after), and the
-     NTT kernel ``ntt_u`` by the main path itself
+  O. the object API on the card: ``kat.generate_corpus`` (seed 20260820, 3
+     signers, both levels) byte-equal to all 18 files of
+     ``KATs/reference_frozen``, ``kat.run_all`` on them all true; one
+     ``api`` lifecycle of 4 keys at secpar=256 whose aggregate prints as
+     ``lifecycle.aggregate``'s
+  5. every kernel of each path (main, spec, lifecycle, object API) was
+     launched while that path was driven (counts cleared just before each,
+     read just after)
 
 The last two lines of stdout are the kernel table {"kernels": [...]} and
 {"ok": true, "device": {...}}; the card's name and power limit come just
@@ -37,11 +50,14 @@ before them.  Run from the repository root: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
+import filecmp
 import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 from statistics import median
 
 import numpy as np
@@ -71,9 +87,18 @@ RENDER_OPS, WORD_OPS, AGG_WORD_OPS = 70, 4, 20
 
 MAIN_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight",
                      "signer_fold_a", "signer_fold_b", "agg_fold", "ntt_u")
-# launched by the lifecycle only (keygen's sk_hat = NTT(sk))
-LIFECYCLE_KERNELS = ("ntt_centered",)
+# the "spec" assembly: assemble_spec in place of the signer folds
+SPEC_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight", "agg_fold",
+                     "ntt_u", "assemble_spec")
+# the lifecycle: the main path's kernels and keygen's sk_hat = NTT(sk)
+LIFECYCLE_KERNELS = MAIN_PATH_KERNELS + ("ntt_centered",)
+# the object API: keygen and the challenge/coefficient NTTs, verify's pipeline
+OBJECT_API_KERNELS = LIFECYCLE_KERNELS
+ALL_KERNELS = LIFECYCLE_KERNELS + ("assemble_spec",)
 LIFE_GROUPS = 64  # aggregate and verify calls of the lifecycle phase, one group each
+REPO = Path(__file__).resolve().parent
+FROZEN_KATS = REPO / "KATs" / "reference_frozen"
+KAT_SEED, KAT_SIGNERS = 20260820, 3
 
 
 def log(msg: str) -> None:
@@ -376,6 +401,71 @@ def phase_fold_kernels(dev, kernel_rows: list) -> None:
     torch.cuda.empty_cache()
 
 
+def phase_assemble_kernel(dev, kernel_rows: list) -> None:
+    """Kernel ``assemble_spec`` on the three specs at full width: the
+    challenge spec (B = 32,768 lanes, values int32[512, B], the prehash
+    extra, rate-padded), the triple spec (values int32[768, B]) and the
+    aggregation spec (G = 8,192 groups, N = 4 strided triple views: an
+    extras-only program).  Each output lands on a block of the caching
+    allocator filled with -1 just before the call, so a word the kernel
+    leaves unwritten fails the exact comparison with the plain version."""
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+    from fusion_cryptography_tpu_torch.ops import ragged_words as rw
+    from fusion_cryptography_tpu_torch.ops.assemble_spec import assemble_spec
+    from fusion_cryptography_tpu_torch.params import fusion_setup
+
+    params = fusion_setup(SECPAR, SEED)
+    G, N = N_GROUPS, N_SIGNERS
+    vk2d_t, c_hat_t, pre_w, pre_len = fold_inputs(params, G * N, dev)
+    ch_spec, tri_spec = ds.challenge_preimage_spec(params), ds.triple_spec(params)
+    pre, pre_bounds = [(pre_w, pre_len)], [(1, ds.PREHASH_W)]
+    tvals = torch.cat([vk2d_t, c_hat_t])
+    tri_words = rw.words_for(tri_spec.out_max)
+    tb, tl = assemble_spec(tri_spec, tvals, pre, pre_bounds)  # group g = lanes 4g..4g+3
+    tbv, tlv = tb.reshape(tri_words, G, N), tl.reshape(G, N)
+    tri_bounds = [(ds.spec_min_total(tri_spec, [1]), tri_spec.out_max)] * N
+    cases = [
+        ("challenge", ch_spec, vk2d_t, pre, pre_bounds, ds.signer_fold_a_table(params).widths[0]),
+        ("triple", tri_spec, tvals, pre, pre_bounds, tri_words),
+        ("aggregation", ds.agg_preimage_spec(params, N, tri_spec.out_max), None,
+         [(tbv[:, :, k], tlv[:, k]) for k in range(N)], tri_bounds,
+         ds.agg_fold_table(params, N).widths[0]),
+    ]
+    row = dict(name="assemble_spec", route="cuda",
+               source="fusion_cryptography_tpu_torch/csrc/assemble_spec.cu",
+               replaces="fusion_cryptography_tpu/ops/assemble_pallas.py:49", library_ms=None)
+    errs = []
+    for label, spec, values, extras, bnds, width in cases:
+        lanes = (values if values is not None else extras[0][0]).shape[-1]
+        torch.cuda.synchronize()
+        junk = torch.full((width, lanes), -1, dtype=torch.int32, device=dev)
+        junk_ptr = junk.data_ptr()
+        del junk
+        got = assemble_spec(spec, values, extras, bnds, width)
+        require(got[0].data_ptr() == junk_ptr,
+                f"assemble_spec ({label}): the output did not land on the -1-filled block")
+        want = ds.assemble_chunks_words(spec, values, extras, bnds, width)
+        errs.append(max(max_abs_err(x, y) for x, y in zip(got, want)))
+        require(errs[-1] == 0, f"assemble_spec ({label} spec) != plain version")
+        del got, want
+        t_k = cuda_ms(lambda: assemble_spec(spec, values, extras, bnds, width), 10)
+        t_p = cuda_ms(lambda: ds.assemble_chunks_words(spec, values, extras, bnds, width), 2)
+        n_vals = 0 if values is None else values.shape[0]
+        bnd = bound(4 * n_vals * lanes + sum(live_bytes(el) + 4 * lanes for _, el in extras)
+                    + 4 * (width + 1) * lanes,
+                    lanes * (n_vals * RENDER_OPS + width * WORD_OPS))
+        log(f"assemble_spec, {label} spec: {lanes} lanes, {n_vals} values, {len(extras)} "
+            f"extras, {width} words equal the plain version; {t_k:.3f} ms (plain {t_p:.3f} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']})")
+        key = "" if label == "challenge" else f"{label}_"
+        row.update({f"{key}ms": t_k, f"{key}plain_ms": t_p, f"{key}bound_ms": bnd["bound_ms"],
+                    f"{key}bound_by": bnd["bound_by"]})
+    row["max_abs_err"] = max(errs)
+    kernel_rows.append(row)
+    del tb, tl, tbv, tlv, tvals, cases
+    torch.cuda.empty_cache()
+
+
 def drive_main_path(params, G: int, N: int, dev) -> tuple:
     """Fleet build (twice, fresh seeds) and grouped verify -> (fleet tensors,
     metrics, kernel launches while they ran)."""
@@ -437,7 +527,7 @@ def drive_main_path(params, G: int, N: int, dev) -> tuple:
     return (vks, msgs, aggs), metrics, launches
 
 
-def check_tamper(params, fleet) -> None:
+def check_tamper(params, fleet, assembly: str = "fold") -> None:
     from fusion_cryptography_tpu_torch.ops.field import Q
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
 
@@ -445,10 +535,136 @@ def check_tamper(params, fleet) -> None:
     bad_g = vks.shape[0] // 3
     bad = aggs.clone()
     bad[bad_g, 0, 0] = (bad[bad_g, 0, 0] + 1) % Q
-    eq_b, _, _ = dp.verify_batch_device(params, vks, msgs, bad)
+    eq_b, _, _ = dp.verify_batch_device(params, vks, msgs, bad, assembly=assembly)
     rejected = torch.nonzero(~eq_b).flatten().tolist()
-    require(rejected == [bad_g], f"tampered group {bad_g}: rejected {rejected}")
-    log(f"tampered aggregate: rejected exactly group {bad_g}")
+    require(rejected == [bad_g], f"tampered group {bad_g} ({assembly}): rejected {rejected}")
+    log(f"tampered aggregate ({assembly}): rejected exactly group {bad_g}")
+
+
+def drive_spec_path(params, fleet, fold_metrics: dict, dev) -> tuple:
+    """The "spec" assembly (kernel ``assemble_spec`` for the two signer
+    preimages) through ``build_fleet`` and ``verify_batch_device`` at phase
+    3's widths and seed, measured as phase 3 measures them -> (metrics,
+    kernel launches while they ran)."""
+    from fusion_cryptography_tpu_torch import kernels
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    G, N = fleet[0].shape[0], fleet[0].shape[1]
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    vks, msgs, aggs = build_fleet(params, G, N, seed0=1, device=dev, assembly="spec")
+    torch.cuda.synchronize()
+    t_fleet = time.time() - t0
+    require(torch.equal(vks, fleet[0]) and msgs == fleet[1] and torch.equal(aggs, fleet[2]),
+            'build_fleet(assembly="spec") != the "fold" fleet')
+    fleet_launches = dict(kernels.LAUNCHES)
+
+    def verify():
+        return dp.verify_batch_device(params, vks, msgs, aggs, assembly="spec")
+
+    t0 = time.time()
+    eq, norm_ok, weight_ok = verify()
+    torch.cuda.synchronize()
+    t_warm = time.time() - t0
+    require(bool(eq.all()) and bool(norm_ok.all()) and bool(weight_ok.all()),
+            'fleet aggregates must verify (assembly="spec")')
+    lat = []
+    for _ in range(5):
+        t0 = time.time()
+        ok = verify()[0].all().item()
+        lat.append(time.time() - t0)
+        require(bool(ok), 'verify (assembly="spec")')
+    reps = 5
+    t0 = time.time()
+    outs = [verify() for _ in range(reps)]
+    torch.cuda.synchronize()
+    t_tp = time.time() - t0
+    require(all(bool(o[0].all() & o[1].all() & o[2].all()) for o in outs), "verify reps (spec)")
+    launches = dict(kernels.LAUNCHES)
+    n_calls = 1 + 5 + reps
+    per_call = {k: launches.get(k, 0) - fleet_launches.get(k, 0) for k in launches}
+    require(per_call.get("assemble_spec", 0) == 2 * n_calls and fleet_launches.get(
+        "assemble_spec", 0) == 2, f"assemble_spec launches: fleet {fleet_launches}, "
+            f"{n_calls} verify calls {per_call}")
+    require(launches.get("signer_fold_a", 0) == 0 and launches.get("signer_fold_b", 0) == 0,
+            f'signer folds launched in the "spec" configuration: {launches}')
+    vps = reps * G / t_tp
+    log(f'spec assembly: fleet of {G * N} keys in {t_fleet:.3f} s -> {G * N / t_fleet:,.0f} '
+        f'keys/s (equals the fold fleet; fold: {fold_metrics["fleet_keys_per_s"]:,.0f}); verify '
+        f'warm call {t_warm:.3f} s, per-call latency median {median(lat):.4f} s '
+        f'({", ".join(f"{x:.4f}" for x in lat)}; fold {fold_metrics["verify_latency_s"]:.4f}), '
+        f'{reps} calls, one sync: {t_tp:.3f} s -> {vps:,.0f} verifies/s (fold '
+        f'{fold_metrics["verifies_per_s"]:,.0f})')
+    log(f"kernel launches during the spec fleet build + verify: {launches}")
+    del vks, aggs, outs
+    check_tamper(params, fleet, assembly="spec")
+    out_s = dp.derive_coeffs_device(params, *fleet, assembly="spec")
+    out_f = dp.derive_coeffs_device(params, *fleet)
+    for name, a, b in zip(("eq", "norm_ok", "weight_ok", "cc", "alphas"), out_s, out_f):
+        require(torch.equal(a, b), f'derive_coeffs_device {name}: "spec" != "fold"')
+    log(f'spec assembly: derive_coeffs_device equals the "fold" configuration over all {G} '
+        "groups (verdicts, challenge and alpha coefficients)")
+    metrics = {
+        "spec_fleet_keys_per_s": G * N / t_fleet, "spec_fleet_s": t_fleet,
+        "spec_verify_warm_s": t_warm, "spec_verify_latency_s": median(lat),
+        "spec_verify_latency_all_s": lat, "spec_verifies_per_s": vps,
+        "spec_verify_reps_s": t_tp,
+    }
+    return metrics, launches
+
+
+def drive_object_api(dev) -> tuple:
+    """The object API on the card: the KAT corpus of ``KATs/reference_frozen``
+    regenerated and checked, and one lifecycle of 4 keys at secpar=256 ->
+    (metrics, kernel launches while they ran)."""
+    from fusion_cryptography_tpu_torch import kernels
+    from fusion_cryptography_tpu_torch.interop import api, kat, serial
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+
+    names = sorted(p.name for p in FROZEN_KATS.glob("*.csv"))
+    require(len(names) == 18, f"{FROZEN_KATS} must hold the 18 frozen KAT files")
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.time()
+        paths = kat.generate_corpus(tmp, KAT_SEED, (128, 256), KAT_SIGNERS, device=dev)
+        t_gen = time.time() - t0
+        require(sorted(paths) == names, f"generate_corpus wrote {sorted(paths)}")
+        bad = [n for n in names if not filecmp.cmp(FROZEN_KATS / n, paths[n], shallow=False)]
+        require(not bad, f"KAT files differ from KATs/reference_frozen: {bad}")
+        t0 = time.time()
+        res = kat.run_all(Path(tmp), device=dev)
+        t_check = time.time() - t0
+        require(len(res) == 10 and all(v and all(v) for v in res.values()),
+                f"kat.run_all: {res}")
+    log(f"object API: generate_corpus (seed {KAT_SEED}, {KAT_SIGNERS} signers, secpar 128 and "
+        f"256) on the card in {t_gen:.3f} s: all 18 files byte-equal to KATs/reference_frozen; "
+        f"kat.run_all on them in {t_check:.3f} s: {sum(len(v) for v in res.values())} rows of "
+        f"{len(res)} files true")
+    p = api.fusion_setup(SECPAR, SEED)
+    seeds, msgs = [11, 12, 13, 14], ["o1", "o2", "o3", "o4"]
+    t0 = time.time()
+    keys = [api.keygen(p, s, device=dev) for s in seeds]
+    sigs = [api.sign(p, k, m) for k, m in zip(keys, msgs)]
+    vks = [k[1] for k in keys]
+    agg = api.aggregate(p, vks, msgs, sigs)
+    verdict = api.verify(p, vks, msgs, agg)
+    t_life = time.time() - t0
+    launches = dict(kernels.LAUNCHES)
+    require(agg.signature_hat.device.type == "cuda", "the api aggregate must live on the card")
+    require(verdict == (True, ""), f"api verify: {verdict}")
+    kb = lc.keygen(p, seeds, device=dev)
+    want = serial.sig_str(p, lc.aggregate(p, kb.vk, msgs, lc.sign(p, kb, msgs).sig))
+    require(str(agg) == want, "str(api.aggregate) != str(lifecycle.aggregate)")
+    log(f"object API: keygen, sign, aggregate and verify of {len(seeds)} keys at secpar={SECPAR} "
+        f"in {t_life:.3f} s; str(aggregate) equals lifecycle.aggregate's")
+    log(f"kernel launches during the object API phase: {launches}")
+    metrics = {"kat_generate_s": t_gen, "kat_check_s": t_check, "object_api_lifecycle_s": t_life}
+    return metrics, launches
 
 
 def check_cuda_vs_cpu(params, fleet, groups: int = 16) -> None:
@@ -599,6 +815,7 @@ def main() -> int:
     kernel_rows: list = []
     phase_kernels(dev, kernel_rows)
     phase_fold_kernels(dev, kernel_rows)
+    phase_assemble_kernel(dev, kernel_rows)
     phase_ntt_kernels(dev, kernel_rows)
 
     # -- 3. main path -------------------------------------------------------
@@ -607,6 +824,10 @@ def main() -> int:
     fleet, metrics, launches = drive_main_path(params, G, N, dev)
     check_tamper(params, fleet)
     check_cuda_vs_cpu(params, fleet)
+
+    # -- S. the "spec" assembly ---------------------------------------------
+    spec_metrics, spec_launches = drive_spec_path(params, fleet, metrics, dev)
+    metrics.update(spec_metrics)
 
     # -- L. lifecycle ---------------------------------------------------------
     life_metrics, life_launches = drive_lifecycle(params, fleet, dev)
@@ -632,18 +853,24 @@ def main() -> int:
     metrics["lane128_fleet_and_verify_s"] = t128
     del fleet128
 
+    # -- O. the object API ------------------------------------------------------
+    obj_metrics, obj_launches = drive_object_api(dev)
+    metrics.update(obj_metrics)
+
     # -- 5. the paths went through every kernel --------------------------------
-    require(sorted(r["name"] for r in kernel_rows)
-            == sorted(MAIN_PATH_KERNELS + LIFECYCLE_KERNELS),
-            "kernel table must list every kernel of the main path and the lifecycle")
+    require(sorted(r["name"] for r in kernel_rows) == sorted(ALL_KERNELS),
+            "kernel table must list every kernel of the paths")
+    paths = (("main", launches, MAIN_PATH_KERNELS), ("spec", spec_launches, SPEC_PATH_KERNELS),
+             ("lifecycle", life_launches, LIFECYCLE_KERNELS),
+             ("object_api", obj_launches, OBJECT_API_KERNELS))
     for row in kernel_rows:
         name = row["name"]
-        row["launches_main"] = int(launches.get(name, 0))
-        row["launches_lifecycle"] = int(life_launches.get(name, 0))
-        row["launches"] = row["launches_main"] + row["launches_lifecycle"]
-        if name in MAIN_PATH_KERNELS:
-            require(row["launches_main"] > 0, f"kernel {name} never launched on the main path")
-        require(row["launches_lifecycle"] > 0, f"kernel {name} never launched by the lifecycle")
+        for path, counts, path_kernels in paths:
+            row[f"launches_{path}"] = int(counts.get(name, 0))
+            if name in path_kernels:
+                require(row[f"launches_{path}"] > 0,
+                        f"kernel {name} never launched on the {path} path")
+        row["launches"] = sum(row[f"launches_{path}"] for path, _, _ in paths)
 
     metrics.update(card=card, secpar=SECPAR, groups=G, signers=N,
                    group_chunk=dp.DEFAULT_GROUP_CHUNK, total_s=time.time() - t_start)

@@ -16,7 +16,7 @@ Output-length arithmetic follows fusion.py:515-527 (challenge) and :579-585
 """
 from __future__ import annotations
 
-from hashlib import sha3_256
+from hashlib import sha3_256, shake_256
 from math import ceil, log2
 
 
@@ -25,6 +25,11 @@ def hash_message_to_int(pre_hash_dst: bytes, message: str) -> int:
     (reference fusion.py:405-409)."""
     salted = (pre_hash_dst.decode("utf-8") + "," + message).encode()
     return int.from_bytes(sha3_256(salted).digest(), byteorder="little")
+
+
+def shake_digest(payload: bytes, n: int) -> bytes:
+    """SHAKE256 XOF of ``payload`` with ``n`` output bytes."""
+    return shake_256(payload).digest(n)
 
 
 def challenge_xof_len(secpar: int, degree: int, modulus: int, beta_ch: int, omega_ch: int) -> int:

@@ -363,7 +363,7 @@ def spec_min_total(spec: PreimageSpec, extra_min_lens: Sequence[int]) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Op tables of the preimage fold kernels (ops/preimage_fold.py)
+# Op tables of the preimage kernels (ops/preimage_fold.py, ops/assemble_spec.py)
 # ---------------------------------------------------------------------------
 
 # op kinds; an op is int32[OP_FIELDS] = (kind, writer mask, a0, a1, a2, a3):
@@ -472,4 +472,14 @@ def agg_fold_table(params, n_signers: int) -> FoldTable:
     """Writer 1 = the aggregation preimage dst + "," + str(list(zip(...)))
     padded to whole rate blocks; extra k = signer k's triple."""
     spec = agg_preimage_spec(params, n_signers, triple_spec(params).out_max)
-    return _TableBuilder().nodes(spec.nodes).build((_pad_rate_words(spec.out_max),))
+    return spec_table(spec, _pad_rate_words(spec.out_max))
+
+
+@lru_cache(maxsize=64)
+def spec_table(spec: PreimageSpec, pad_words: Optional[int] = None) -> FoldTable:
+    """Any spec's program for the ``assemble_spec`` kernel: its nodes in
+    order into one writer of ``pad_words`` words (default
+    ``ceil(out_max / 4)``); value row k is the spec's number k, extra e its
+    extra e."""
+    width = rw.words_for(spec.out_max) if pad_words is None else pad_words
+    return _TableBuilder().nodes(spec.nodes).build((width,))

@@ -5,8 +5,8 @@ use, all of them at once, into ``build/kernels_<source>/<hash>/`` (the hash
 covers the source and the shared ``csrc/*.cuh`` headers), and loaded with
 ctypes through a plain C interface (no PyTorch headers, so a build takes
 seconds).  Only the wrappers in ``ops/keccak_sponge.py``, ``ops/ntt.py``,
-``ops/intt_norm_weight.py`` and ``ops/preimage_fold.py`` call into the
-library; each adds one to ``LAUNCHES[name]`` where it launches its kernel,
+``ops/intt_norm_weight.py``, ``ops/preimage_fold.py`` and
+``ops/assemble_spec.py`` call into the library; each adds one to ``LAUNCHES[name]`` where it launches its kernel,
 so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
@@ -49,6 +49,9 @@ SOURCES = {
                               _P, _P],
         "fct_agg_fold": [_P, _I32, _P, _P, _I32, _I64, _I64, _I64, _I32, _I64, _P, _I32, _P,
                          _P],
+    },
+    "assemble_spec.cu": {
+        "fct_assemble_spec": [_P, _I32, _P, _P, _I64, _P, _I64, _P, _I32, _P, _P],
     },
 }
 

@@ -246,3 +246,13 @@ def ntt_inv(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ntt_inv_plain(plan, x)
     return _launch(plan, x, inverse=True, centered=True)
+
+
+def negacyclic_poly_mult(plan: NTTPlan, f: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """INTT(NTT(f) ⊙ NTT(g)): the negacyclic product of coefficient-domain
+    polynomials (centered or residues, same shape) on the trailing axis ->
+    centered int32; the JAX package's ``negacyclic_poly_mult``.  On a CUDA
+    tensor: one ``ntt_u`` launch for both operands, one for the inverse."""
+    F = plan.field
+    hat = ntt_fwd_u(plan, F.to_unsigned(torch.stack([f, g])))
+    return F.to_centered(ntt_inv_u(plan, F.mont_mul(F.to_mont(hat[0]), hat[1])))

@@ -97,8 +97,25 @@ class Params:
     num_cols_vk: int = 1
 
     @property
+    def num_rows_sk(self) -> int:
+        return self.rank
+
+    @property
+    def num_cols_pub_challenge(self) -> int:
+        return self.rank
+
+    @property
     def plan(self) -> NTTPlan:
         return make_plan(self.modulus, self.degree, self.root)
+
+    def __str__(self) -> str:
+        # the reference's Params repr (fusion.py:284-285): the KAT corpus
+        # hashes and stores this string, so it is part of the wire format
+        from .interop.serial import params_str
+
+        return params_str(self)
+
+    __repr__ = __str__
 
     def __eq__(self, other):
         if not isinstance(other, Params):

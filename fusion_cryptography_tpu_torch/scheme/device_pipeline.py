@@ -15,9 +15,19 @@ norm/weight):
     -> lattice:     alpha NTT (ntt_u kernel), target/observed sums
                     (ops/field), INTT + norm/weight (CUDA kernel)
 
-The three preimages come from the fold kernels of ops/preimage_fold.py, the
-JAX package's ``make_stages(pallas_folds=True)`` configuration; on the CPU
-their plain versions assemble the same bytes by prefix sum + scatter
+Two assemblies of the two signer preimages give the same bytes, chosen by
+the ``assembly`` argument:
+
+* ``"fold"`` (the default): the fold kernels of ops/preimage_fold.py, the
+  JAX package's ``make_stages(pallas_folds=True)`` configuration, which
+  render ``str(vk)`` once for both preimages;
+* ``"spec"``: the generic spec assembler of ops/assemble_spec.py on the
+  challenge and triple specs, the JAX package's
+  ``make_stages(pallas_assembly=True)`` configuration (``str(vk)`` is
+  rendered twice).
+
+The group stage takes the ``agg_fold`` kernel in both.  On the CPU the
+kernels' plain versions assemble the same bytes by prefix sum + scatter
 (interop/device_serial, ops/ragged_words).
 
 Groups are processed in chunks of ``group_chunk`` complete groups (every
@@ -36,9 +46,11 @@ import numpy as np
 import torch
 
 from ..hashing.xof import agg_block_len, challenge_xof_len
+from ..interop import device_serial as ds
 from ..ops import preimage_fold as pf
 from ..ops import ragged_words as rw
 from ..ops import xof_decode
+from ..ops.assemble_spec import assemble_spec
 from ..ops.intt_norm_weight import intt_norm_weight
 from ..ops.keccak import RATE
 from ..ops.keccak_sponge import sha3_256_words_w, shake256_words_w
@@ -46,6 +58,7 @@ from ..ops.ntt import ntt_fwd_u
 from ..params import Params
 
 DEFAULT_GROUP_CHUNK = 8192
+ASSEMBLIES = ("fold", "spec")
 
 
 def _pad_rate(n: int) -> int:
@@ -95,9 +108,11 @@ def input_device(device, *inputs) -> torch.device:
     return resolve_device(device)
 
 
-def make_stages(params: Params, n_signers: int):
+def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
     """The hash stages shared by grouped verify and the fleet build
-    (scheme/device_setup.py), as (prehash_stage, signer_stage, group_stage):
+    (scheme/device_setup.py), as (prehash_stage, signer_stage, group_stage);
+    ``assembly`` ("fold" or "spec", see the module docstring) picks the
+    signer preimages' kernels:
 
     prehash_stage(msg_words int32[Wt, B], msg_len int32[B])
         -> (pre_w int32[20, B], pre_len int32[B])
@@ -107,12 +122,16 @@ def make_stages(params: Params, n_signers: int):
                 with one shared stride allowed)
         -> alphas int32[G, N, d]
     """
+    if assembly not in ASSEMBLIES:
+        raise ValueError(f"assembly must be one of {ASSEMBLIES}, got {assembly!r}")
     plan = params.plan
     F = plan.field
     g = _geometries(params)
     d = params.degree
     N = n_signers
     n_ch_words = -(-g["n_xof_ch_used"] // 4)
+    ch_spec, tri_spec = ds.challenge_preimage_spec(params), ds.triple_spec(params)
+    pre_bounds = [(1, ds.PREHASH_W)]
     n_ag_words = -(-(N * g["block_ag"]) // 4)
 
     def prehash_stage(msg_words, msg_len):
@@ -126,15 +145,27 @@ def make_stages(params: Params, n_signers: int):
         return chunk.buf, chunk.length
 
     def signer_stage(vk2d_t, pre_w, pre_len):
-        """The str(vk) chunk of signer_fold_a is folded into both the
-        challenge preimage and the triple (JAX device_pipeline.py:261-275)."""
+        """With "fold" the str(vk) chunk of signer_fold_a is folded into both
+        the challenge preimage and the triple (JAX device_pipeline.py:261-275);
+        with "spec" each preimage comes from its spec (JAX :276-297)."""
         pre_len = pre_len.to(torch.int32)
-        wbuf, total, vk_buf, vk_len = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
+        extras = [(pre_w, pre_len)]
+        if assembly == "spec":
+            wbuf, total = assemble_spec(ch_spec, values=vk2d_t, extras=extras,
+                                        extra_bounds=pre_bounds,
+                                        pad_words=_pad_rate(ch_spec.out_max) // 4)
+        else:
+            wbuf, total, vk_buf, vk_len = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
         xw = shake256_words_w(wbuf, total, n_ch_words)
         cc = xof_decode.decode_coeffs_w(xw, g["geom_ch"], g["n_xof_ch_used"]).t()  # [B, d]
         c_hat_u = ntt_fwd_u(plan, F.to_unsigned(cc))  # [B, d]
         c_hat_t = F.to_centered(c_hat_u).t().contiguous()
-        tbuf, tlen = pf.signer_fold_b(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t)
+        if assembly == "spec":
+            tbuf, tlen = assemble_spec(tri_spec, values=torch.cat([vk2d_t, c_hat_t]),
+                                       extras=extras, extra_bounds=pre_bounds,
+                                       pad_words=rw.words_for(tri_spec.out_max))
+        else:
+            tbuf, tlen = pf.signer_fold_b(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t)
         return cc, c_hat_u, tbuf, tlen
 
     def group_stage(tbs, tls):
@@ -168,16 +199,18 @@ def msg_preimage_words(params: Params, messages: Sequence[str]) -> Tuple[np.ndar
 
 
 class _Pipeline:
-    """Stage functions and device constants for one (params, N, device)."""
+    """Stage functions and device constants for one (params, N, device,
+    assembly)."""
 
-    def __init__(self, params: Params, n_signers: int, device: torch.device):
+    def __init__(self, params: Params, n_signers: int, device: torch.device,
+                 assembly: str = "fold"):
         self.params = params
         self.N = n_signers
         self.plan = params.plan
         F = self.plan.field
         self.a_mont = F.to_mont(F.to_unsigned(
             torch.as_tensor(params.public_challenge, device=device)))  # [rank, d]
-        self.prehash, self.signer, self.group = make_stages(params, n_signers)
+        self.prehash, self.signer, self.group = make_stages(params, n_signers, assembly)
 
     def challenges(self, vk: torch.Tensor, mw: torch.Tensor, ml: torch.Tensor):
         """The signer half alone, for B keys in any grouping: vk int32[B, 2, d],
@@ -220,8 +253,9 @@ class _Pipeline:
 
 
 @lru_cache(maxsize=16)
-def get_pipeline(params: Params, n_signers: int, device: str) -> _Pipeline:
-    return _Pipeline(params, n_signers, torch.device(device))
+def get_pipeline(params: Params, n_signers: int, device: str,
+                 assembly: str = "fold") -> _Pipeline:
+    return _Pipeline(params, n_signers, torch.device(device), assembly)
 
 
 def _message_tensors(params: Params, messages: Sequence[str], device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -231,7 +265,7 @@ def _message_tensors(params: Params, messages: Sequence[str], device) -> Tuple[t
 
 
 def _verify_chunks(params: Params, vks, messages: Sequence[str], aggs,
-                   group_chunk: int, want_coeffs: bool, device):
+                   group_chunk: int, want_coeffs: bool, device, assembly: str):
     dev = input_device(device, vks)
     vks = torch.as_tensor(vks, device=dev)
     aggs = torch.as_tensor(aggs, device=dev)
@@ -239,7 +273,7 @@ def _verify_chunks(params: Params, vks, messages: Sequence[str], aggs,
     msgs = list(messages)
     if len(msgs) != G * N:
         raise ValueError(f"need {G * N} messages, got {len(msgs)}")
-    P = get_pipeline(params, N, str(vks.device))
+    P = get_pipeline(params, N, str(vks.device), assembly)
     mw, ml = _message_tensors(params, msgs, vks.device)
     outs, ccs, als = [], [], []
     for lo in range(0, G, max(1, group_chunk)):
@@ -256,22 +290,25 @@ def _verify_chunks(params: Params, vks, messages: Sequence[str], aggs,
 
 
 def verify_batch_device(params: Params, vks, messages: Sequence[str], aggs, *,
-                        group_chunk: int = DEFAULT_GROUP_CHUNK, device=None):
+                        group_chunk: int = DEFAULT_GROUP_CHUNK, device=None,
+                        assembly: str = "fold"):
     """Grouped verify with the full hash pipeline on one device.
 
     vks int32[G, N, 2, d] (sorted within each group by vk repr — the
     reference's canonical order, fusion.py:661-663); messages flat G*N
     strings in the same order; aggs int32[G, rank, d].  The device is
     ``device`` if given, else that of a ``vks`` tensor, else CUDA (numpy
-    inputs; raises without a card).  Returns (eq, norm_ok, weight_ok) bool[G]
-    tensors on that device.
+    inputs; raises without a card).  ``assembly`` ("fold" or "spec") picks
+    the signer preimages' kernels; both give the same bits.  Returns (eq,
+    norm_ok, weight_ok) bool[G] tensors on that device.
     """
-    return _verify_chunks(params, vks, messages, aggs, group_chunk, False, device)
+    return _verify_chunks(params, vks, messages, aggs, group_chunk, False, device, assembly)
 
 
 def derive_coeffs_device(params: Params, vks, messages: Sequence[str], aggs, *,
-                         group_chunk: int = DEFAULT_GROUP_CHUNK, device=None):
+                         group_chunk: int = DEFAULT_GROUP_CHUNK, device=None,
+                         assembly: str = "fold"):
     """Debug/test entry: (eq, norm_ok, weight_ok, challenge coefficients
     int32[G, N, d], alpha coefficients int32[G, N, d]); arguments as
     :func:`verify_batch_device`."""
-    return _verify_chunks(params, vks, messages, aggs, group_chunk, True, device)
+    return _verify_chunks(params, vks, messages, aggs, group_chunk, True, device, assembly)

@@ -125,6 +125,7 @@ def build_fleet(
     messages: Optional[Sequence[str]] = None,
     group_chunk: int = dp.DEFAULT_GROUP_CHUNK,
     device=None,
+    assembly: str = "fold",
 ) -> Tuple[torch.Tensor, List[str], torch.Tensor]:
     """Build G aggregate-signature groups of N signers on ``device`` (CUDA
     when None; raises without a card, and only ``device="cpu"`` runs on the
@@ -134,7 +135,8 @@ def build_fleet(
     (vks int32[G, N, 2, d] sorted within groups by str(vk), messages flat
     G*N strings in that order, aggs int32[G, rank, d]) — valid under
     verify_batch_device and the reference verify.  The hash half runs on the
-    verifier's stages, in the same ``group_chunk`` chunks.
+    verifier's stages, in the same ``group_chunk`` chunks, with the signer
+    preimages of ``assembly`` ("fold" or "spec"; the same bits).
     """
     G, N = n_groups, n_signers
     B = G * N
@@ -158,7 +160,7 @@ def build_fleet(
     sk_s = sk_hat_u.index_select(0, oflat)
     vks = vk.index_select(0, oflat).reshape(G, N, 2, d)
 
-    P = dp.get_pipeline(params, N, str(device))
+    P = dp.get_pipeline(params, N, str(device), assembly)
     mw, ml = dp._message_tensors(params, s_msgs, device)
     aggs = torch.empty((G, params.rank, d), dtype=torch.int32, device=device)
     for lo in range(0, G, max(1, group_chunk)):

@@ -13,7 +13,11 @@ plain versions.
 * aggregate: the signers in str(vk) order (device_setup.vk_sort_ranks), the
   alphas from the group stage, agg = Σ α̂ ⊙ sig (fusion.py:632-677);
 * verify, verify_many, verify_batch: the pipeline's hash stages and lattice
-  check, with the reference's reasons (fusion.py:680-728).
+  check, with the reference's reasons (fusion.py:680-728);
+* for the object API (interop/api.py): the NTT-domain products
+  ``sign_from_c_hat`` and ``aggregate_from_alpha_hat``, and ``derive_alphas``,
+  the host hash route from repr strings (hashlib + the host decoder, the
+  challenge NTT on the device).
 
 The JAX package picks a host or a device hash route by batch size
 (``device_hash_threshold``, ``device_bucket_threshold``); both give the same
@@ -33,7 +37,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..hashing.decode import decode_bytes_to_coefficients
 from ..hashing.sampler import sample_short_poly_coeffs
+from ..hashing.xof import agg_block_len, challenge_xof_len, hash_message_to_int, shake_digest
 from ..interop import serial
 from ..ops.ntt import ntt_fwd, ntt_fwd_u
 from ..params import Params
@@ -266,3 +272,67 @@ def verify_batch(params: Params, vks, c_coeffs, alpha_coeffs, aggs, *, device=No
     F = params.plan.field
     P = dp.get_pipeline(params, vks.shape[1], str(vks.device))
     return P.lattice(vks, ntt_fwd_u(params.plan, F.to_unsigned(c)), al, aggs)
+
+
+# ---------------------------------------------------------------------------
+# The object API's pieces (JAX lifecycle.py:84-99, :183-250, :348-378)
+# ---------------------------------------------------------------------------
+
+
+def sign_from_c_hat(params: Params, sk_hat: torch.Tensor, c_hat: torch.Tensor) -> torch.Tensor:
+    """NTT-domain signing, the challenge already transformed: sk_hat
+    int32[..., 2, rank, d], c_hat int32[..., d] centered -> sig int32[...,
+    rank, d] = sk_l ⊙ c + sk_r, on the device of the tensors."""
+    F = params.plan.field
+    c_mont = F.to_mont(F.to_unsigned(c_hat)).unsqueeze(-2)  # broadcast over rank
+    sk_u = F.to_unsigned(sk_hat)
+    return F.to_centered(F.add_mod(F.mont_mul(c_mont, sk_u[..., 0, :, :]), sk_u[..., 1, :, :]))
+
+
+def aggregate_from_alpha_hat(params: Params, sigs: torch.Tensor,
+                             alpha_hat: torch.Tensor) -> torch.Tensor:
+    """NTT-domain aggregation: sigs int32[..., N, rank, d], alpha_hat
+    int32[..., N, d] centered -> int32[..., rank, d] = Σ α̂ ⊙ sig, on the
+    device of the tensors."""
+    F = params.plan.field
+    alpha_mont = F.to_mont(F.to_unsigned(alpha_hat)).unsqueeze(-2)
+    return F.to_centered(F.sum_mod(F.mont_mul(alpha_mont, F.to_unsigned(sigs)), axis=-3))
+
+
+def _decode(params: Params, b: bytes, norm_bound: int, weight_bound: int) -> np.ndarray:
+    return decode_bytes_to_coefficients(b, log2_bias=params.secpar, modulus=params.modulus,
+                                        degree=params.degree, norm_bound=norm_bound,
+                                        weight_bound=weight_bound)
+
+
+def derive_alphas(params: Params, vk_reprs: Sequence[str], messages: Sequence[str],
+                  key_reprs: Optional[Sequence[str]] = None, *, device=None):
+    """The hash_ag pipeline on already-sorted inputs, from repr strings:
+    (prehashed ints, challenge coefficients int32[N, d], alpha coefficients
+    int32[N, d]), the tensors on ``device`` (the card unless
+    ``device="cpu"``), where the challenge NTT runs.
+
+    ``key_reprs`` overrides the reprs hashed throughout (the challenge
+    derivation and the zip-triples preimage alike — the reference's hash_ag
+    uses the same key objects for both, fusion.py:632-652; the KAT generator
+    hashes (sk, vk) tuple reprs)."""
+    dev = dp.resolve_device(device)
+    reprs = list(key_reprs) if key_reprs is not None else list(vk_reprs)
+    msgs = list(messages)
+    N, d = len(reprs), params.degree
+    pre = [hash_message_to_int(params.sign_pre_hash_dst, m) for m in msgs]
+    n_ch = challenge_xof_len(params.secpar, d, params.modulus, params.beta_ch, params.omega_ch)
+    cc = np.zeros((N, d), dtype=np.int32)
+    for k, (r, i) in enumerate(zip(reprs, pre)):
+        payload = params.sign_hash_dst + b"," + r.encode("utf-8") + b"," + str(i).encode()
+        cc[k] = _decode(params, shake_digest(payload, n_ch), params.beta_ch, params.omega_ch)
+    c_coeffs = torch.from_numpy(cc).to(dev)
+    c_hat = ntt_fwd(params.plan, c_coeffs).cpu().numpy()
+    chall_reprs = [serial.challenge_str(params, c_hat[k]) for k in range(N)]
+    block = agg_block_len(params.secpar, d, params.modulus, params.beta_ag, params.omega_ag)
+    body = serial.zip_triples_str(reprs, pre, chall_reprs)
+    b = shake_digest(params.agg_xof_dst + b"," + body.encode("utf-8"), N * block)
+    al = np.zeros((N, d), dtype=np.int32)
+    for k in range(N):
+        al[k] = _decode(params, b[k * block:(k + 1) * block], params.beta_ag, params.omega_ag)
+    return pre, c_coeffs, torch.from_numpy(al).to(dev)

@@ -14,6 +14,8 @@ from fusion_cryptography_tpu_torch import fusion_setup
 from fusion_cryptography_tpu_torch.interop import device_serial as ds
 from fusion_cryptography_tpu_torch.ops import keccak, keccak_sponge as ks
 from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
+from fusion_cryptography_tpu_torch.ops import ragged_words as rw
+from fusion_cryptography_tpu_torch.ops.assemble_spec import assemble_spec
 from fusion_cryptography_tpu_torch.ops.field import Q
 from fusion_cryptography_tpu_torch.ops.intt_norm_weight import (
     intt_norm_weight,
@@ -163,6 +165,49 @@ def test_fold_kernels_match_plain(dev, secpar):
 
 
 @pytest.mark.parametrize("secpar", [128, 256])
+def test_assemble_spec_kernel_matches_plain(dev, secpar):
+    """B=300 lanes: the challenge spec (rate-padded), the triple spec, and
+    the aggregation spec over N=4 strided triple views, with empty and
+    full-width extras."""
+    params = fusion_setup(secpar, 2)
+    d, q, B, N = params.degree, params.modulus, 300, 4
+    rng = np.random.default_rng(secpar + 1)
+    vals = rng.integers(-(q // 2), q // 2 + 1, (3 * d, B), dtype=np.int64)
+    vals[:5, 0] = [0, 1, -1, q // 2, -(q // 2)]
+    tvals = torch.from_numpy(vals.astype(np.int32)).to(dev)
+    lens = rng.integers(0, ds.PREHASH_W + 1, B).astype(np.int32)
+    lens[:2] = [0, ds.PREHASH_W]
+    by = rng.integers(ord("0"), ord("9") + 1, (B, 4 * pf.PRE_ROWS), dtype=np.uint8)
+    by[np.arange(4 * pf.PRE_ROWS)[None, :] >= lens[:, None]] = 0
+    pre = [(torch.from_numpy(by.view(np.int32).T.copy()).to(dev), torch.from_numpy(lens).to(dev))]
+    ch_spec, tri_spec = ds.challenge_preimage_spec(params), ds.triple_spec(params)
+    before = kernels.LAUNCHES["assemble_spec"]
+    pad = ds.signer_fold_a_table(params).widths[0]
+    got = assemble_spec(ch_spec, tvals[: 2 * d].contiguous(), pre, pad_words=pad)
+    want = ds.assemble_chunks_words(ch_spec, tvals[: 2 * d].contiguous(), pre, pad_words=pad)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    tb, tl = assemble_spec(tri_spec, tvals, pre)
+    want = ds.assemble_chunks_words(tri_spec, tvals, pre)
+    assert torch.equal(tb, want[0]) and torch.equal(tl, want[1])
+    G = B // N
+    tbv = tb[:, : G * N].reshape(tb.shape[0], G, N)
+    tlv = tl[: G * N].reshape(G, N)
+    extras = [(tbv[:, :, k], tlv[:, k]) for k in range(N)]
+    agg_spec = ds.agg_preimage_spec(params, N, tri_spec.out_max)
+    got = assemble_spec(agg_spec, None, extras)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["assemble_spec"] == before + 3
+    want = ds.assemble_chunks_words(agg_spec, None, [(b.contiguous(), n.contiguous())
+                                                     for b, n in extras])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):  # prehash words on the CPU
+        assemble_spec(tri_spec, tvals, [(pre[0][0].cpu(), pre[0][1])])
+    with pytest.raises(ValueError):  # extra of the wrong width
+        assemble_spec(agg_spec, None, [(tb[:-1], tl)] * N)
+    assert rw.words_for(tri_spec.out_max) == tb.shape[0]
+
+
+@pytest.mark.parametrize("secpar", [128, 256])
 def test_pipeline_on_cuda_equals_cpu(dev, secpar):
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
     from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
@@ -206,8 +251,9 @@ def test_lifecycle_on_cuda_equals_cpu(dev, secpar):
 
 
 def test_card_paths_run_no_plain_ntt(dev, monkeypatch):
-    """With the plain NTTs made to fail, the fleet build, the grouped verify
-    and the lifecycle still run on the card: every NTT there is a kernel."""
+    """With the plain NTTs and the plain spec assembly made to fail, the
+    fleet build, the grouped verify (both assemblies) and the lifecycle still
+    run on the card: every NTT and every spec assembly there is a kernel."""
     from fusion_cryptography_tpu_torch.ops import intt_norm_weight as inw
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
     from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
@@ -219,9 +265,16 @@ def test_card_paths_run_no_plain_ntt(dev, monkeypatch):
     for name in ("ntt_fwd_u_plain", "ntt_inv_u_plain", "ntt_fwd_plain", "ntt_inv_plain"):
         monkeypatch.setattr(ntt, name, plain_ntt)
     monkeypatch.setattr(inw, "ntt_inv_u_plain", plain_ntt)
+    monkeypatch.setattr(ds, "assemble_chunks_words", plain_ntt)
     params = fusion_setup(256, 3)
     vks, msgs, aggs = build_fleet(params, 3, 4, seed0=9, device=dev)
     assert all(bool(t.all()) for t in dp.verify_batch_device(params, vks, msgs, aggs))
+    before = kernels.LAUNCHES["assemble_spec"]
+    v2, m2, a2 = build_fleet(params, 3, 4, seed0=9, device=dev, assembly="spec")
+    assert torch.equal(v2, vks) and m2 == msgs and torch.equal(a2, aggs)
+    assert all(bool(t.all()) for t in dp.verify_batch_device(params, vks, msgs, aggs,
+                                                              assembly="spec"))
+    assert kernels.LAUNCHES["assemble_spec"] == before + 4
     _, _, _, cc, al = dp.derive_coeffs_device(params, vks, msgs, aggs)
     assert all(bool(t.all()) for t in lc.verify_batch(params, vks, cc, al, aggs))
     keys = lc.keygen(params, [9, 10, 11, 12], device=dev)

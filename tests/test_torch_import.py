@@ -16,6 +16,15 @@ def test_port_import_leaves_jax_out():
         "import fusion_cryptography_tpu_torch.ops.ntt\n"
         "import fusion_cryptography_tpu_torch.scheme.lifecycle\n"
         "import fusion_cryptography_tpu_torch.interop.serial\n"
+        "import fusion_cryptography_tpu_torch.ops.assemble_spec\n"
+        "import fusion_cryptography_tpu_torch.interop.api\n"
+        "import fusion_cryptography_tpu_torch.interop.objects\n"
+        "import fusion_cryptography_tpu_torch.interop.kat\n"
+        "import fusion_cryptography_tpu_torch.hashing.decode\n"
+        "import fusion_cryptography_tpu_torch.algebra.ntt\n"
+        "import fusion_cryptography_tpu_torch.algebra.polynomials\n"
+        "import fusion_cryptography_tpu_torch.algebra.matrices\n"
+        "import fusion_cryptography_tpu_torch.fusion.fusion\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'fusion_cryptography_tpu' or m.startswith('fusion_cryptography_tpu.'))\n"

@@ -3,8 +3,8 @@
 ``csrc/*.cu`` keep each kernel's per-lane and per-row work (Keccak-f and the
 sponge lanes; the Cooley-Tukey and Gentleman-Sande butterflies, Shoup
 multiplies, the NTT's centered loads and stores and the centered reduction;
-the preimage folds' op-table walk, decimal rendering and word stream) in
-functions that also compile as plain C++: without nvcc,
+the preimage folds' and the spec assembler's op-table walk, decimal
+rendering and word stream) in functions that also compile as plain C++: without nvcc,
 ``FCT_HD`` is ``static inline`` and the ``__global__`` parts drop out.  These
 tests build them with the host C++ compiler, with a serial loop in place of
 the CUDA grid, and hold them against the plain torch versions and hashlib.
@@ -38,6 +38,7 @@ HOST_LOOPS = r"""
 #include "intt_norm_weight.cu"
 #include "ntt.cu"
 #include "preimage_fold.cu"
+#include "assemble_spec.cu"
 
 extern "C" void host_absorb(const uint32_t* words, const int32_t* nblk,
                             uint32_t* state, int max_blocks, int64_t batch) {
@@ -145,6 +146,15 @@ extern "C" void host_agg_fold(const int32_t* ops, int n_ops, const uint32_t* poo
     total[g] = agg_total(a);
   }
 }
+
+extern "C" void host_assemble_spec(const int32_t* ops, int n_ops, const uint32_t* pool,
+                                   const int32_t* values, int64_t vstride,
+                                   const int64_t* extras, int64_t batch, uint32_t* out,
+                                   int out_width, int32_t* total) {
+  for (int64_t b = 0; b < batch; ++b)
+    assemble_spec_lane(ops, n_ops, pool, values, vstride, extras, batch, b, out, out_width,
+                       total);
+}
 """
 
 
@@ -169,6 +179,7 @@ def lib(tmp_path_factory):
     lib.host_signer_fold_a.argtypes = [P, I32, P, P, P, I32, P, I64, P, I32, P, P, I32, P]
     lib.host_signer_fold_b.argtypes = [P, I32, P, P, I32, P, P, I32, P, P, I64, P, I32, P]
     lib.host_agg_fold.argtypes = [P, I32, P, P, I32, I64, I64, I64, I32, I64, P, I32, P, I32]
+    lib.host_assemble_spec.argtypes = [P, I32, P, P, I64, P, I64, P, I32, P]
     return lib
 
 
@@ -336,3 +347,53 @@ def test_fold_lanes_match_plain(lib, secpar):
                           out.data_ptr(), out_words, total.data_ptr(), run)
         np.testing.assert_array_equal(out.numpy(), want[0].numpy())
         np.testing.assert_array_equal(total.numpy(), want[1].numpy())
+
+
+def _host_assemble(lib, spec, values, extras, pad_words=None):
+    """The assemble_spec lane function over every lane, output pre-filled
+    with -1 (every word must be written)."""
+    prog = ds.spec_table(spec, pad_words)
+    ops, pool = prog.on("cpu")
+    (width,) = prog.widths
+    B = (values if values is not None else extras[0][0]).shape[-1]
+    table = torch.tensor([[eb.data_ptr(), eb.stride(0), eb.stride(1), el.data_ptr(),
+                           el.stride(0), eb.shape[0]] for eb, el in extras] or [[0] * 6],
+                         dtype=torch.int64)
+    out = torch.full((width, B), -1, dtype=torch.int32)
+    total = torch.full((B,), -1, dtype=torch.int32)
+    lib.host_assemble_spec(ops.data_ptr(), ops.shape[0], pool.data_ptr(),
+                           None if values is None else values.data_ptr(),
+                           0 if values is None else values.stride(0), table.data_ptr(), B,
+                           out.data_ptr(), width, total.data_ptr())
+    return out, total
+
+
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_assemble_spec_lanes_match_plain(lib, secpar):
+    """The challenge spec (rate-padded), the triple spec and the aggregation
+    spec over N = 3 strided triple views, against assemble_chunks_words."""
+    params = fusion_setup(secpar, 4)
+    B, N = 37, 3
+    vk2d_t, c_hat_t, pre_w, pre_len = _fold_inputs(params, B, secpar + 7)
+    pre_len[3] = 0  # an empty extra
+    ch_spec, tri_spec = ds.challenge_preimage_spec(params), ds.triple_spec(params)
+    pad = ds.signer_fold_a_table(params).widths[0]
+    got = _host_assemble(lib, ch_spec, vk2d_t, [(pre_w, pre_len)], pad)
+    want = ds.assemble_chunks_words(ch_spec, vk2d_t, [(pre_w, pre_len)], pad_words=pad)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    tvals = torch.cat([vk2d_t, c_hat_t])
+    tb, tl = _host_assemble(lib, tri_spec, tvals, [(pre_w, pre_len)])
+    want = ds.assemble_chunks_words(tri_spec, tvals, [(pre_w, pre_len)])
+    np.testing.assert_array_equal(tb.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(tl.numpy(), want[1].numpy())
+
+    G = B // N
+    tbv = tb[:, : G * N].reshape(tb.shape[0], G, N)
+    tlv = tl[: G * N].reshape(G, N)
+    extras = [(tbv[:, :, k], tlv[:, k]) for k in range(N)]
+    agg_spec = ds.agg_preimage_spec(params, N, tri_spec.out_max)
+    got = _host_assemble(lib, agg_spec, None, extras)
+    want = ds.assemble_chunks_words(agg_spec, None, extras)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())

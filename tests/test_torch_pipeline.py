@@ -1,6 +1,7 @@
 """The port's slice end to end (scheme/device_pipeline.py, device_setup.py) on
 the CPU vs the JAX package: challenge and alpha coefficients, verdicts, fleet
-tensors, and verification of each side's fleet by the other side."""
+tensors, and verification of each side's fleet by the other side; in both
+assemblies of the signer preimages ("fold" and "spec")."""
 import numpy as np
 import pytest
 import torch
@@ -48,6 +49,19 @@ def test_derive_coeffs_matches_jax(secpar, G, N):
     np.testing.assert_array_equal(al.numpy(), np.asarray(al_host))
     assert eq.dtype == torch.bool and eq.shape == (G,)
     assert bool(eq.all() & norm_ok.all() & w_ok.all())
+    # the "spec" assembly (the JAX package's pallas_assembly configuration)
+    spec = tdp.derive_coeffs_device(params_from_numpy(jp), torch.from_numpy(vks), msgs,
+                                    torch.from_numpy(aggs), assembly="spec", device="cpu")
+    for a, b in zip(spec, (eq, norm_ok, w_ok, cc, al)):
+        assert torch.equal(a, b)
+
+
+def test_unknown_assembly_raises():
+    p = params_from_numpy(ftpu.fusion_setup(128, 3))
+    with pytest.raises(ValueError, match="assembly"):
+        tdp.make_stages(p, 2, assembly="merge")
+    with pytest.raises(ValueError, match="assembly"):
+        tsetup.build_fleet(p, 1, 2, device="cpu", assembly="pallas")
 
 
 def test_tampered_aggregate_rejected_and_chunking():
@@ -87,6 +101,14 @@ def test_build_fleet_matches_jax(fleets):
     np.testing.assert_array_equal(tv.numpy(), jv)
     assert tm == jm
     np.testing.assert_array_equal(ta.numpy(), ja)
+
+
+def test_build_fleet_spec_assembly_equals_default(fleets):
+    _, p, _, (tv, tm, ta) = fleets
+    sv, sm, sa = tsetup.build_fleet(p, 4, 3, seed0=41, device="cpu", assembly="spec")
+    assert torch.equal(sv, tv) and sm == tm and torch.equal(sa, ta)
+    eq, norm_ok, w_ok = tdp.verify_batch_device(p, sv, sm, sa, assembly="spec")
+    assert bool(eq.all() & norm_ok.all() & w_ok.all())
 
 
 def test_port_verifies_jax_fleet(fleets):
