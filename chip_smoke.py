@@ -15,13 +15,16 @@ integer).
 Phases (each fails loudly; any failure exits non-zero):
   1. card, versions, kernel build (one nvcc per source, in parallel)
   2. kernels vs plain versions (and the sponge vs hashlib), with timings and
-     each kernel's bound; ``assemble_spec`` on the challenge, triple and
-     aggregation specs, its outputs on memory filled with -1
+     each kernel's bound; ``intt_norm_weight`` (the aggregate check: observed
+     sum and INTT + norm/weight in one pass) on int32 aggregates of the
+     verify call's shape [8192, 83, 256] and of secpar=128's [1024, 195, 64],
+     with every int32 edge value; ``assemble_spec`` on the challenge, triple
+     and aggregation specs, its outputs on memory filled with -1
   3. main path: fleet build (keys/s), verify: one warm call, per-call
      latency (median of 5 synced calls), 5 calls with one final sync; all
      verdicts true, a tampered aggregate fails in exactly its group;
      derive_coeffs_device on CUDA equals the CPU run (the kernels' plain
-     versions) on 16 groups
+     versions) on 16 groups; one ``P.lattice`` call makes no host sync
   S. the "spec" assembly, with phase 3's fleet alive: build_fleet gives the
      same fleet, verify (the same measurements) gives all verdicts true and
      rejects a tampered aggregate in exactly its group, derive_coeffs_device
@@ -32,7 +35,8 @@ Phases (each fails loudly; any failure exits non-zero):
      of 64 groups one call each (each aggregate equals the fleet's), a
      tampered aggregate, verify_many over the 64 groups plus a tampered and
      a short group, verify_batch at G=8192 on the fleet's coefficients;
-     CUDA equals the CPU for one group of 4 keys
+     CUDA equals the CPU for one group of 4 keys, with short and with long
+     non-ASCII messages
   4. the secpar=128 lane (G=1024, N=4): all verdicts true, CUDA equals the
      CPU on 16 groups
   O. the object API on the card: ``kat.generate_corpus`` (seed 20260820, 3
@@ -167,10 +171,6 @@ def sponge_inputs(rng, B: int, max_len: int, dev):
 
 def phase_kernels(dev, kernel_rows: list) -> None:
     from fusion_cryptography_tpu_torch.ops import keccak, keccak_sponge as ks
-    from fusion_cryptography_tpu_torch.ops.field import Q
-    from fusion_cryptography_tpu_torch.ops.intt_norm_weight import (
-        intt_norm_weight, intt_norm_weight_plain)
-    from fusion_cryptography_tpu_torch.params import fusion_setup
 
     rng = np.random.default_rng(SEED)
     # -- sponge at the aggregation preimage's width (42,787 B max, N=4) -----
@@ -224,32 +224,80 @@ def phase_kernels(dev, kernel_rows: list) -> None:
              max_abs_err=max(errs_s), ms=t_sq, plain_ms=t_sq_p, **b_sq, library_ms=None),
     ]
     del padded, words, by, st_k, st_p
-    # -- INTT + norm/weight at the lattice's rows (rank 83 x 4096 groups) ---
-    plan = fusion_setup(SECPAR, SEED).plan
-    M = 83 * 4096
-    d = plan.degree
-    x = torch.randint(0, Q, (M, d), dtype=torch.int64, device=dev,
-                      generator=torch.Generator(device=dev).manual_seed(SEED))
-    x[::97] = 0  # all-zero rows: weight 0, norm 0
-    nk, wk = intt_norm_weight(plan, x)
-    np_, wp = intt_norm_weight_plain(plan, x)
-    err_i = max(max_abs_err(nk, np_), max_abs_err(wk, wp))
-    require(err_i == 0, "intt_norm_weight != plain version")
-    require(int(wk[0]) == 0 and int(nk[0]) == 0, "zero row must give norm 0, weight 0")
-    t_i = cuda_ms(lambda: intt_norm_weight(plan, x), 10)
-    t_i_p = cuda_ms(lambda: intt_norm_weight_plain(plan, x), 2)
-    # butterflies: Shoup multiply (5) + add/sub with reductions (4); per
-    # coefficient: n^-1 scale (5), centering and the two reductions (6)
-    log2d = d.bit_length() - 1
-    b_i = bound(M * d * 8 + M * 8, M * (9 * (d // 2) * log2d + 11 * d))
-    log(f"intt_norm_weight: [{M}, {d}] equal the plain version; {t_i:.3f} ms "
-        f"(plain {t_i_p:.3f} ms, bound {b_i['bound_ms']:.4f} ms by {b_i['bound_by']})")
-    kernel_rows.append(
-        dict(name="intt_norm_weight", route="cuda",
-             source="fusion_cryptography_tpu_torch/csrc/intt_norm_weight.cu",
-             replaces="fusion_cryptography_tpu/ops/ntt_mxu_pallas.py:174",
-             max_abs_err=err_i, ms=t_i, plain_ms=t_i_p, **b_i, library_ms=None))
-    del x
+    torch.cuda.empty_cache()
+
+
+def agg_edge_inputs(plan, G: int, rank: int, dev) -> torch.Tensor:
+    """Seeded int32 aggregates [G, rank, d] on the card: centered values,
+    all-zero rows, NTTs of sparse polynomials (weights below d), a row of
+    every in-range and out-of-range int32 edge, rows of -2**31 and of
+    2**31 - 1, and a group of random int32."""
+    from fusion_cryptography_tpu_torch.ops import ntt
+
+    d, q = plan.degree, plan.modulus
+    g = torch.Generator(device=dev).manual_seed(SEED + d)
+    aggs = (torch.randint(0, q, (G, rank, d), dtype=torch.int64, device=dev, generator=g)
+            - q // 2).to(torch.int32)
+    aggs[::97, 0] = 0
+    edges = [0, 1, -1, q // 2, -(q // 2), q // 2 + 1, -(q // 2) - 1, q - 1, q, -q, -q - 1,
+             2**31 - 1, -(2**31)]
+    aggs[1, 0, : len(edges)] = torch.tensor(edges, dtype=torch.int32, device=dev)
+    aggs[1, 1], aggs[1, 2] = -(2**31), 2**31 - 1
+    aggs[2] = torch.randint(-(2**31), 2**31, (rank, d), dtype=torch.int64, device=dev,
+                            generator=g).to(torch.int32)
+    sparse = torch.zeros((4, d), dtype=torch.int32, device=dev)
+    for k in range(4):
+        sparse[k, torch.randperm(d, device=dev, generator=g)[: k + 1]] = 12345 + k
+    aggs[3, :4] = ntt.ntt_fwd(plan, sparse)
+    return aggs
+
+
+def phase_agg_check(dev, kernel_rows: list) -> None:
+    """Kernel ``intt_norm_weight`` (the observed sum A·agg fused with the
+    INTT + norm/weight) at the verify call's own shape, int32 aggregates
+    [8192, 83, 256] (696 MB), and at secpar=128's [1024, 195, 64]; each
+    against ``agg_check_plain``, exactly, on inputs with every edge value."""
+    from fusion_cryptography_tpu_torch.ops.intt_norm_weight import (
+        agg_check, agg_check_plain, agg_table)
+    from fusion_cryptography_tpu_torch.params import fusion_setup
+
+    errs = []
+    for secpar, G in ((SECPAR, N_GROUPS), (128, LANE128_GROUPS)):
+        params = fusion_setup(secpar, SEED)
+        plan, rank, d = params.plan, params.rank, params.degree
+        table = agg_table(plan.field, params.public_challenge, dev)
+        aggs = agg_edge_inputs(plan, G, rank, dev)
+        got = agg_check(plan, table, aggs)
+        want = agg_check_plain(plan, table, aggs)
+        errs.append(max(max_abs_err(x, y) for x, y in zip(got, want)))
+        require(errs[-1] == 0, f"intt_norm_weight != agg_check_plain (secpar={secpar})")
+        require(int(got[2][0, 0]) == 0 and int(got[1][0, 0]) == 0,
+                "zero row must give norm 0, weight 0")
+        require(int(got[2][3, :4].max()) < d, "sparse rows must weigh less than d")
+        log(f"intt_norm_weight: aggregates int32[{G}, {rank}, {d}] (secpar={secpar}, every "
+            "int32 edge) equal agg_check_plain (observed sums, norms, weights)")
+        del got, want
+        if secpar != SECPAR:
+            continue
+        t_k = cuda_ms(lambda: agg_check(plan, table, aggs), 10)
+        t_p = cuda_ms(lambda: agg_check_plain(plan, table, aggs), 1)
+        rows = G * rank
+        # butterflies: Shoup multiply (5) + add/sub with reductions (4); per
+        # coefficient: n^-1 scale (5), centering and the two reductions (6),
+        # the lift and the observed sum's multiply-accumulate (8)
+        log2d = d.bit_length() - 1
+        b_k = bound(4 * rows * d + 8 * rank * d + 8 * G * d + 8 * rows,
+                    rows * (9 * (d // 2) * log2d + 11 * d + 8 * d))
+        log(f"  intt_norm_weight {t_k:.3f} ms  (plain {t_p:.3f} ms, bound "
+            f"{b_k['bound_ms']:.4f} ms by {b_k['bound_by']})  [{rows} rows]")
+        row = dict(name="intt_norm_weight", route="cuda",
+                   source="fusion_cryptography_tpu_torch/csrc/intt_norm_weight.cu",
+                   replaces="fusion_cryptography_tpu/ops/ntt_mxu_pallas.py:174",
+                   ms=t_k, plain_ms=t_p, **b_k, library_ms=None)
+        del aggs
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = max(errs)
+    kernel_rows.append(row)
     torch.cuda.empty_cache()
 
 
@@ -488,6 +536,8 @@ def drive_main_path(params, G: int, N: int, dev) -> tuple:
     require(tuple(aggs.shape) == (G, params.rank, params.degree), "aggregate shape")
     log(f"fleet: {G * N} keys, aggregates {tuple(aggs.shape)}: first build "
         f"{t_fleet_cold:.3f} s, second {t_fleet:.3f} s -> {G * N / t_fleet:,.0f} keys/s")
+    fleet_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()  # the verify calls' own peak from here
 
     def verify():
         return dp.verify_batch_device(params, vks, msgs, aggs)
@@ -512,19 +562,41 @@ def drive_main_path(params, G: int, N: int, dev) -> tuple:
     require(all(bool(o[0].all() & o[1].all() & o[2].all()) for o in outs), "verify reps")
     vps = reps * G / t_tp
     launches = dict(kernels.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    verify_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = max(fleet_peak_gb, verify_peak_gb)
     log(f"verify: warm call {t_warm:.3f} s; per-call latency median "
         f"{median(lat):.4f} s ({', '.join(f'{x:.4f}' for x in lat)}); {reps} calls, one "
-        f"sync: {t_tp:.3f} s -> {vps:,.0f} verifies/s; peak device memory {peak_gb:.2f} GB")
+        f"sync: {t_tp:.3f} s -> {vps:,.0f} verifies/s; peak device memory {peak_gb:.2f} GB "
+        f"(fleet builds {fleet_peak_gb:.2f} GB, verify calls {verify_peak_gb:.2f} GB)")
     log(f"kernel launches during fleet build + verify: {launches}")
     metrics = {
         "fleet_keys_per_s": G * N / t_fleet, "fleet_first_s": t_fleet_cold,
         "fleet_s": t_fleet, "verify_warm_s": t_warm,
         "verify_latency_s": median(lat), "verify_latency_all_s": lat,
         "verifies_per_s": vps, "verify_reps": reps,
-        "verify_reps_s": t_tp, "peak_mem_gb": peak_gb,
+        "verify_reps_s": t_tp, "peak_mem_gb": peak_gb, "verify_peak_mem_gb": verify_peak_gb,
     }
     return (vks, msgs, aggs), metrics, launches
+
+
+def check_lattice_no_sync(params, fleet) -> None:
+    """One ``P.lattice`` call of the main path's chunk under
+    ``torch.cuda.set_sync_debug_mode("error")``: it must not wait for the
+    device (no blocking copy, no ``.item()``)."""
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    vks, msgs, aggs = fleet
+    P = dp.get_pipeline(params, vks.shape[1], str(vks.device))
+    mw, ml = dp._message_tensors(params, msgs, vks.device)
+    _, c_hat_u, al = P.hash_chunk(vks, mw, ml)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eq, norm_ok, weight_ok = P.lattice(vks, c_hat_u, al, aggs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(bool(eq.all() & norm_ok.all() & weight_ok.all()), "P.lattice verdicts")
+    log(f"P.lattice over {vks.shape[0]} groups ran under set_sync_debug_mode('error'): no host sync")
 
 
 def check_tamper(params, fleet, assembly: str = "fold") -> None:
@@ -772,20 +844,34 @@ def drive_lifecycle(params, fleet, dev) -> tuple:
 
 def check_lifecycle_cuda_vs_cpu(params, dev) -> None:
     """keygen -> sign -> aggregate -> verify of one group of 4 keys on the
-    card and on the CPU (the plain versions)."""
+    card and on the CPU (the plain versions), with short messages and with
+    long non-ASCII ones (137-182 bytes, past the 136-byte sponge rate); for
+    the long ones also the group's challenge and alpha coefficients
+    (``derive_coeffs_device``)."""
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
     from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
 
-    seeds, msgs = [5, 6, 7, 8], ["p", "q", "r", "s"]
-    out = {}
-    for where in (dev, "cpu"):
-        keys = lc.keygen(params, seeds, device=where)
-        sigs = lc.sign(params, keys, msgs)
-        agg = lc.aggregate(params, keys.vk, msgs, sigs.sig)
-        out[where] = (keys.sk_hat, keys.vk, sigs.sig, agg), lc.verify(params, keys.vk, msgs, agg)
-    for name, a, b in zip(("sk_hat", "vk", "sig", "aggregate"), out[dev][0], out["cpu"][0]):
-        require(torch.equal(a.cpu(), b), f"lifecycle {name}: CUDA != CPU")
-    require(out[dev][1] == out["cpu"][1] == (True, ""), "lifecycle verify: CUDA != CPU")
-    log("lifecycle: keygen, sign, aggregate and verify of 4 keys on CUDA equal the CPU run")
+    seeds = [5, 6, 7, 8]
+    long_msgs = ["\u00e9" * 90 + "m0", "\u2713" * 50, "x" * 135 + "\u00fc",
+                 "\u65e5\u672c\u8a9e" * 20]
+    require(all(len(m.encode("utf-8")) > 136 for m in long_msgs), "long messages")
+    for msgs in (["p", "q", "r", "s"], long_msgs):
+        out = {}
+        for where in (dev, "cpu"):
+            keys = lc.keygen(params, seeds, device=where)
+            sigs = lc.sign(params, keys, msgs)
+            agg = lc.aggregate(params, keys.vk, msgs, sigs.sig)
+            _, vks_s, msgs_s = lc._sorted_group(params, keys.vk, msgs)
+            coeffs = dp.derive_coeffs_device(params, vks_s, msgs_s, agg.unsqueeze(0))
+            out[where] = ((keys.sk_hat, keys.vk, sigs.sig, agg, *coeffs),
+                          lc.verify(params, keys.vk, msgs, agg))
+        names = ("sk_hat", "vk", "sig", "aggregate", "eq", "norm_ok", "weight_ok", "cc", "alphas")
+        for name, a, b in zip(names, out[dev][0], out["cpu"][0]):
+            require(torch.equal(a.cpu(), b), f"lifecycle {name}: CUDA != CPU ({msgs[0][:8]}...)")
+        require(out[dev][1] == out["cpu"][1] == (True, ""), "lifecycle verify: CUDA != CPU")
+    log("lifecycle: keygen, sign, aggregate, verify and the group's coefficients of 4 keys on "
+        "CUDA equal the CPU run, with short messages and with long non-ASCII ones "
+        f"({', '.join(str(len(m.encode('utf-8'))) for m in long_msgs)} B)")
 
 
 def main() -> int:
@@ -814,6 +900,7 @@ def main() -> int:
     # -- 2. kernels vs plain ------------------------------------------------
     kernel_rows: list = []
     phase_kernels(dev, kernel_rows)
+    phase_agg_check(dev, kernel_rows)
     phase_fold_kernels(dev, kernel_rows)
     phase_assemble_kernel(dev, kernel_rows)
     phase_ntt_kernels(dev, kernel_rows)
@@ -824,6 +911,7 @@ def main() -> int:
     fleet, metrics, launches = drive_main_path(params, G, N, dev)
     check_tamper(params, fleet)
     check_cuda_vs_cpu(params, fleet)
+    check_lattice_no_sync(params, fleet)
 
     # -- S. the "spec" assembly ---------------------------------------------
     spec_metrics, spec_launches = drive_spec_path(params, fleet, metrics, dev)

@@ -1,117 +1,364 @@
-// Inverse NTT fused with the verify's per-row norm/weight reduction, for
-// NVIDIA Hopper (sm_90a).
+// The verify's aggregate check in one pass over the int32 aggregates, for
+// NVIDIA Hopper (sm_90a): per group g the observed sum
+//   observed[g, k] = sum_r a[r, k] * agg[g, r, k] mod q      (int64 [G, d])
+// and, per row (g, r), the inverse negacyclic NTT of agg[g, r, :] with the
+// n^-1 scale, reduced to its max |centered coefficient| and its count of
+// nonzero coefficients (int32 [G, rank] each).
 //
 // Replaces the TPU kernel fusion_cryptography_tpu/ops/ntt_mxu_pallas.py
-// _build_norm_weight (kernel 3): for every row of NTT-domain residues
-// u32[M, d] (bit-reversed order) compute the inverse negacyclic NTT with the
-// n^-1 scale (ops/ntt.ntt_inv_u semantics), then the row's max |centered
-// coefficient| and its count of nonzero coefficients.  The coefficients are
-// never written out: only two int32 per row leave the kernel.
+// _build_norm_weight (kernel 3) together with the observed sum the JAX
+// package computes beside it (scheme/device_pipeline.py j_lattice: dot_mod,
+// then kernel 3).  The TPU runs the transform as bf16 8-bit-limb matrix
+// products on the MXU because it has no 64-bit integer multiply; a GPU has
+// native 32x32->64 products, so this kernel runs Gentleman-Sande butterflies
+// with Shoup multiplies.
 //
-// Design.  The TPU version runs the transform as bf16 8-bit-limb matrix
-// products on the MXU because the TPU has no 64-bit integer multiply.  A GPU
-// has native 32x32->64 products, so this kernel runs the Gentleman–Sande
-// butterflies directly: one row per d/2 threads, the row's d residues in
-// shared memory, log2(d) stages separated by __syncthreads, each butterfly a
-// Shoup modular multiply by a precomputed twiddle (the plan's brp_inv and
-// brp_inv_shoup tables, stage h reading entries [h, 2h)).  The row
-// reduction is a warp shuffle plus one shared-memory step per row.
+// What bounds it: integer instructions.  The input is one int32 read of the
+// aggregate (4 bytes per coefficient); the butterflies, the lift, the
+// observed sum's multiply-accumulate and the centered reduction are ~60
+// instructions per coefficient.  The design keeps everything else off the
+// memory system and out of block barriers:
 //
-// What bounds it: the input read (8 bytes per coefficient: residues arrive
-// as int64) and ~d/2·log2(d) Shoup multiplies per row.  At G=8192 the
-// verify's M = 8192·83 = 679,936 rows of d = 256 are 1.39 GB of reads, which
-// is the floor at the card's memory bandwidth; the butterflies are a few
-// integer ops per byte read.  Reading centered int32 aggregates directly
-// (half the bytes) is left to a later change.
-#include "ntt_butterfly.cuh"  // FCT_HD, mulmod_shoup, gs_butterfly
+// * One warp per row, the row's E = d/32 residues in registers.  The degree
+//   is a template parameter, so every loop unrolls and no index math divides.
+// * The row is loaded in the blocked layout (lane l holds k = l*E + e, one or
+//   more 16-byte loads per lane), lifted to the canonical residue x mod q of
+//   every int32 (two conditional corrections: q < 2^31 < 2q), multiplied by
+//   a[r, k] (Shoup, against the (a_u, a_sh) table) and added to the lane's
+//   per-position accumulators.  The NTT-domain positions of a and agg match,
+//   so the INTT's output order does not matter to the observed sum.
+// * Stages with pair distance t < E run inside the lane; stages with
+//   E <= t < 32 exchange values with __shfl_xor_sync; then one per-warp
+//   shared-memory transpose (padded: k + k/32, conflict-free both ways, under
+//   __syncwarp) gives the strided layout (lane l holds k = l + 32*e) in which
+//   every stage with t >= 32 runs inside the lane.  No block barrier inside
+//   the butterfly network.  The last stage carries the n^-1 scale (its two
+//   outputs are multiplied by n^-1 and by w*n^-1).
+// * Only the max and the count leave the row (warp reductions), so the
+//   coefficients may stay in any permutation; zero-ness does not depend on
+//   the scale, the norm does.
+// * Twiddles and their Shoup words (2*d uint32) are staged once per block in
+//   shared memory; the blocked-layout stages read E/2^(b+1) consecutive
+//   entries per lane as vectors, the strided ones read a broadcast entry.
+// * A block takes one group; its warps stride over the group's rank rows and
+//   reduce their accumulators in shared memory at the end, and observed[g, :]
+//   is written coalesced.
+//
+// Without nvcc the per-lane functions compile as plain C++ (FCT_HD is
+// `static inline`); tests/test_torch_kernel_host.py runs them with a serial
+// emulation of the warp's 32 lanes in place of the shuffles.
+#include "ntt_butterfly.cuh"  // FCT_HD, mulmod_shoup
 
 namespace {
 
-// |centered(c)| = min(c, q - c) for a residue c, and its nonzero flag.
+constexpr int WARP = 32;
+
+// The canonical residue x mod q of any int32, for q in (2^30, 2^31).
+FCT_HD uint32_t lift_residue(int32_t x, uint32_t q) {
+  int32_t y = x < 0 ? x + (int32_t)q : x;  // [-(2^31 - q), 2^31)
+  if (y < 0) y += (int32_t)q;
+  const uint32_t u = (uint32_t)y;
+  return u >= q ? u - q : u;
+}
+
+FCT_HD uint32_t add_mod(uint32_t a, uint32_t b, uint32_t q) {
+  const uint32_t s = a + b;  // a, b < q < 2^31: no wrap
+  return s >= q ? s - q : s;
+}
+
+FCT_HD uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t q) {
+  return a >= b ? a - b : a + (q - b);
+}
+
+// |centered(c)| = min(c, q - c) for a residue c.
 FCT_HD uint32_t centered_abs(uint32_t c, uint32_t q) {
   const uint32_t n = q - c;
   return c < n ? c : n;
 }
 
-#ifdef __CUDACC__
-__global__ void intt_norm_weight_kernel(
-    const int64_t* __restrict__ x, int64_t rows, int d,
-    const uint32_t* __restrict__ tw, const uint32_t* __restrict__ tw_sh,
-    uint32_t n_inv, uint32_t n_inv_sh, uint32_t q,
-    int32_t* __restrict__ nrm, int32_t* __restrict__ wgt) {
-  extern __shared__ uint32_t smem[];
-  const int half = d >> 1;  // threads per row, a multiple of 32
-  const int rows_per_block = blockDim.x / half;
-  const int r = threadIdx.x / half;
-  const int i = threadIdx.x - r * half;
-  const int64_t row = (int64_t)blockIdx.x * rows_per_block + r;
-  const bool live = row < rows;
-  uint32_t* a = smem + r * d;
-  if (live) {
-    const int64_t* xr = x + row * d;
-    a[i] = (uint32_t)xr[i];
-    a[i + half] = (uint32_t)xr[i + half];
-  }
-  __syncthreads();
-  for (int h = half; h >= 1; h >>= 1) {
-    if (live) gs_butterfly(a, i, h, half, tw, tw_sh, q);
-    __syncthreads();
-  }
-  uint32_t m = 0;
-  int32_t c = 0;
-  if (live) {
-    const uint32_t c0 = mulmod_shoup(a[i], n_inv, n_inv_sh, q);
-    const uint32_t c1 = mulmod_shoup(a[i + half], n_inv, n_inv_sh, q);
-    const uint32_t m0 = centered_abs(c0, q);
-    const uint32_t m1 = centered_abs(c1, q);
-    m = m0 > m1 ? m0 : m1;
-    c = (c0 != 0) + (c1 != 0);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    const uint32_t mo = __shfl_down_sync(0xffffffffu, m, off);
-    m = mo > m ? mo : m;
-    c += __shfl_down_sync(0xffffffffu, c, off);
-  }
-  uint32_t* red = smem + rows_per_block * d;  // [warps][2]
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[2 * warp] = m;
-    red[2 * warp + 1] = (uint32_t)c;
-  }
-  __syncthreads();
-  if (live && i == 0) {
-    uint32_t mm = 0;
-    int32_t cc = 0;
-    for (int w = warp; w < warp + (half >> 5); ++w) {
-      mm = red[2 * w] > mm ? red[2 * w] : mm;
-      cc += (int32_t)red[2 * w + 1];
+FCT_HD constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n >> 1); }
+
+// The last stage's second twiddle times n^-1, and its Shoup word: stored in
+// the table's unused slot 0.
+FCT_HD void fused_last_twiddle(const uint32_t* tw, uint32_t n_inv, uint32_t n_inv_sh,
+                               uint32_t q, uint32_t* w, uint32_t* w_sh) {
+  const uint32_t v = mulmod_shoup(tw[1], n_inv, n_inv_sh, q);
+  *w = v;
+  *w_sh = (uint32_t)(((uint64_t)v << 32) / q);
+}
+
+// Load n consecutive uint32 (n a power of two, p aligned to min(n, 4) words).
+template <int n>
+FCT_HD void load_run(const uint32_t* p, uint32_t* out) {
+#ifdef __CUDA_ARCH__
+  if constexpr (n % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < n; i += 4) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + i);
+      out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
     }
-    nrm[row] = (int32_t)mm;
-    wgt[row] = cc;
+    return;
+  } else if constexpr (n == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    out[0] = v.x; out[1] = v.y;
+    return;
   }
+#endif
+#pragma unroll
+  for (int i = 0; i < n; ++i) out[i] = p[i];
+}
+
+// Lift a lane's E aggregate values (blocked layout, row offset lane*E) and
+// add a[r, k] * x[k] to its accumulators.
+template <int E>
+FCT_HD void lane_lift_accumulate(const int32_t* row, const uint32_t* a_u_row,
+                                 const uint32_t* a_sh_row, int lane, uint32_t q,
+                                 uint32_t* x, uint32_t* acc) {
+  uint32_t raw[E], au[E], ash[E];
+  load_run<E>(reinterpret_cast<const uint32_t*>(row) + lane * E, raw);
+  load_run<E>(a_u_row + lane * E, au);
+  load_run<E>(a_sh_row + lane * E, ash);
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    x[e] = lift_residue((int32_t)raw[e], q);
+    acc[e] = add_mod(acc[e], mulmod_shoup(x[e], au[e], ash[e], q), q);
+  }
+}
+
+// Gentleman-Sande stages b = 0 .. log2(E)-1 (pair distance t = 2^b < E)
+// inside the lane, blocked layout (k = lane*E + e).  Stage b has h = d/2^(b+1)
+// blocks; the lane's pairs use the E/2^(b+1) consecutive twiddles from
+// h + lane*E/2^(b+1).
+template <int D, int b>
+FCT_HD void blocked_stage(uint32_t* x, int lane, const uint32_t* s_w, const uint32_t* s_wsh,
+                          uint32_t q) {
+  constexpr int E = D / WARP;
+  constexpr int t = 1 << b;
+  constexpr int nj = E >> (b + 1);
+  constexpr int h = D >> (b + 1);
+  uint32_t w[nj], wsh[nj];
+  load_run<nj>(s_w + h + lane * nj, w);
+  load_run<nj>(s_wsh + h + lane * nj, wsh);
+#pragma unroll
+  for (int j = 0; j < nj; ++j) {
+#pragma unroll
+    for (int i = 0; i < t; ++i) {
+      const int e0 = 2 * j * t + i;
+      const uint32_t u = x[e0], v = x[e0 + t];
+      x[e0] = add_mod(u, v, q);
+      x[e0 + t] = mulmod_shoup(sub_mod(u, v, q), w[j], wsh[j], q);
+    }
+  }
+}
+
+template <int D, int b>
+FCT_HD void blocked_stages(uint32_t* x, int lane, const uint32_t* s_w, const uint32_t* s_wsh,
+                           uint32_t q) {
+  if constexpr ((1 << b) < D / WARP) {
+    blocked_stage<D, b>(x, lane, s_w, s_wsh, q);
+    blocked_stages<D, b + 1>(x, lane, s_w, s_wsh, q);
+  }
+}
+
+// Stage b with E <= t = 2^b < 32, blocked layout: the partner element of
+// every register is in lane ^ (t/E); y holds the partner lane's registers.
+// The lower lane keeps u + v, the upper (u - v) * w with u the partner's.
+template <int D>
+FCT_HD void exchange_stage(uint32_t* x, const uint32_t* y, int lane, int b,
+                           const uint32_t* s_w, const uint32_t* s_wsh, uint32_t q) {
+  constexpr int E = D / WARP;
+  constexpr int lE = log2i(E);
+  const int pl = 1 << (b - lE);
+  const bool lower = (lane & pl) == 0;
+  const int idx = (D >> (b + 1)) + (lane >> (b + 1 - lE));
+  const uint32_t w = s_w[idx], wsh = s_wsh[idx];
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const uint32_t s = add_mod(x[e], y[e], q);
+    const uint32_t m = mulmod_shoup(sub_mod(y[e], x[e], q), w, wsh, q);
+    x[e] = lower ? s : m;
+  }
+}
+
+// Shared-memory index of element k in a warp's transpose buffer: one pad
+// word per 32, so the blocked-layout writes and the strided reads are both
+// free of bank conflicts.
+FCT_HD int pad_index(int k) { return k + (k >> 5); }
+
+// Stages b = 5 .. log2(D)-1 (t >= 32) inside the lane, strided layout
+// (k = lane + 32*e): stage b pairs registers e and e + t/32 and reads the
+// broadcast twiddle h + (e >> (b-4)).  The last stage (one block) scales by
+// n^-1: its outputs are (u + v) * n^-1 and (u - v) * (w * n^-1), the second
+// factor in slot 0 of the table.
+template <int D>
+FCT_HD void strided_stages(uint32_t* x, const uint32_t* s_w, const uint32_t* s_wsh,
+                           uint32_t n_inv, uint32_t n_inv_sh, uint32_t q) {
+  constexpr int E = D / WARP;
+  constexpr int L = log2i(D);
+#pragma unroll
+  for (int b = 5; b < L - 1; ++b) {
+    const int te = 1 << (b - 5);
+    const int h = D >> (b + 1);
+#pragma unroll
+    for (int e0 = 0; e0 < E; ++e0) {
+      if (e0 & te) continue;
+      const int idx = h + (e0 >> (b - 4));
+      const uint32_t u = x[e0], v = x[e0 + te];
+      x[e0] = add_mod(u, v, q);
+      x[e0 + te] = mulmod_shoup(sub_mod(u, v, q), s_w[idx], s_wsh[idx], q);
+    }
+  }
+  constexpr int te = E / 2;
+  const uint32_t w = s_w[0], wsh = s_wsh[0];
+#pragma unroll
+  for (int e0 = 0; e0 < te; ++e0) {
+    const uint32_t u = x[e0], v = x[e0 + te];
+    x[e0] = mulmod_shoup(add_mod(u, v, q), n_inv, n_inv_sh, q);
+    x[e0 + te] = mulmod_shoup(sub_mod(u, v, q), w, wsh, q);
+  }
+}
+
+// The lane's part of the row reduction: max |centered| and nonzero count.
+template <int E>
+FCT_HD void lane_norm_weight(const uint32_t* x, uint32_t q, uint32_t* m, uint32_t* c) {
+  uint32_t mm = 0, cc = 0;
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const uint32_t a = centered_abs(x[e], q);
+    mm = a > mm ? a : mm;
+    cc += x[e] != 0;
+  }
+  *m = mm;
+  *c = cc;
+}
+
+#ifdef __CUDACC__
+template <int D>
+__global__ void agg_check_kernel(const int32_t* __restrict__ aggs, int rank,
+                                 const uint32_t* __restrict__ a_u,
+                                 const uint32_t* __restrict__ a_sh,
+                                 const uint32_t* __restrict__ tw,
+                                 const uint32_t* __restrict__ tw_sh, uint32_t n_inv,
+                                 uint32_t n_inv_sh, uint32_t q, int64_t* __restrict__ observed,
+                                 int32_t* __restrict__ nrm, int32_t* __restrict__ wgt) {
+  constexpr int E = D / WARP;
+  constexpr int lE = log2i(E);
+  constexpr int PAD = D + D / WARP;
+  extern __shared__ __align__(16) uint32_t smem[];
+  uint32_t* s_w = smem;
+  uint32_t* s_wsh = smem + D;
+  const int lane = threadIdx.x & (WARP - 1);
+  const int warp = threadIdx.x / WARP;
+  const int n_warps = blockDim.x / WARP;
+  uint32_t* buf = smem + 2 * D + warp * PAD;
+  for (int i = threadIdx.x; i < D; i += blockDim.x) {
+    s_w[i] = tw[i];
+    s_wsh[i] = tw_sh[i];
+  }
+  if (threadIdx.x == 0) fused_last_twiddle(tw, n_inv, n_inv_sh, q, &s_w[0], &s_wsh[0]);
+  __syncthreads();
+
+  const int64_t g = blockIdx.x;
+  uint32_t acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0;
+  for (int r = warp; r < rank; r += n_warps) {
+    const int64_t row = g * rank + r;
+    uint32_t x[E];
+    lane_lift_accumulate<E>(aggs + row * D, a_u + (int64_t)r * D, a_sh + (int64_t)r * D,
+                            lane, q, x, acc);
+    blocked_stages<D, 0>(x, lane, s_w, s_wsh, q);
+#pragma unroll
+    for (int b = lE; b < 5; ++b) {
+      uint32_t y[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) y[e] = __shfl_xor_sync(0xffffffffu, x[e], 1 << (b - lE));
+      exchange_stage<D>(x, y, lane, b, s_w, s_wsh, q);
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) buf[pad_index(lane * E + e)] = x[e];
+    __syncwarp();
+#pragma unroll
+    for (int e = 0; e < E; ++e) x[e] = buf[pad_index(lane + WARP * e)];
+    __syncwarp();
+    strided_stages<D>(x, s_w, s_wsh, n_inv, n_inv_sh, q);
+    uint32_t m, c;
+    lane_norm_weight<E>(x, q, &m, &c);
+    m = __reduce_max_sync(0xffffffffu, m);
+    c = __reduce_add_sync(0xffffffffu, c);
+    if (lane == 0) {
+      nrm[row] = (int32_t)m;
+      wgt[row] = (int32_t)c;
+    }
+  }
+  // observed[g, :]: the warps' accumulators, summed mod q
+#pragma unroll
+  for (int e = 0; e < E; ++e) buf[pad_index(lane * E + e)] = acc[e];
+  __syncthreads();
+  for (int k = threadIdx.x; k < D; k += blockDim.x) {
+    uint32_t s = 0;
+    for (int w = 0; w < n_warps; ++w) s = add_mod(s, smem[2 * D + w * PAD + pad_index(k)], q);
+    observed[g * D + k] = (int64_t)s;
+  }
+}
+
+// Warps per block: the count in [4, 16] that leaves the fewest idle warp
+// slots over the group's rows (the larger count on a tie).
+int warps_for(int rank) {
+  int best = 4, waste = 1 << 30;
+  for (int n = 4; n <= 16; ++n) {
+    const int wn = (rank + n - 1) / n * n - rank;
+    if (wn <= waste) best = n, waste = wn;
+  }
+  return best;
+}
+
+template <int D>
+int launch(const int32_t* aggs, int64_t groups, int rank, const uint32_t* a_u,
+           const uint32_t* a_sh, const uint32_t* tw, const uint32_t* tw_sh, uint32_t n_inv,
+           uint32_t n_inv_sh, uint32_t q, int64_t* observed, int32_t* nrm, int32_t* wgt,
+           cudaStream_t stream) {
+  const int n_warps = warps_for(rank);
+  const size_t smem = (2 * D + (size_t)n_warps * (D + D / WARP)) * sizeof(uint32_t);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        agg_check_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  agg_check_kernel<D><<<(unsigned)groups, n_warps * WARP, smem, stream>>>(
+      aggs, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh, q, observed, nrm, wgt);
+  return (int)cudaGetLastError();
 }
 #endif
 
 }  // namespace
 
 #ifdef __CUDACC__
-// C entry point (bound with ctypes): x int64[rows, d] residues in [0, q),
-// tw/tw_sh u32[d] (plan.brp_inv, plan.brp_inv_shoup), outputs int32[rows].
-// d is a power of two in [64, 1024].  Returns cudaGetLastError().
-extern "C" int fct_intt_norm_weight(const int64_t* x, int64_t rows, int d,
+// C entry point (bound with ctypes): aggs int32[groups, rank, d] (any int32,
+// lifted to x mod q), a_u/a_sh u32[rank, d] (a mod q and its Shoup words),
+// tw/tw_sh u32[d] (plan.brp_inv, plan.brp_inv_shoup); outputs observed
+// int64[groups, d], nrm/wgt int32[groups, rank].  d is a power of two in
+// [64, 1024], q an odd prime in (2^30, 2^31).  Returns a cudaError_t.
+extern "C" int fct_intt_norm_weight(const int32_t* aggs, int64_t groups, int rank, int d,
+                                    const uint32_t* a_u, const uint32_t* a_sh,
                                     const uint32_t* tw, const uint32_t* tw_sh,
-                                    uint32_t n_inv, uint32_t n_inv_sh,
-                                    uint32_t q, int32_t* nrm, int32_t* wgt,
+                                    uint32_t n_inv, uint32_t n_inv_sh, uint32_t q,
+                                    int64_t* observed, int32_t* nrm, int32_t* wgt,
                                     void* stream) {
-  if (rows <= 0) return 0;
-  const int half = d / 2;
-  const int rows_per_block = half >= 256 ? 1 : 256 / half;
-  const int threads = rows_per_block * half;
-  const size_t smem = (size_t)rows_per_block * d * sizeof(uint32_t) +
-                      (size_t)(threads / 32) * 2 * sizeof(uint32_t);
-  const unsigned grid = (unsigned)((rows + rows_per_block - 1) / rows_per_block);
-  intt_norm_weight_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      x, rows, d, tw, tw_sh, n_inv, n_inv_sh, q, nrm, wgt);
-  return (int)cudaGetLastError();
+  if (groups <= 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 64: return launch<64>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh, q,
+                               observed, nrm, wgt, s);
+    case 128: return launch<128>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh, q,
+                                 observed, nrm, wgt, s);
+    case 256: return launch<256>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh, q,
+                                 observed, nrm, wgt, s);
+    case 512: return launch<512>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh, q,
+                                 observed, nrm, wgt, s);
+    case 1024: return launch<1024>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh,
+                                   q, observed, nrm, wgt, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 #endif

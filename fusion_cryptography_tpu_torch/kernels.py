@@ -36,7 +36,8 @@ SOURCES = {
         "fct_keccak_squeeze": [_P, _P, _I32, _I64, _P],
     },
     "intt_norm_weight.cu": {
-        "fct_intt_norm_weight": [_P, _I64, _I32, _P, _P, _U32, _U32, _U32, _P, _P, _P],
+        "fct_intt_norm_weight": [_P, _I64, _I32, _I32, _P, _P, _P, _P, _U32, _U32, _U32,
+                                 _P, _P, _P, _P],
     },
     "ntt.cu": {
         "fct_ntt_u": [_P, _P, _I64, _I32, _P, _P, _I32, _U32, _U32, _U32, _P],

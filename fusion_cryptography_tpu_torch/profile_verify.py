@@ -102,8 +102,9 @@ def main() -> None:
 
     rows = sorted(((e.key, dev_us(e), e.count) for e in events), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) / 1e3
+    launches = sum(r[2] for r in rows)
     print(f"traced call {traced * 1e3:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / (traced * 1e3):.1f}% of the call)")
+          f"({100 * busy / (traced * 1e3):.1f}% of the call), {launches} device launches")
     for name, us, n in rows[:25]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
     if args.out:
@@ -112,7 +113,7 @@ def main() -> None:
         prof.export_chrome_trace(str(out / "verify_trace.json"))
         (out / "verify_kernels.json").write_text(json.dumps(
             {"card": card, "groups": G, "wall_ms": wall * 1e3, "traced_ms": traced * 1e3,
-             "busy_ms": busy, "stages_ms": {k: v * 1e3 for k, v in acc.items()},
+             "busy_ms": busy, "launches": launches, "stages_ms": {k: v * 1e3 for k, v in acc.items()},
              "kernels": [{"name": k, "ms": us / 1e3, "count": n} for k, us, n in rows]},
             indent=1))
 

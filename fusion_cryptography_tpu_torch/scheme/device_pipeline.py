@@ -1,8 +1,8 @@
 """Grouped aggregate-verify with the whole hash pipeline on the device.
 
 Port of the JAX package's ``scheme/device_pipeline.py`` (packed-word hash
-path, SHA3 prehash on the device, fused sponge, preimage folds, fused INTT +
-norm/weight):
+path, SHA3 prehash on the device, fused sponge, preimage folds, fused
+observed sum + INTT + norm/weight):
 
   vks int32[G, N, 2, d], ``dst + "," + message`` bytes, aggs int32[G, rank, d]
     -> prehash:     SHA3-256 (sponge kernels) + 78-digit decimal render
@@ -12,8 +12,9 @@ norm/weight):
                     (signer_fold_b kernel)
     -> group hash:  aggregation preimage (agg_fold kernel), SHAKE256,
                     per-signer alpha decode
-    -> lattice:     alpha NTT (ntt_u kernel), target/observed sums
-                    (ops/field), INTT + norm/weight (CUDA kernel)
+    -> lattice:     alpha NTT (ntt_u kernel), target sum (ops/field),
+                    observed sum + INTT + norm/weight in one pass over the
+                    int32 aggregates (intt_norm_weight kernel)
 
 Two assemblies of the two signer preimages give the same bytes, chosen by
 the ``assembly`` argument:
@@ -51,7 +52,7 @@ from ..ops import preimage_fold as pf
 from ..ops import ragged_words as rw
 from ..ops import xof_decode
 from ..ops.assemble_spec import assemble_spec
-from ..ops.intt_norm_weight import intt_norm_weight
+from ..ops.intt_norm_weight import agg_check, agg_table
 from ..ops.keccak import RATE
 from ..ops.keccak_sponge import sha3_256_words_w, shake256_words_w
 from ..ops.ntt import ntt_fwd_u
@@ -207,9 +208,7 @@ class _Pipeline:
         self.params = params
         self.N = n_signers
         self.plan = params.plan
-        F = self.plan.field
-        self.a_mont = F.to_mont(F.to_unsigned(
-            torch.as_tensor(params.public_challenge, device=device)))  # [rank, d]
+        self.a_tab = agg_table(self.plan.field, params.public_challenge, device)  # [rank, d]
         self.prehash, self.signer, self.group = make_stages(params, n_signers, assembly)
 
     def challenges(self, vk: torch.Tensor, mw: torch.Tensor, ml: torch.Tensor):
@@ -243,10 +242,10 @@ class _Pipeline:
         alpha_u = ntt_fwd_u(self.plan, F.to_unsigned(al))  # [G, N, d]
         t = F.add_mod(F.mont_mul(F.to_mont(c_u), vk_u[..., 0, :]), vk_u[..., 1, :])
         target = F.sum_mod(F.mont_mul(F.to_mont(alpha_u), t), axis=-2)  # [G, d]
-        agg_u = F.to_unsigned(aggs)  # [G, rank, d]
-        observed = F.dot_mod(self.a_mont, agg_u, axis=-2)  # [G, d]
+        # observed [G, d] and the rows' norms and weights [G, rank]: one
+        # kernel launch over the int32 aggregates on the card
+        observed, nrm, wgt = agg_check(self.plan, self.a_tab, aggs.contiguous())
         eq = torch.all(target == observed, dim=-1)
-        nrm, wgt = intt_norm_weight(self.plan, agg_u)  # [G, rank]
         norm_ok = nrm.amax(dim=-1) <= min(params.beta_vf, 2**31 - 1)
         weight_ok = wgt.amax(dim=-1) <= params.omega_vf
         return eq, norm_ok, weight_ok

@@ -17,10 +17,7 @@ from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
 from fusion_cryptography_tpu_torch.ops import ragged_words as rw
 from fusion_cryptography_tpu_torch.ops.assemble_spec import assemble_spec
 from fusion_cryptography_tpu_torch.ops.field import Q
-from fusion_cryptography_tpu_torch.ops.intt_norm_weight import (
-    intt_norm_weight,
-    intt_norm_weight_plain,
-)
+from fusion_cryptography_tpu_torch.ops.intt_norm_weight import agg_check, agg_check_plain, agg_table
 from fusion_cryptography_tpu_torch.ops import ntt
 from fusion_cryptography_tpu_torch.ops.ntt import make_plan
 
@@ -56,17 +53,37 @@ def test_sponge_kernels_match_plain_and_hashlib(dev):
         assert got[i].tobytes() == shake_256(by[i, : lens[i]].tobytes()).digest(200)
 
 
-@pytest.mark.parametrize("d,root,rows", [(64, 23584283, 333), (256, 3337519, 1001)])
-def test_intt_norm_weight_kernel_matches_plain(dev, d, root, rows):
-    plan = make_plan(Q, d, root)
-    g = torch.Generator(device=dev).manual_seed(d)
-    x = torch.randint(0, Q, (rows, d), dtype=torch.int64, device=dev, generator=g)
-    x[::5] = 0
-    x[1, :] = Q - 1
-    nk, wk = intt_norm_weight(plan, x)
+# secpar 128 and 256 (rank 195 and 83) over the Fusion prime, G not a
+# multiple of anything; d = 512 and 1024 over 2013265921 = 15 * 2**27 + 1
+@pytest.mark.parametrize("q,d,root,rank,G", [(Q, 64, 23584283, 195, 37), (Q, 256, 3337519, 83, 53),
+                                             (2013265921, 512, 341742893, 9, 5),
+                                             (2013265921, 1024, 1340477990, 7, 3)])
+def test_intt_norm_weight_kernel_matches_plain(dev, q, d, root, rank, G):
+    """Kernel ``intt_norm_weight`` (the aggregate check) == agg_check_plain
+    on centered values, a zero row, every in-range edge and, over the
+    Fusion prime, every out-of-range int32 edge and random int32 rows."""
+    plan = make_plan(q, d, root)
+    rng = np.random.default_rng(d + rank)
+    x = rng.integers(-(q // 2), q // 2 + 1, size=(G, rank, d), dtype=np.int64)
+    x[0, 0] = 0
+    edges = [0, 1, -1, q // 2, -(q // 2)]
+    if q == Q:  # the plain version is exact on out-of-range int32 for this q
+        edges += [q // 2 + 1, -(q // 2) - 1, q - 1, q, -q, -q - 1, 2**31 - 1, -(2**31)]
+        x[1, 1], x[1, 2] = -(2**31), 2**31 - 1
+        x[-1, -3:] = rng.integers(-(2**31), 2**31, size=(3, d))
+    x[1, 0, : len(edges)] = edges
+    x[2, :, :5] = 0  # rows of weight below d
+    aggs = torch.from_numpy(x.astype(np.int32)).to(dev)
+    pub = rng.integers(-(q // 2), q // 2 + 1, size=(rank, d))
+    before = kernels.LAUNCHES["intt_norm_weight"]
+    got = agg_check(plan, agg_table(plan.field, pub, dev), aggs)
     torch.cuda.synchronize()
-    np_, wp = intt_norm_weight_plain(plan, x)
-    assert torch.equal(nk, np_) and torch.equal(wk, wp)
+    assert kernels.LAUNCHES["intt_norm_weight"] == before + 1
+    want = agg_check_plain(plan, agg_table(plan.field, pub, dev), aggs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    lead = agg_check(plan, agg_table(plan.field, pub, dev), aggs[:2].reshape(1, 2, rank, d))
+    assert all(torch.equal(g.reshape(w[:2].shape), w[:2]) for g, w in zip(lead, want))
 
 
 @pytest.mark.parametrize("d,root,rows", [(64, 23584283, 333), (256, 3337519, 1001),
@@ -105,8 +122,16 @@ def test_wrappers_check_their_inputs(dev):
         ntt.ntt_fwd(plan, torch.zeros((4, 256), dtype=torch.int64, device=dev))
     with pytest.raises(ValueError):  # trailing axis is not the degree
         ntt.ntt_inv_u(plan, torch.zeros((4, 64), dtype=torch.int64, device=dev))
-    with pytest.raises(ValueError):
-        intt_norm_weight(plan, torch.zeros((8, 512), dtype=torch.int64, device=dev)[:, ::2])
+    table = agg_table(plan.field, np.zeros((3, 256), np.int64), dev)
+    with pytest.raises(ValueError):  # aggregates not contiguous
+        agg_check(plan, table, torch.zeros((2, 3, 512), dtype=torch.int32, device=dev)[..., ::2])
+    with pytest.raises(ValueError):  # aggregates as int64
+        agg_check(plan, table, torch.zeros((2, 3, 256), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):  # rank other than the table's
+        agg_check(plan, table, torch.zeros((2, 4, 256), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):  # table on the CPU
+        agg_check(plan, agg_table(plan.field, np.zeros((3, 256), np.int64), torch.device("cpu")),
+                  torch.zeros((2, 3, 256), dtype=torch.int32, device=dev))
     with pytest.raises(ValueError):
         ks.absorb(torch.zeros((34, 8), dtype=torch.int64, device=dev),
                   torch.ones(8, dtype=torch.int32, device=dev))
@@ -251,9 +276,10 @@ def test_lifecycle_on_cuda_equals_cpu(dev, secpar):
 
 
 def test_card_paths_run_no_plain_ntt(dev, monkeypatch):
-    """With the plain NTTs and the plain spec assembly made to fail, the
-    fleet build, the grouped verify (both assemblies) and the lifecycle still
-    run on the card: every NTT and every spec assembly there is a kernel."""
+    """With the plain NTTs, the plain aggregate check and the plain spec
+    assembly made to fail, the fleet build, the grouped verify (both
+    assemblies) and the lifecycle still run on the card: every NTT, every
+    aggregate check and every spec assembly there is a kernel."""
     from fusion_cryptography_tpu_torch.ops import intt_norm_weight as inw
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
     from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
@@ -265,6 +291,7 @@ def test_card_paths_run_no_plain_ntt(dev, monkeypatch):
     for name in ("ntt_fwd_u_plain", "ntt_inv_u_plain", "ntt_fwd_plain", "ntt_inv_plain"):
         monkeypatch.setattr(ntt, name, plain_ntt)
     monkeypatch.setattr(inw, "ntt_inv_u_plain", plain_ntt)
+    monkeypatch.setattr(inw, "agg_check_plain", plain_ntt)
     monkeypatch.setattr(ds, "assemble_chunks_words", plain_ntt)
     params = fusion_setup(256, 3)
     vks, msgs, aggs = build_fleet(params, 3, 4, seed0=9, device=dev)

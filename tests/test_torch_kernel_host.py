@@ -25,7 +25,7 @@ from fusion_cryptography_tpu_torch.interop import device_serial as ds
 from fusion_cryptography_tpu_torch.ops import keccak as tk
 from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
 from fusion_cryptography_tpu_torch.ops.field import Q
-from fusion_cryptography_tpu_torch.ops.intt_norm_weight import intt_norm_weight_plain
+from fusion_cryptography_tpu_torch.ops.intt_norm_weight import agg_check_plain, agg_table
 from fusion_cryptography_tpu_torch.ops import ntt as tntt
 from fusion_cryptography_tpu_torch.ops.ntt import make_plan, ntt_fwd_u
 
@@ -34,6 +34,9 @@ CSRC = Path(__file__).resolve().parents[1] / "fusion_cryptography_tpu_torch" / "
 # A serial loop over the batch (sponge) or the rows and butterflies (INTT)
 # around the kernels' own device functions.
 HOST_LOOPS = r"""
+#include <algorithm>
+#include <vector>
+
 #include "keccak_sponge.cu"
 #include "intt_norm_weight.cu"
 #include "ntt.cu"
@@ -52,26 +55,68 @@ extern "C" void host_squeeze(const uint32_t* state, uint32_t* out,
     sponge_squeeze_lane(state, out, n_words, batch, b);
 }
 
-extern "C" void host_intt_norm_weight(const int64_t* x, int64_t rows, int d,
-                                      const uint32_t* tw, const uint32_t* tw_sh,
-                                      uint32_t n_inv, uint32_t n_inv_sh,
-                                      uint32_t q, int32_t* nrm, int32_t* wgt) {
-  uint32_t a[1024];
-  const int half = d / 2;
-  for (int64_t row = 0; row < rows; ++row) {
-    for (int k = 0; k < d; ++k) a[k] = (uint32_t)x[row * d + k];
-    for (int h = half; h >= 1; h >>= 1)
-      for (int i = 0; i < half; ++i) gs_butterfly(a, i, h, half, tw, tw_sh, q);
-    uint32_t m = 0;
-    int32_t c = 0;
-    for (int k = 0; k < d; ++k) {
-      const uint32_t v = mulmod_shoup(a[k], n_inv, n_inv_sh, q);
-      const uint32_t ab = centered_abs(v, q);
-      m = ab > m ? ab : m;
-      c += v != 0;
+// The aggregate check's rows, one warp of 32 lanes emulated serially: the
+// kernel's own per-lane functions, the shuffles replaced by reads of the
+// partner lane's registers from before the stage, the transpose by the same
+// padded buffer, the warp reductions by loops over the lanes.  One warp
+// accumulates every row of a group (the kernel's warps add theirs mod q).
+template <int D>
+static void host_agg_check_d(const int32_t* aggs, int64_t groups, int rank,
+                             const uint32_t* a_u, const uint32_t* a_sh, const uint32_t* tw,
+                             const uint32_t* tw_sh, uint32_t n_inv, uint32_t n_inv_sh,
+                             uint32_t q, int64_t* observed, int32_t* nrm, int32_t* wgt) {
+  constexpr int E = D / WARP, lE = log2i(E);
+  std::vector<uint32_t> s_w(tw, tw + D), s_wsh(tw_sh, tw_sh + D);
+  fused_last_twiddle(tw, n_inv, n_inv_sh, q, &s_w[0], &s_wsh[0]);
+  std::vector<uint32_t> x(WARP * E), prev(WARP * E), acc(WARP * E), buf(D + D / WARP);
+  for (int64_t g = 0; g < groups; ++g) {
+    std::fill(acc.begin(), acc.end(), 0u);
+    for (int r = 0; r < rank; ++r) {
+      const int64_t row = g * rank + r;
+      for (int l = 0; l < WARP; ++l) {
+        lane_lift_accumulate<E>(aggs + row * D, a_u + (int64_t)r * D, a_sh + (int64_t)r * D, l,
+                                q, &x[l * E], &acc[l * E]);
+        blocked_stages<D, 0>(&x[l * E], l, s_w.data(), s_wsh.data(), q);
+      }
+      for (int b = lE; b < 5; ++b) {
+        prev = x;
+        for (int l = 0; l < WARP; ++l)
+          exchange_stage<D>(&x[l * E], &prev[(l ^ (1 << (b - lE))) * E], l, b, s_w.data(),
+                            s_wsh.data(), q);
+      }
+      for (int l = 0; l < WARP; ++l)
+        for (int e = 0; e < E; ++e) buf[pad_index(l * E + e)] = x[l * E + e];
+      uint32_t m = 0, c = 0;
+      for (int l = 0; l < WARP; ++l) {
+        for (int e = 0; e < E; ++e) x[l * E + e] = buf[pad_index(l + WARP * e)];
+        strided_stages<D>(&x[l * E], s_w.data(), s_wsh.data(), n_inv, n_inv_sh, q);
+        uint32_t lm, lc;
+        lane_norm_weight<E>(&x[l * E], q, &lm, &lc);
+        m = lm > m ? lm : m;
+        c += lc;
+      }
+      nrm[row] = (int32_t)m;
+      wgt[row] = (int32_t)c;
     }
-    nrm[row] = (int32_t)m;
-    wgt[row] = c;
+    for (int k = 0; k < D; ++k) observed[g * D + k] = acc[k];
+  }
+}
+
+extern "C" void host_agg_check(const int32_t* aggs, int64_t groups, int rank, int d,
+                               const uint32_t* a_u, const uint32_t* a_sh, const uint32_t* tw,
+                               const uint32_t* tw_sh, uint32_t n_inv, uint32_t n_inv_sh,
+                               uint32_t q, int64_t* observed, int32_t* nrm, int32_t* wgt) {
+  switch (d) {
+    case 64: host_agg_check_d<64>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh, q,
+                                  observed, nrm, wgt); break;
+    case 128: host_agg_check_d<128>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh, q,
+                                    observed, nrm, wgt); break;
+    case 256: host_agg_check_d<256>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh, q,
+                                    observed, nrm, wgt); break;
+    case 512: host_agg_check_d<512>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh, q,
+                                    observed, nrm, wgt); break;
+    case 1024: host_agg_check_d<1024>(aggs, groups, rank, a_u, a_sh, tw, tw_sh, n_inv, n_inv_sh,
+                                      q, observed, nrm, wgt); break;
   }
 }
 
@@ -173,7 +218,7 @@ def lib(tmp_path_factory):
     P, I32, I64, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
     lib.host_absorb.argtypes = [P, P, P, I32, I64]
     lib.host_squeeze.argtypes = [P, P, I32, I64]
-    lib.host_intt_norm_weight.argtypes = [P, I64, I32, P, P, U32, U32, U32, P, P]
+    lib.host_agg_check.argtypes = [P, I64, I32, I32, P, P, P, P, U32, U32, U32, P, P, P]
     lib.host_ntt_u.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
     lib.host_ntt_centered.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
     lib.host_signer_fold_a.argtypes = [P, I32, P, P, P, I32, P, I64, P, I32, P, P, I32, P]
@@ -219,30 +264,54 @@ def test_sponge_lanes_match_plain_and_hashlib(lib, pad_head):
         assert got[i, : len(want)].tobytes() == want, int(n)
 
 
-@pytest.mark.parametrize("d,root", [(64, 23584283), (256, 3337519)])
-def test_intt_norm_weight_rows_match_plain(lib, d, root):
-    plan = make_plan(Q, d, root)
-    rng = np.random.default_rng(d + 1)
-    x = rng.integers(0, Q, size=(40, d), dtype=np.int64)
-    x[0] = 0
-    x[1] = Q - 1
-    x[2, :3] = [0, 1, Q - 1]
-    for k in range(4):  # NTTs of sparse polynomials: weights below d
+def agg_inputs(plan, G, rank, seed):
+    """int32 aggregates [G, rank, d]: centered values, a zero row, NTTs of
+    sparse polynomials (weights below d), rows of the in-range int32 edges;
+    over the Fusion prime also the out-of-range edges and a row of random
+    int32 (the plain version's int64 stage sweep stays exact on those only
+    for a modulus this close to 2**31)."""
+    d, q = plan.degree, plan.modulus
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-(q // 2), q // 2 + 1, size=(G, rank, d), dtype=np.int64)
+    x[0, 0] = 0
+    for k in range(min(4, rank - 1)):
         poly = np.zeros(d, np.int64)
-        poly[rng.choice(d, size=k + 1, replace=False)] = rng.integers(1, Q, size=k + 1)
-        x[3 + k] = ntt_fwd_u(plan, torch.from_numpy(poly)).numpy()
-    x = torch.from_numpy(x)
-    tw = torch.from_numpy(plan.brp_inv.view(np.int32))
-    tw_sh = torch.from_numpy(plan.brp_inv_shoup.view(np.int32))
-    nrm = torch.empty(x.shape[0], dtype=torch.int32)
-    wgt = torch.empty(x.shape[0], dtype=torch.int32)
-    lib.host_intt_norm_weight(x.data_ptr(), x.shape[0], d, tw.data_ptr(), tw_sh.data_ptr(),
-                              plan.n_inv, plan.n_inv_shoup, plan.modulus,
-                              nrm.data_ptr(), wgt.data_ptr())
-    want_n, want_w = intt_norm_weight_plain(plan, x)
-    np.testing.assert_array_equal(nrm.numpy(), want_n.numpy())
-    np.testing.assert_array_equal(wgt.numpy(), want_w.numpy())
-    assert int(wgt[0]) == 0 and sorted(wgt[3:7].tolist()) != [d] * 4
+        poly[rng.choice(d, size=k + 1, replace=False)] = rng.integers(1, q, size=k + 1)
+        x[0, k + 1] = plan.field.to_centered(ntt_fwd_u(plan, torch.from_numpy(poly))).numpy()
+    edges = [0, 1, -1, q // 2, -(q // 2)]
+    x[1, 0, : len(edges)] = edges
+    x[1, 1] = q // 2
+    x[1, 2] = -(q // 2)
+    if q == Q:
+        x[1, 0, 5:13] = [q // 2 + 1, -(q // 2) - 1, q - 1, q, -q, -q - 1, 2**31 - 1, -(2**31)]
+        x[1, 1] = -(2**31)
+        x[1, 2] = 2**31 - 1
+        x[-1, -1] = rng.integers(-(2**31), 2**31, size=d)
+    return torch.from_numpy(x.astype(np.int32))
+
+
+# d up to 256 over the Fusion prime (2d divides q - 1 up to d = 256); 512 and
+# 1024 over 2013265921 = 15 * 2**27 + 1, also in (2**30, 2**31)
+@pytest.mark.parametrize("q,d,root", [(Q, 64, 23584283), (Q, 128, 128339038), (Q, 256, 3337519),
+                                      (2013265921, 512, 341742893),
+                                      (2013265921, 1024, 1340477990)])
+def test_intt_norm_weight_rows_match_plain(lib, q, d, root):
+    plan = make_plan(q, d, root)
+    G, rank = 3, 7
+    aggs = agg_inputs(plan, G, rank, d + 1)
+    pub = np.random.default_rng(d).integers(-(q // 2), q // 2 + 1, size=(rank, d))
+    table = agg_table(plan.field, pub, torch.device("cpu"))
+    tw, tw_sh = plan.twiddles(True, torch.device("cpu"))
+    observed = torch.full((G, d), -1, dtype=torch.int64)
+    nrm = torch.full((G, rank), -1, dtype=torch.int32)
+    wgt = torch.full((G, rank), -1, dtype=torch.int32)
+    lib.host_agg_check(aggs.data_ptr(), G, rank, d, table.a_u.data_ptr(), table.a_sh.data_ptr(),
+                       tw.data_ptr(), tw_sh.data_ptr(), plan.n_inv, plan.n_inv_shoup, q,
+                       observed.data_ptr(), nrm.data_ptr(), wgt.data_ptr())
+    want = agg_check_plain(plan, table, aggs)
+    for got, exp in zip((observed, nrm, wgt), want):
+        np.testing.assert_array_equal(got.numpy(), exp.numpy())
+    assert int(wgt[0, 0]) == 0 and sorted(wgt[0, 1:5].tolist()) != [d] * 4
 
 
 @pytest.mark.parametrize("d,root", [(64, 23584283), (256, 3337519)])
