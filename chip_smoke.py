@@ -15,7 +15,10 @@ integer).
 Phases (each fails loudly; any failure exits non-zero):
   1. card, versions, kernel build (one nvcc per source, in parallel)
   2. kernels vs plain versions (and the sponge vs hashlib), with timings and
-     each kernel's bound; ``intt_norm_weight`` (the aggregate check: observed
+     each kernel's bound (``fusion_cryptography_tpu_torch/bounds.py``);
+     ``agg_fold`` on group-major and signer-major lanes, G = 8,192, 8,155
+     and 1, outputs on memory filled with -1, one call with host syncs
+     forbidden; ``intt_norm_weight`` (the aggregate check: observed
      sum and INTT + norm/weight in one pass) on int32 aggregates of the
      verify call's shape [8192, 83, 256] and of secpar=128's [1024, 195, 64],
      with every int32 edge value; ``assemble_spec`` on the challenge, triple
@@ -67,27 +70,11 @@ from statistics import median
 import numpy as np
 import torch
 
+from fusion_cryptography_tpu_torch import bounds
+
 SEED = 42
 SECPAR, N_GROUPS, N_SIGNERS = 256, 8192, 4
 LANE128_GROUPS = 1024
-
-# The least time of a kernel: the larger of its bytes over the HBM rate and
-# its 32-bit integer instructions over the card's INT32 issue rate.  The
-# H100 SXM's published peaks give 3.35 TB/s and 67 TFLOP/s float32 (an FMA
-# counted as two) from 132 SMs of 128 float32 lanes, i.e. 1.98 GHz; an SM
-# has 64 INT32 lanes, so 132 * 64 * 1.98e9 = 16.7e12 integer instructions/s.
-HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 132 * 64 * 1.98e9
-# 32-bit instructions one Keccak-f[1600] needs at least, its 64-bit lanes
-# split in halves and three-input XORs fused (LOP3), per round: theta 20
-# LOP3 for the column parities, 10 funnel shifts to rotate them, 50 LOP3 to
-# apply them; rho 48 funnel shifts (24 rotations); chi 50 LOP3; iota 2.
-KECCAK_OPS = 24 * (20 + 10 + 50 + 48 + 50 + 2)
-# Estimates, not counts: decimal rendering of one value (digit count, ten
-# divide-by-10 steps, byte packing) and the word stream per output word.
-# The fold kernels' bounds are set by their bytes, several times above
-# these operations at the main path's shapes.
-RENDER_OPS, WORD_OPS, AGG_WORD_OPS = 70, 4, 20
 
 MAIN_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight",
                      "signer_fold_a", "signer_fold_b", "agg_fold", "ntt_u")
@@ -131,13 +118,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT_OPS_PER_S * 1e3
-    return dict(bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
-
-
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
@@ -147,11 +127,6 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def live_bytes(lens: torch.Tensor) -> int:
-    """Bytes of the whole words that carry ``lens`` bytes per lane."""
-    return int(((lens.to(torch.int64) + 3) // 4 * 4).sum().item())
 
 
 def sponge_inputs(rng, B: int, max_len: int, dev):
@@ -207,8 +182,8 @@ def phase_kernels(dev, kernel_rows: list) -> None:
     t_sq = cuda_ms(lambda: ks.squeeze(st_k, nw), 5)
     t_sq_p = cuda_ms(lambda: keccak.shake256_squeeze_words(st_p, nw), 1)
     n_perm = int(nblk.to(torch.int64).sum().item())
-    b_abs = bound(n_perm * 136 + 4 * B + 200 * B, n_perm * KECCAK_OPS)
-    b_sq = bound(200 * B + 4 * nw * B, B * (-(-nw // 34) - 1) * KECCAK_OPS)
+    b_abs = bounds.keccak_absorb(nblk)
+    b_sq = bounds.keccak_squeeze(B, nw)
     log(f"  keccak_absorb  {t_abs:.3f} ms  (plain {t_abs_p:.3f} ms, bound "
         f"{b_abs['bound_ms']:.4f} ms by {b_abs['bound_by']}: {n_perm} permutations)")
     log(f"  keccak_squeeze {t_sq:.3f} ms  (plain {t_sq_p:.3f} ms, bound "
@@ -282,12 +257,7 @@ def phase_agg_check(dev, kernel_rows: list) -> None:
         t_k = cuda_ms(lambda: agg_check(plan, table, aggs), 10)
         t_p = cuda_ms(lambda: agg_check_plain(plan, table, aggs), 1)
         rows = G * rank
-        # butterflies: Shoup multiply (5) + add/sub with reductions (4); per
-        # coefficient: n^-1 scale (5), centering and the two reductions (6),
-        # the lift and the observed sum's multiply-accumulate (8)
-        log2d = d.bit_length() - 1
-        b_k = bound(4 * rows * d + 8 * rank * d + 8 * G * d + 8 * rows,
-                    rows * (9 * (d // 2) * log2d + 11 * d + 8 * d))
+        b_k = bounds.agg_check(G, rank, d)
         log(f"  intt_norm_weight {t_k:.3f} ms  (plain {t_p:.3f} ms, bound "
             f"{b_k['bound_ms']:.4f} ms by {b_k['bound_by']})  [{rows} rows]")
         row = dict(name="intt_norm_weight", route="cuda",
@@ -319,7 +289,6 @@ def phase_ntt_kernels(dev, kernel_rows: list) -> None:
          - q // 2).to(torch.int32)
     c[0, :5] = torch.tensor([0, 1, -1, q // 2, -(q // 2)], dtype=torch.int32)
     c[1], c[2], c[3] = 0, -(q // 2), q // 2
-    log2d = d.bit_length() - 1
     cases = [
         ("ntt_u", "fusion_cryptography_tpu/ops/ntt_mxu_pallas.py:87", u, 16,
          ntt.ntt_fwd_u, ntt.ntt_fwd_u_plain, ntt.ntt_inv_u, ntt.ntt_inv_u_plain),
@@ -336,11 +305,8 @@ def phase_ntt_kernels(dev, kernel_rows: list) -> None:
         t_i = cuda_ms(lambda: inv(plan, y), 20)
         t_ip = cuda_ms(lambda: inv_p(plan, y), 3)
         rows = x.numel() // d
-        # butterflies: Shoup multiply (5) + add/sub with reductions (4); per
-        # coefficient: the load and store conversions (2), and in the
-        # inverse the n^-1 scale (5)
-        b_f = bound(rows * d * bytes_per_coef, rows * (9 * (d // 2) * log2d + 2 * d))
-        b_i = bound(rows * d * bytes_per_coef, rows * (9 * (d // 2) * log2d + 7 * d))
+        b_f = bounds.ntt(rows, d, bytes_per_coef)
+        b_i = bounds.ntt(rows, d, bytes_per_coef, inverse=True)
         log(f"{name}: [{rows}, {d}] {x.dtype} forward and inverse equal the plain versions; "
             f"forward {t_f:.3f} ms (plain {t_fp:.3f} ms, bound {b_f['bound_ms']:.4f} ms by "
             f"{b_f['bound_by']}), inverse {t_i:.3f} ms (plain {t_ip:.3f} ms, bound "
@@ -378,8 +344,9 @@ def fold_inputs(params, B: int, dev):
 
 
 def phase_fold_kernels(dev, kernel_rows: list) -> None:
-    """The three fold kernels at the main path's shapes: B = G*N = 32,768
-    signer lanes, G = 8,192 groups of N = 4 triples."""
+    """The two signer fold kernels at the main path's shapes: B = G*N =
+    32,768 signer lanes; then ``agg_fold`` on their triples
+    (:func:`phase_agg_fold`)."""
     from fusion_cryptography_tpu_torch.interop import device_serial as ds
     from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
     from fusion_cryptography_tpu_torch.params import fusion_setup
@@ -402,38 +369,22 @@ def phase_fold_kernels(dev, kernel_rows: list) -> None:
     require(int(tlen[0]) == tri_min and int(tlen[1]) == tri_spec.out_max,
             f"triple lengths {int(tlen[0])}, {int(tlen[1])} must span "
             f"{tri_min}..{tri_spec.out_max}")
-    tb = got_b[0].reshape(-1, G, N)  # group g = lanes 4g..4g+3, as the pipeline lays them
-    tl = tlen.reshape(G, N)
-    tbs = [tb[:, :, k] for k in range(N)]
-    tls = [tl[:, k] for k in range(N)]
-    got_g = pf.agg_fold(params, N, tbs, tls)
-    want_g = pf.agg_fold_plain(params, N, tbs, tls)
-    err_g = max(max_abs_err(x, y) for x, y in zip(got_g, want_g))
-    require(err_g == 0, "agg_fold != plain version")
-    log(f"folds: B={B} lanes (secpar={SECPAR}), G={G} x N={N} triples of "
-        f"{int(tlen.min())}..{int(tlen.max())} B: signer_fold_a, signer_fold_b and "
-        "agg_fold equal their plain versions (every word, zero tails included)")
-    del want_a, want_b, want_g
+    log(f"folds: B={B} lanes (secpar={SECPAR}), triples of {int(tlen.min())}..{int(tlen.max())} "
+        "B: signer_fold_a and signer_fold_b equal their plain versions (every word, zero "
+        "tails included)")
+    del want_a, want_b
 
     ch_w, vk_w = ds.signer_fold_a_table(params).widths
     (tri_w,) = ds.signer_fold_b_table(params).widths
-    (agg_w,) = ds.agg_fold_table(params, N).widths
-    pre_live = live_bytes(pre_len)
     cases = [
         ("signer_fold_a", "fusion_cryptography_tpu/ops/fold_pallas.py:502", err_a,
          lambda: pf.signer_fold_a(params, vk2d_t, pre_w, pre_len),
          lambda: pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len),
-         bound(4 * 2 * d * B + pre_live + 4 * B + 4 * (ch_w + vk_w + 2) * B,
-               B * (2 * d * RENDER_OPS + (ch_w + vk_w) * WORD_OPS))),
+         bounds.signer_fold_a(d, pre_len, ch_w, vk_w)),
         ("signer_fold_b", "fusion_cryptography_tpu/ops/fold_pallas.py:587", err_b,
          lambda: pf.signer_fold_b(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t),
          lambda: pf.signer_fold_b_plain(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t),
-         bound(live_bytes(got_a[3]) + pre_live + 4 * d * B + 8 * B + 4 * (tri_w + 1) * B,
-               B * (d * RENDER_OPS + tri_w * WORD_OPS))),
-        ("agg_fold", "fusion_cryptography_tpu/ops/fold_pallas.py:675", err_g,
-         lambda: pf.agg_fold(params, N, tbs, tls),
-         lambda: pf.agg_fold_plain(params, N, tbs, tls),
-         bound(live_bytes(tlen) + 4 * B + 4 * (agg_w + 1) * G, G * agg_w * AGG_WORD_OPS)),
+         bounds.signer_fold_b(d, got_a[3], pre_len, tri_w)),
     ]
     for name, replaces, err, kernel, plain, bnd in cases:
         t_k = cuda_ms(kernel, 10)
@@ -445,8 +396,79 @@ def phase_fold_kernels(dev, kernel_rows: list) -> None:
             source="fusion_cryptography_tpu_torch/csrc/preimage_fold.cu",
             replaces=replaces, max_abs_err=err, ms=t_k, plain_ms=t_p, **bnd,
             library_ms=None))
-    del got_a, got_b, got_g, tb, tbs
+    del got_a, vk2d_t, c_hat_t, pre_w
+    phase_agg_fold(params, got_b[0], tlen, dev, kernel_rows)
+    del got_b
     torch.cuda.empty_cache()
+
+
+def phase_agg_fold(params, tri_buf: torch.Tensor, tri_len: torch.Tensor, dev,
+                   kernel_rows: list) -> None:
+    """Kernel ``agg_fold`` on G = 8,192 groups of N = 4 triples (signer_fold_b's
+    output, lane b = group b // 4; group 0 holds the shortest triple and the
+    longest, the widest spread a tile can see), held exactly against
+    ``agg_fold_plain`` on the lanes as signer_fold_b laid them out
+    (group-major, a triple's columns N apart) and as the pipeline lays them
+    out (signer-major, a triple's columns contiguous), on the first G - 37
+    groups (not a multiple of the 32-group tile) and on group 0 alone; the
+    outputs of the first two land on a block of the caching allocator
+    filled with -1 just before the call.  Timed on both layouts; one call runs under
+    ``set_sync_debug_mode("error")``."""
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+    from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
+
+    G, N = N_GROUPS, N_SIGNERS
+    (agg_w,) = ds.agg_fold_table(params, N).widths
+    tb_g, tl_g = tri_buf.reshape(-1, G, N), tri_len.reshape(G, N)
+    tb_s = tb_g.permute(0, 2, 1).reshape(tb_g.shape[0], N * G)
+    tl_s = tl_g.t().reshape(-1)
+    layouts = {
+        "group_major": ([tb_g[:, :, k] for k in range(N)], [tl_g[:, k] for k in range(N)]),
+        "signer_major": ([tb_s[:, k * G:(k + 1) * G] for k in range(N)],
+                         [tl_s[k * G:(k + 1) * G] for k in range(N)]),
+    }
+    want = pf.agg_fold_plain(params, N, *layouts["group_major"])
+    errs = []
+    for cut in (G, G - 37, 1):
+        for name, (tbs, tls) in layouts.items():
+            tbs, tls = [t[:, :cut] for t in tbs], [t[:cut] for t in tls]
+            torch.cuda.synchronize()
+            junk = torch.full((agg_w, cut), -1, dtype=torch.int32, device=dev)
+            junk_ptr = junk.data_ptr()
+            del junk
+            got = pf.agg_fold(params, N, tbs, tls)
+            # (one group's output is small enough for the pointer table to
+            # take the freed block first)
+            require(cut == 1 or got[0].data_ptr() == junk_ptr,
+                    f"agg_fold ({name}, G={cut}): the output did not land on the -1 block")
+            errs.append(max(max_abs_err(got[0], want[0][:, :cut]),
+                            max_abs_err(got[1], want[1][:cut])))
+            require(errs[-1] == 0, f"agg_fold ({name}, G={cut}) != agg_fold_plain")
+            del got
+    tbs, tls = layouts["signer_major"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pf.agg_fold(params, N, tbs, tls)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log(f"agg_fold: G={G} x N={N} triples of {int(tri_len.min())}..{int(tri_len.max())} B, "
+        f"group-major and signer-major lanes, G={G}, {G - 37} and 1: every word and length "
+        "equals agg_fold_plain on -1-filled outputs; one call under "
+        "set_sync_debug_mode('error'): no host sync")
+    t_s = cuda_ms(lambda: pf.agg_fold(params, N, *layouts["signer_major"]), 10)
+    t_g = cuda_ms(lambda: pf.agg_fold(params, N, *layouts["group_major"]), 10)
+    t_p = cuda_ms(lambda: pf.agg_fold_plain(params, N, *layouts["signer_major"]), 2)
+    bnd = bounds.agg_fold(tls, agg_w)
+    log(f"  agg_fold       {t_s:.3f} ms signer-major (the pipeline's lanes), {t_g:.3f} ms "
+        f"group-major  (plain {t_p:.3f} ms, bound {bnd['bound_ms']:.4f} ms by "
+        f"{bnd['bound_by']}: {t_s / bnd['bound_ms']:.2f}x; the per-thread design this tiled "
+        "one replaced took 2.125 ms group-major on an H100 80GB HBM3 at 700 W)")
+    kernel_rows.append(dict(
+        name="agg_fold", route="cuda", source="fusion_cryptography_tpu_torch/csrc/preimage_fold.cu",
+        replaces="fusion_cryptography_tpu/ops/fold_pallas.py:675", max_abs_err=max(errs),
+        ms=t_s, group_major_ms=t_g, plain_ms=t_p, **bnd, library_ms=None))
+    del tb_s, tl_s, layouts, want, tbs, tls
 
 
 def phase_assemble_kernel(dev, kernel_rows: list) -> None:
@@ -499,9 +521,7 @@ def phase_assemble_kernel(dev, kernel_rows: list) -> None:
         t_k = cuda_ms(lambda: assemble_spec(spec, values, extras, bnds, width), 10)
         t_p = cuda_ms(lambda: ds.assemble_chunks_words(spec, values, extras, bnds, width), 2)
         n_vals = 0 if values is None else values.shape[0]
-        bnd = bound(4 * n_vals * lanes + sum(live_bytes(el) + 4 * lanes for _, el in extras)
-                    + 4 * (width + 1) * lanes,
-                    lanes * (n_vals * RENDER_OPS + width * WORD_OPS))
+        bnd = bounds.assemble_spec(n_vals, lanes, [el for _, el in extras], width)
         log(f"assemble_spec, {label} spec: {lanes} lanes, {n_vals} values, {len(extras)} "
             f"extras, {width} words equal the plain version; {t_k:.3f} ms (plain {t_p:.3f} ms, "
             f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']})")

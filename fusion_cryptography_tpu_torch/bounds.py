@@ -1,0 +1,118 @@
+"""The least time each kernel of the port could take on an NVIDIA H100 SXM.
+
+A kernel's bound is the larger of two times: the bytes it must move (each
+input read once, each output written once) over the card's memory rate, and
+the 32-bit integer instructions it needs over the card's INT32 issue rate.
+The H100 SXM's published peaks give 3.35 TB/s and 67 TFLOP/s float32 (an FMA
+counted as two) from 132 SMs of 128 float32 lanes, i.e. 1.98 GHz; an SM has
+64 INT32 lanes, so 132 * 64 * 1.98e9 = 16.7e12 integer instructions/s.
+
+Where the work depends on the data (the sponge's permutations, the rendered
+lengths of the preimages) the functions take the lengths the call saw.
+``chip_smoke.py`` prints these bounds beside each kernel's time, and
+``profile_verify`` sums them over the launches of one verify call.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 132 * 64 * 1.98e9
+RATE_BYTES = 136  # SHAKE256 / SHA3-256 rate
+# 32-bit instructions one Keccak-f[1600] needs at least, its 64-bit lanes
+# split in halves and three-input XORs fused (LOP3), per round: theta 20
+# LOP3 for the column parities, 10 funnel shifts to rotate them, 50 LOP3 to
+# apply them; rho 48 funnel shifts (24 rotations); chi 50 LOP3; iota 2.
+KECCAK_OPS = 24 * (20 + 10 + 50 + 48 + 50 + 2)
+# Estimates, not counts: decimal rendering of one value (digit count, ten
+# divide-by-10 steps, byte packing) and the word stream per output word.
+# The fold kernels' bounds are set by their bytes, several times above
+# these operations at the main path's shapes.
+RENDER_OPS, WORD_OPS, AGG_WORD_OPS = 70, 4, 20
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """{"bound_ms", "bound_by"} of a kernel that moves ``n_bytes`` and
+    issues ``n_ops`` integer instructions."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def live_bytes(lens: torch.Tensor) -> int:
+    """Bytes of the whole words that carry ``lens`` bytes per lane."""
+    return int(((lens.to(torch.int64) + 3) // 4 * 4).sum().item())
+
+
+def keccak_absorb(n_blocks: torch.Tensor) -> dict:
+    """Absorb of ``n_blocks`` int32[B] rate blocks per lane: the blocks,
+    the counts, the state out; one permutation per block."""
+    B = n_blocks.numel()
+    n_perm = int(n_blocks.to(torch.int64).sum().item())
+    return bound(n_perm * RATE_BYTES + 4 * B + 200 * B, n_perm * KECCAK_OPS)
+
+
+def keccak_squeeze(B: int, n_words: int) -> dict:
+    """Squeeze of ``n_words`` words from B states (the first rate block
+    needs no permutation)."""
+    return bound(200 * B + 4 * n_words * B, B * (-(-n_words // 34) - 1) * KECCAK_OPS)
+
+
+def agg_check(groups: int, rank: int, d: int) -> dict:
+    """Kernel ``intt_norm_weight``: int32 aggregates [groups, rank, d] in,
+    the observed sums (int64 [groups, d]) and norms and weights out, the
+    table A (two uint32 [rank, d]).  Operations: butterflies, Shoup multiply
+    (5) + add/sub with reductions (4); per coefficient the n^-1 scale (5),
+    centering and the two reductions (6), the lift and the observed sum's
+    multiply-accumulate (8)."""
+    rows = groups * rank
+    log2d = d.bit_length() - 1
+    return bound(4 * rows * d + 8 * rank * d + 8 * groups * d + 8 * rows,
+                 rows * (9 * (d // 2) * log2d + 11 * d + 8 * d))
+
+
+def ntt(rows: int, d: int, bytes_per_coef: int, inverse: bool = False) -> dict:
+    """Kernels ``ntt_u`` (8 + 8 bytes a coefficient) and ``ntt_centered``
+    (4 + 4): butterflies as above, 2 operations a coefficient for the load
+    and store conversions and, inverse, 5 for the n^-1 scale."""
+    log2d = d.bit_length() - 1
+    per_coef = 7 if inverse else 2
+    return bound(rows * d * bytes_per_coef, rows * (9 * (d // 2) * log2d + per_coef * d))
+
+
+def signer_fold_a(d: int, pre_len: torch.Tensor, ch_words: int, vk_words: int) -> dict:
+    """2d centered values and the live prehash digits of B lanes in; the
+    challenge preimage and the str(vk) chunk at full width, with their
+    lengths, out."""
+    B = pre_len.numel()
+    return bound(4 * 2 * d * B + live_bytes(pre_len) + 4 * B + 4 * (ch_words + vk_words + 2) * B,
+                 B * (2 * d * RENDER_OPS + (ch_words + vk_words) * WORD_OPS))
+
+
+def signer_fold_b(d: int, vk_len: torch.Tensor, pre_len: torch.Tensor, tri_words: int) -> dict:
+    """The live str(vk) chunk and prehash digits, d centered values and
+    both lengths in; the triple at full width and its length out."""
+    B = vk_len.numel()
+    return bound(live_bytes(vk_len) + live_bytes(pre_len) + 4 * d * B + 8 * B
+                 + 4 * (tri_words + 1) * B, B * (d * RENDER_OPS + tri_words * WORD_OPS))
+
+
+def agg_fold(tri_lens: Sequence[torch.Tensor], agg_words: int) -> dict:
+    """The N triples' live words and lengths in (``tri_lens``: N int32[G]);
+    the aggregation preimage at full width and its length out."""
+    G = tri_lens[0].numel()
+    B = G * len(tri_lens)
+    live = sum(live_bytes(t) for t in tri_lens)
+    return bound(live + 4 * B + 4 * (agg_words + 1) * G, G * agg_words * AGG_WORD_OPS)
+
+
+def assemble_spec(n_values: int, lanes: int, extra_lens: Sequence[torch.Tensor],
+                  width: int) -> dict:
+    """``n_values`` centered values and the extras' live words and lengths
+    in; ``width`` words and the length out, per lane."""
+    return bound(4 * n_values * lanes + sum(live_bytes(el) + 4 * lanes for el in extra_lens)
+                 + 4 * (width + 1) * lanes,
+                 lanes * (n_values * RENDER_OPS + width * WORD_OPS))

@@ -27,21 +27,39 @@
 //     on neighbouring lanes of nearby word rows.
 //   * agg_fold is a shifted copy: every output word comes from at most a
 //     few segments (const, triple, separator) at offsets known from the N
-//     triple lengths.  So a thread computes a run of kAggWords words of one
-//     group, and the grid covers groups x word runs: 8,192 groups give
-//     ~344k threads instead of 8,192 serial lanes.  The N triple buffers are
-//     read through a pointer table and strides, so a caller's strided views
-//     of one [W, groups*N] buffer need no copy.
+//     triple lengths, which differ from group to group.  Reading each
+//     group's source words where it needs them scatters a warp's loads over
+//     32 rows.  So a block takes a tile of 32 groups by kAggTW output rows.
+//     It reads the tile's lengths into shared memory (one op per warp, one
+//     group per lane, all at once); warp 0 turns them into each group's
+//     segment offsets and lists the ops that overlap the tile's rows.  For a
+//     triple the block copies the union of the source rows its groups need
+//     into shared memory (cp.async), whole rows of the tile's 32 columns, in
+//     passes of kAggR rows when the groups' offsets spread wider (any spread
+//     is correct).  Each thread ORs its group's words from shared memory
+//     into registers with funnel shifts and stores out[w * G + g], a warp's
+//     stores one 128-B segment.  The N triple buffers are read through a
+//     pointer table and strides: with signer-major lanes (col_stride 1, as
+//     the pipeline lays them out) a warp's copies of a row are one 128-B
+//     segment; with group-major lanes (col_stride N) they span 32*N words.
 //
 // What bounds it: memory.  At G=8192, N=4, secpar=256 (B=32,768 signers),
 // counting full widths: signer_fold_a reads ~70 MB and writes ~475 MB,
 // signer_fold_b reads ~270 MB and writes ~350 MB, agg_fold reads ~350 MB and
-// writes ~351 MB: 0.16, 0.19 and 0.21 ms at 3.35 TB/s.  The decimal
-// rendering is ~70 integer operations per value, far below that.  The
-// per-lane kernels have only B threads (~250 per SM at B=32,768), so their
-// stores are latency-bound; splitting a lane's values across threads needs
-// a prefix sum of the rendered lengths and is left to a later change.
+// writes ~351 MB: 0.16, 0.19 and 0.21 ms at 3.35 TB/s.  agg_fold re-reads
+// only the spread of its tiles' windows (a few dozen rows per 128 on real
+// triples, mostly from L2); its blocks wait on the lengths, the staged rows
+// and their stores in turn, three blocks an SM overlapping them (PERF.md
+// has its time against the bound).  The decimal rendering is ~70 integer
+// operations per value, far below that.  The per-lane kernels have only B
+// threads (~250 per SM at B=32,768), so their stores are latency-bound;
+// splitting a lane's values across threads needs a prefix sum of the
+// rendered lengths and is left to a later change.
 #include "preimage_ops.cuh"  // FCT_HD, Writer, Source, run_ops
+
+#ifdef __CUDACC__
+#include <cuda_pipeline.h>  // __pipeline_memcpy_async (cp.async)
+#endif
 
 namespace {
 
@@ -78,100 +96,157 @@ FCT_HD void signer_fold_b_lane(const int32_t* ops, int n_ops, const uint32_t* po
   tri_total[b] = ws[0].total;
 }
 
-// agg_fold's view of group g: triple k is tb[k][w * row_stride + g * col_stride],
-// its length tl[k][g * len_stride].
-struct AggGroup {
-  const int32_t* ops;
-  int n_ops;
-  const uint32_t* pool;
-  const uint32_t* const* tb;
-  const int32_t* const* tl;
-  int64_t row_stride;
-  int64_t col_off;
-  int64_t len_off;
-  int tri_rows;
-};
+// agg_fold, per group.  The aggregation preimage is a list of segments in
+// op order: const (pool bytes) or extra e (group g's triple e, packed words
+// tb[e][i * row_stride + g * col_stride], tl[e][g * len_stride] bytes long).
+// Output word w of a group ORs the segments that overlap its bytes
+// [4w, 4w + 4), each shifted to its byte offset.
 
-FCT_HD int agg_seg_len(const AggGroup& a, int j) {
-  const int32_t* op = a.ops + j * kOpFields;
+// Bytes of op j for the group whose lengths sit at tl[e][len_off], clamped to
+// the triple buffer's width.
+FCT_HD int agg_op_len(const int32_t* ops, int j, const int32_t* const* tl, int64_t len_off,
+                      int tri_rows) {
+  const int32_t* op = ops + j * kOpFields;
   if (op[0] == kOpConst) return op[3];
-  return clamp_int(a.tl[op[2]][a.len_off], 0, 4 * a.tri_rows);
+  return clamp_int(tl[op[2]][len_off], 0, 4 * tri_rows);
 }
 
-// Word i of segment j (``len`` bytes), zero outside the segment.
-FCT_HD uint32_t agg_seg_word(const AggGroup& a, int j, int len, int i) {
-  if (i < 0 || 4 * i >= len) return 0u;
-  const int32_t* op = a.ops + j * kOpFields;
-  const uint32_t v = op[0] == kOpConst ? a.pool[op[2] + i]
-                                       : a.tb[op[2]][(int64_t)i * a.row_stride + a.col_off];
-  return keep_bytes(v, len - 4 * i);
+// Does a segment of ``len`` bytes at byte ``s`` overlap the bytes [b0, b1)?
+FCT_HD bool agg_overlaps(int s, int len, int b0, int b1) {
+  return len > 0 && s < b1 && s + len > b0;
 }
 
-// Output words [w0, w1) of one group (``out`` at its word 0, ``stride``
-// elements between words): each word ORs the segments it overlaps, each
-// shifted to its byte offset.
-FCT_HD void agg_fold_words(const AggGroup& a, int w0, int w1, uint32_t* out,
-                           int64_t stride) {
-  int j = 0;
-  int s = 0;
-  int len = a.n_ops > 0 ? agg_seg_len(a, 0) : 0;
-  for (int w = w0; w < w1; ++w) {
-    const int lo = 4 * w;
-    while (j < a.n_ops && s + len <= lo) {
-      s += len;
-      ++j;
-      if (j < a.n_ops) len = agg_seg_len(a, j);
+FCT_HD int floor4(int x) { return x >= 0 ? x / 4 : -((3 - x) / 4); }
+
+// The segment's words [lo, hi] that output bytes [b0, b1) read (it overlaps
+// them): the block's window of source rows for this group.
+FCT_HD void agg_window_rows(int s, int len, int b0, int b1, int& lo, int& hi) {
+  const int a = floor4(b0 - s);
+  const int b = floor4(b1 - 1 - s);
+  const int last = ((len + 3) >> 2) - 1;
+  lo = a > 0 ? a : 0;
+  hi = b < last ? b : last;
+}
+
+// Bits [8r, 8r + 32) of hi:lo (r in [0, 4)).
+FCT_HD uint32_t funnel_r(uint32_t lo, uint32_t hi, int r) {
+#ifdef __CUDA_ARCH__
+  return __funnelshift_r(lo, hi, 8 * r);
+#else
+  return r ? (lo >> (8 * r)) | (hi << (32 - 8 * r)) : lo;
+#endif
+}
+
+// Word i of a segment of ``len`` bytes whose words [base, base + n) sit at
+// src[(i - base) * stride]: zero outside the segment (and outside those
+// words), the bytes past ``len`` masked off.
+FCT_HD uint32_t agg_src_word(const uint32_t* src, int64_t stride, int base, int n, int len,
+                             int i) {
+  if (i < 0 || 4 * i >= len || i < base || i >= base + n) return 0u;
+  return keep_bytes(src[(int64_t)(i - base) * stride], len - 4 * i);
+}
+
+// Output word w's bits from a segment at byte s of ``len`` bytes whose words
+// [base, base + n) sit at src[(i - base) * stride] (zero where it does not
+// overlap).  A word that straddles the edge of [base, base + n) gets only the
+// bits of its source words inside; the pass over the next rows ORs in the
+// rest.
+FCT_HD uint32_t agg_word(int w, int s, int len, const uint32_t* src, int64_t stride, int base,
+                         int n) {
+  const int rel = 4 * w - s;  // the segment's byte at the word's byte 0
+  if (rel >= len || rel <= -4) return 0u;
+  const int i = floor4(rel);
+  const int r = rel - 4 * i;
+  return funnel_r(agg_src_word(src, stride, base, n, len, i),
+                  agg_src_word(src, stride, base, n, len, i + 1), r);
+}
+
+// OR one segment into a thread's output words w_first + u * w_step (u < WPT)
+// below w_end.  The segment's byte shift r is the same for all of them, so
+// a word whose source words are whole and present takes one funnel shift of
+// two loads; usually every word of the thread is such a word.  The others
+// (the segment's ends, a pass's edges) are marked and composed one by one
+// by agg_word, whose code is then instantiated once rather than per word.
+template <int WPT>
+FCT_HD void agg_compose(uint32_t* acc, int w_first, int w_step, int w_end, int s, int len,
+                        const uint32_t* src, int64_t stride, int base, int n) {
+  static_assert(WPT <= 32, "one bit per word");
+  if (len <= 0) return;
+  const int i0 = floor4(4 * w_first - s);
+  const int r = 4 * w_first - s - 4 * i0;
+  // fast words: source words i and (r ? i + 1 : i) in [lo, top) with all
+  // four bytes live
+  const int lo = base > 0 ? base : 0;
+  const int whole = len >> 2;
+  const int top = (base + n < whole ? base + n : whole) - (r ? 1 : 0);
+  if (i0 >= lo && i0 + (WPT - 1) * w_step < top && w_first + (WPT - 1) * w_step < w_end) {
+#pragma unroll
+    for (int u = 0; u < WPT; ++u) {  // every word fast: the common case
+      const uint32_t* p = src + (int64_t)(i0 + u * w_step - base) * stride;
+      acc[u] |= funnel_r(p[0], r ? p[stride] : 0u, r);
     }
-    uint32_t v = 0u;
-    int k = j;
-    int sk = s;
-    int lk = len;
-    while (k < a.n_ops && sk < lo + 4) {
-      const int rel = lo - sk;
-      if (rel >= 0) {
-        const int i = rel >> 2;
-        const int r = 8 * (rel & 3);
-        uint32_t x = agg_seg_word(a, k, lk, i) >> r;
-        if (r) x |= agg_seg_word(a, k, lk, i + 1) << (32 - r);
-        v |= x;
-      } else {
-        v |= agg_seg_word(a, k, lk, 0) << (8 * -rel);
-      }
-      sk += lk;
-      ++k;
-      if (k < a.n_ops) lk = agg_seg_len(a, k);
+    return;
+  }
+  uint32_t slow = 0u;
+#pragma unroll
+  for (int u = 0; u < WPT; ++u) {
+    const int i = i0 + u * w_step;
+    if (w_first + u * w_step >= w_end) continue;
+    if (i >= lo && i < top) {
+      const uint32_t* p = src + (int64_t)(i - base) * stride;
+      acc[u] |= funnel_r(p[0], r ? p[stride] : 0u, r);
+    } else if (i >= -1 && 4 * i < len) {
+      slow |= 1u << u;
     }
-    out[(int64_t)w * stride] = v;
+  }
+  while (slow) {
+    int k = 0;
+    while (!((slow >> k) & 1u)) ++k;
+    slow &= slow - 1u;
+    const uint32_t v = agg_word(w_first + k * w_step, s, len, src, stride, base, n);
+#pragma unroll
+    for (int u = 0; u < WPT; ++u) acc[u] |= u == k ? v : 0u;
   }
 }
 
-FCT_HD int32_t agg_total(const AggGroup& a) {
-  int32_t t = 0;
-  for (int j = 0; j < a.n_ops; ++j) t += agg_seg_len(a, j);
-  return t;
-}
+// agg_fold: a block is a tile of kAggTG groups (one warp's lanes: one 128-B
+// segment of an output row) by kAggTW output rows, kAggWarps warps, staging
+// up to kAggR source rows of one triple at a time.  The block reads the
+// lengths of kAggOps ops at once into shared memory (one op per warp, one
+// group per lane); warp 0 walks them and lists those that overlap the
+// block's rows.  kAggMinBlocks: three blocks an SM fit 80
+// registers a thread without spills (four spill and ran slower on an H100).
+constexpr int kAggTG = 32;
+constexpr int kAggWarps = 8;
+constexpr int kAggTW = 128;
+constexpr int kAggR = 256;
+constexpr int kAggOps = 32;
+constexpr int kAggMinBlocks = 3;
 
-FCT_HD AggGroup make_agg_group(const int32_t* ops, int n_ops, const uint32_t* pool,
-                               const uint32_t* const* tb, const int32_t* const* tl,
-                               int64_t row_stride, int64_t col_stride,
-                               int64_t len_stride, int tri_rows, int64_t g) {
-  AggGroup a;
-  a.ops = ops;
-  a.n_ops = n_ops;
-  a.pool = pool;
-  a.tb = tb;
-  a.tl = tl;
-  a.row_stride = row_stride;
-  a.col_off = g * col_stride;
-  a.len_off = g * len_stride;
-  a.tri_rows = tri_rows;
-  return a;
+// A tile's staging buffer, rows [c_lo, c_lo + c_n) of one triple for the
+// tile's TG groups (stage[r * TG + lane]); thread (row0, lane) copies rows
+// row0, row0 + row_step, ...  On the card the copies are asynchronous
+// (cp.async: every row of the pass in flight at once, no registers); the
+// caller waits for them.  A warp's copies of a row are one contiguous
+// 4*TG-byte segment when the triples' columns are (col_stride 1).
+template <int TG>
+FCT_HD void agg_stage_rows(uint32_t* stage, const uint32_t* src, int64_t row_stride,
+                           int64_t col_off, bool live, int c_lo, int c_n, int row0,
+                           int row_step, int lane) {
+  if (!live) return;
+  const uint32_t* p = src + col_off;
+  for (int r = row0; r < c_n; r += row_step) {
+#ifdef __CUDA_ARCH__
+    __pipeline_memcpy_async(stage + r * TG + lane, p + (int64_t)(c_lo + r) * row_stride, 4);
+#else
+    stage[r * TG + lane] = p[(int64_t)(c_lo + r) * row_stride];
+#endif
+  }
 }
 
 #ifdef __CUDACC__
 constexpr int kLaneThreads = 64;  // B=32,768 lanes -> 512 blocks over 132 SMs
-constexpr int kAggThreads = 128;
-constexpr int kAggWords = 256;    // output words per agg_fold thread
+constexpr unsigned kFullWarp = 0xffffffffu;
 
 __global__ void __launch_bounds__(kLaneThreads)
 signer_fold_a_kernel(const int32_t* __restrict__ ops, int n_ops,
@@ -206,22 +281,136 @@ signer_fold_b_kernel(const int32_t* __restrict__ ops, int n_ops,
   }
 }
 
-__global__ void __launch_bounds__(kAggThreads)
+// A block's shared state: the lengths of a window of ops, their byte
+// offsets in each group, and what warp 0 lists, the ops that overlap the
+// block's rows.
+struct AggTile {
+  int lens[kAggOps][kAggTG];    // lengths of ops [jbase, jbase + kAggOps)
+  int starts[kAggOps][kAggTG];  // their byte offsets
+  int n;                        // ops listed: jbase + first, ...
+  int first;
+  int more;                     // go on from op ``next``
+  int next;
+  int u_lo[kAggOps];            // a listed triple's source rows that the tile's groups read
+  int u_hi[kAggOps];
+  uint32_t stage[kAggR * kAggTG];
+};
+
+// Warp 0, lane = group of the tile: the byte offsets of the held ops from
+// s (op jbase's offset in this lane's group; on return the offset of op
+// ``next``), and the list: the ops from the first to the last that overlaps
+// the bytes [b0, b1) of some group, with each triple's union of source
+// rows.  ``more`` when the held ops ran out before every group passed b1.
+__device__ __forceinline__ void agg_walk(AggTile& sh, int n_ops, int jbase, bool live, int b0,
+                                         int b1, int lane, int& s) {
+  const int count = n_ops - jbase < kAggOps ? n_ops - jbase : kAggOps;
+  int first = kAggOps, last = -1;
+  for (int k = 0; k < count; ++k) {
+    const int len = sh.lens[k][lane];
+    sh.starts[k][lane] = s;
+    if (live && agg_overlaps(s, len, b0, b1)) {
+      first = first < k ? first : k;
+      last = k;
+    }
+    s += len;
+  }
+  first = __reduce_min_sync(kFullWarp, first);
+  last = __reduce_max_sync(kFullWarp, last);
+  const int n = last < first ? 0 : last - first + 1;
+  for (int q = 0; q < n; ++q) {
+    const int k = first + q;
+    const int len = sh.lens[k][lane], at = sh.starts[k][lane];
+    int lo = 0x7fffffff, hi = -0x7fffffff - 1;
+    if (live && agg_overlaps(at, len, b0, b1)) agg_window_rows(at, len, b0, b1, lo, hi);
+    lo = __reduce_min_sync(kFullWarp, lo);
+    hi = __reduce_max_sync(kFullWarp, hi);
+    if (lane == 0) {
+      sh.u_lo[q] = lo;
+      sh.u_hi[q] = hi;
+    }
+  }
+  const bool more = jbase + count < n_ops && __any_sync(kFullWarp, live && s < b1);
+  if (lane == 0) {
+    sh.n = n;
+    sh.first = first;
+    sh.more = more;
+    sh.next = jbase + count;
+  }
+}
+
+__global__ void __launch_bounds__(kAggTG * kAggWarps, kAggMinBlocks)
 agg_fold_kernel(const int32_t* __restrict__ ops, int n_ops,
                 const uint32_t* __restrict__ pool, const uint32_t* const* tb,
                 const int32_t* const* tl, int64_t row_stride, int64_t col_stride,
                 int64_t len_stride, int tri_rows, int64_t groups,
                 uint32_t* __restrict__ out, int out_width,
                 int32_t* __restrict__ total) {
-  const int64_t g = (int64_t)blockIdx.x * kAggThreads + threadIdx.x;
-  if (g >= groups) return;
-  const AggGroup a = make_agg_group(ops, n_ops, pool, tb, tl, row_stride, col_stride,
-                                    len_stride, tri_rows, g);
-  const int w0 = blockIdx.y * kAggWords;
-  const int w1 = w0 + kAggWords < out_width ? w0 + kAggWords : out_width;
-  agg_fold_words(a, w0, w1, out + g, groups);
-  if (blockIdx.y == 0) total[g] = agg_total(a);
+  constexpr int WPT = kAggTW / kAggWarps;  // output words per thread
+  __shared__ AggTile sh;
+  const int lane = threadIdx.x % kAggTG;
+  const int warp = threadIdx.x / kAggTG;
+  const int64_t g = (int64_t)blockIdx.x * kAggTG + lane;
+  const bool live = g < groups;
+  const int runs = (out_width + kAggTW - 1) / kAggTW;
+  for (int run = blockIdx.y; run < runs; run += gridDim.y) {
+    const int w0 = run * kAggTW;
+    const int w1 = w0 + kAggTW < out_width ? w0 + kAggTW : out_width;
+    const int b0 = 4 * w0, b1 = 4 * w1;
+    uint32_t acc[WPT];
+#pragma unroll
+    for (int u = 0; u < WPT; ++u) acc[u] = 0u;
+    int jbase = 0, s = 0;  // the held ops' first, its byte offset in this lane's group (warp 0)
+    for (;;) {
+      for (int k = warp; k < kAggOps && jbase + k < n_ops; k += kAggWarps)
+        sh.lens[k][lane] = live ? agg_op_len(ops, jbase + k, tl, g * len_stride, tri_rows) : 0;
+      __syncthreads();
+      if (warp == 0) agg_walk(sh, n_ops, jbase, live, b0, b1, lane, s);
+      __syncthreads();
+      const int n = sh.n;
+      for (int q = 0; q < n; ++q) {
+        const int k = sh.first + q;
+        const int32_t* o = ops + (jbase + k) * kOpFields;
+        const int my_s = sh.starts[k][lane];
+        const int my_len = live ? sh.lens[k][lane] : 0;
+        if (o[0] == kOpConst) {
+          agg_compose<WPT>(acc, w0 + warp, kAggWarps, w1, my_s, my_len, pool + o[2], 1, 0,
+                           (my_len + 3) >> 2);
+          continue;
+        }
+        const uint32_t* src = tb[o[2]];
+        const int u_lo = sh.u_lo[q], u_hi = sh.u_hi[q];
+        for (int c_lo = u_lo; c_lo <= u_hi; c_lo += kAggR) {
+          const int c_n = u_hi + 1 - c_lo < kAggR ? u_hi + 1 - c_lo : kAggR;
+          agg_stage_rows<kAggTG>(sh.stage, src, row_stride, g * col_stride, live, c_lo, c_n,
+                                 warp, kAggWarps, lane);
+          __pipeline_commit();
+          __pipeline_wait_prior(0);
+          __syncthreads();
+          agg_compose<WPT>(acc, w0 + warp, kAggWarps, w1, my_s, my_len, sh.stage + lane, kAggTG,
+                           c_lo, c_n);
+          __syncthreads();  // before the next pass overwrites the stage
+        }
+      }
+      const int more = sh.more;
+      jbase = sh.next;
+      __syncthreads();  // every warp has read the list before it is rewritten
+      if (!more) break;
+    }
+    if (run == 0 && warp == 0 && live) {
+      for (int j = jbase; j < n_ops; ++j) s += agg_op_len(ops, j, tl, g * len_stride, tri_rows);
+      total[g] = s;
+    }
+    if (live) {
+#pragma unroll
+      for (int u = 0; u < WPT; ++u) {
+        const int w = w0 + warp + u * kAggWarps;
+        if (w < w1) out[(int64_t)w * groups + g] = acc[u];
+      }
+    }
+    __syncthreads();  // every warp has read sh.more before the next run's walk
+  }
 }
+
 #endif
 
 }  // namespace
@@ -267,13 +456,14 @@ extern "C" int fct_agg_fold(const int32_t* ops, int n_ops, const uint32_t* pool,
                             int64_t groups, uint32_t* out, int out_width,
                             int32_t* total, void* stream) {
   if (groups <= 0 || out_width <= 0) return 0;
-  const dim3 grid((unsigned)((groups + kAggThreads - 1) / kAggThreads),
-                  (unsigned)((out_width + kAggWords - 1) / kAggWords));
+  const int runs = (out_width + kAggTW - 1) / kAggTW;
+  const dim3 grid((unsigned)((groups + kAggTG - 1) / kAggTG),
+                  (unsigned)(runs < 65535 ? runs : 65535));
   const uint32_t* const* tb = reinterpret_cast<const uint32_t* const*>(ptrs);
   const int32_t* const* tl = reinterpret_cast<const int32_t* const*>(ptrs + n_signers);
-  agg_fold_kernel<<<grid, kAggThreads, 0, (cudaStream_t)stream>>>(
-      ops, n_ops, pool, tb, tl, row_stride, col_stride, len_stride, tri_rows, groups,
-      out, out_width, total);
+  agg_fold_kernel<<<grid, kAggTG * kAggWarps, 0, (cudaStream_t)stream>>>(
+      ops, n_ops, pool, tb, tl, row_stride, col_stride, len_stride, tri_rows, groups, out,
+      out_width, total);
   return (int)cudaGetLastError();
 }
 #endif

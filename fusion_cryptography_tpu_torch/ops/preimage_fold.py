@@ -157,7 +157,9 @@ def agg_fold(params, n_signers: int, tbs: Sequence[torch.Tensor],
     aggregation preimage padded to whole SHAKE256 rate blocks (kernel
     ``agg_fold``).  The buffers may be strided views (for example signer k's
     columns of one [Wtri, G*N] buffer) with one shared pair of strides; the
-    lengths likewise."""
+    lengths likewise.  The kernel reads a row of 32 neighbouring groups of
+    one triple at a time, fastest when a triple's columns are contiguous
+    (column stride 1: signer-major lanes, as the pipeline lays them out)."""
     if len(tbs) != n_signers or len(tls) != n_signers:
         raise ValueError(f"agg_fold needs {n_signers} triples and lengths, "
                          f"got {len(tbs)} and {len(tls)}")
@@ -174,10 +176,11 @@ def agg_fold(params, n_signers: int, tbs: Sequence[torch.Tensor],
                 raise ValueError(f"agg_fold: every {name} entry must be an int32{list(shape)} "
                                  f"CUDA tensor on {dev} with one shared stride; got "
                                  f"{t.dtype}{tuple(t.shape)} strides {t.stride()} on {t.device}")
-    # from pageable memory the async copy stages the table before returning,
-    # without waiting for the stream (a blocking copy would sync the device)
-    ptrs = torch.tensor([t.data_ptr() for t in (*tbs, *tls)], dtype=torch.int64).to(
-        dev, non_blocking=True)
+    # the pointer table goes over from pinned memory, asynchronously on the
+    # stream (a blocking copy would sync the device; the caching host
+    # allocator keeps the pinned block until the copy has run)
+    ptrs = torch.tensor([t.data_ptr() for t in (*tbs, *tls)], dtype=torch.int64,
+                        pin_memory=True).to(dev, non_blocking=True)
     ops, pool = table.on(dev)
     (out_words,) = table.widths
     out = torch.empty((out_words, G), dtype=torch.int32, device=dev)

@@ -6,7 +6,11 @@ Builds a secpar=256, N=4 fleet on the first CUDA device, then
   1. times each stage of one verify (prehash, signer hash, group hash,
      lattice) between device synchronisations;
   2. traces one verify with torch.profiler and prints the device time by
-     kernel and the device's busy share of the call.
+     kernel and the device's busy share of the call;
+  3. beside each of the port's kernels, its device time in that trace, its
+     launches and its bound (``bounds.py``) summed over the call's launches,
+     each launch's bound computed from its own arguments in another,
+     untraced call.
 Stage times include the synchronisations, so they sum to a little more than
 an unsynchronised call.  With ``--out`` the chrome trace and the kernel table
 are written there.  Needs a CUDA device.
@@ -31,6 +35,76 @@ def _timed(fn, acc: dict, name: str):
         acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
         return out
     return wrapper
+
+
+# the port's kernels by a piece of their CUDA function's name in a trace
+# (``ntt_kernel`` is both NTT kernels: int64 residues for ntt_u, int32
+# centered values for ntt_centered)
+KERNEL_FUNCTIONS = {
+    "keccak_absorb_kernel": "keccak_absorb", "keccak_squeeze_kernel": "keccak_squeeze",
+    "agg_check_kernel": "intt_norm_weight", "signer_fold_a_kernel": "signer_fold_a",
+    "signer_fold_b_kernel": "signer_fold_b", "agg_fold_kernel": "agg_fold",
+    "assemble_spec_kernel": "assemble_spec",
+}
+
+
+def port_kernel(function: str):
+    """The port kernel a traced CUDA function belongs to, or None."""
+    head = function.replace("(anonymous namespace)", "").split("(")[0]
+    if "ntt_kernel" in head:
+        return "ntt_u" if "long" in head else "ntt_centered"
+    return next((k for fn, k in KERNEL_FUNCTIONS.items() if fn in head), None)
+
+
+def call_bounds(params, run) -> dict:
+    """{kernel: [launches, bound ms]} over one ``run()``: each kernel wrapper
+    the call reaches is wrapped to add its launch's bound, computed from the
+    launch's own arguments (the block counts, the rendered lengths)."""
+    from . import bounds
+    from .interop import device_serial as ds
+    from .ops import keccak_sponge as ks
+    from .ops import preimage_fold as pf
+    from .scheme import device_pipeline as dp
+
+    d = params.degree
+    (tri_w,) = ds.signer_fold_b_table(params).widths
+    per = {}
+
+    def record(module, attr, kernel, bound_of):
+        fn = getattr(module, attr)
+
+        def wrapped(*args):
+            out = fn(*args)
+            entry = per.setdefault(kernel, [0, 0.0])
+            entry[0] += 1
+            entry[1] += bound_of(*args)["bound_ms"]
+            return out
+        return module, attr, fn, wrapped
+
+    patches = [
+        record(ks, "absorb", "keccak_absorb", lambda words, nb: bounds.keccak_absorb(nb)),
+        record(ks, "squeeze", "keccak_squeeze",
+               lambda st, n_words: bounds.keccak_squeeze(st.shape[1], n_words)),
+        record(dp, "ntt_fwd_u", "ntt_u", lambda plan, x: bounds.ntt(x.numel() // d, d, 16)),
+        record(dp, "agg_check", "intt_norm_weight",
+               lambda plan, table, aggs: bounds.agg_check(*aggs.shape)),
+        record(pf, "signer_fold_a", "signer_fold_a",
+               lambda p, vk2d_t, pre_w, pre_len: bounds.signer_fold_a(
+                   d, pre_len, *ds.signer_fold_a_table(p).widths)),
+        record(pf, "signer_fold_b", "signer_fold_b",
+               lambda p, vk_buf, vk_len, pre_w, pre_len, c_hat_t: bounds.signer_fold_b(
+                   d, vk_len, pre_len, tri_w)),
+        record(pf, "agg_fold", "agg_fold", lambda p, n, tbs, tls: bounds.agg_fold(
+            tls, ds.agg_fold_table(p, n).widths[0])),
+    ]
+    for module, attr, _, wrapped in patches:
+        setattr(module, attr, wrapped)
+    try:
+        run()
+    finally:
+        for module, attr, fn, _ in patches:
+            setattr(module, attr, fn)
+    return per
 
 
 def main() -> None:
@@ -107,6 +181,24 @@ def main() -> None:
           f"({100 * busy / (traced * 1e3):.1f}% of the call), {launches} device launches")
     for name, us, n in rows[:25]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+
+    # 3. the port's kernels beside their bounds at the call's shapes
+    traced_ms: dict = {}
+    for name, us, n in rows:
+        k = port_kernel(name)
+        if k:
+            t = traced_ms.setdefault(k, [0, 0.0])
+            t[0] += n
+            t[1] += us / 1e3
+    per = call_bounds(params, verify)
+    port = []
+    print("port kernels: traced device time, launches, bound summed over the call's launches")
+    for k, (n_b, b_ms) in sorted(per.items(), key=lambda kv: -traced_ms.get(kv[0], [0, 0.0])[1]):
+        n, ms = traced_ms.get(k, [0, 0.0])
+        port.append({"kernel": k, "ms": ms, "launches": n, "bound_ms": b_ms,
+                     "bound_launches": n_b, "gap_ms": ms - b_ms})
+        print(f"  {k:18s} {ms:8.3f} ms  x{n:<3d} bound {b_ms:7.4f} ms  "
+              f"({ms / b_ms:5.2f}x, gap {ms - b_ms:6.3f} ms)")
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)
@@ -114,7 +206,8 @@ def main() -> None:
         (out / "verify_kernels.json").write_text(json.dumps(
             {"card": card, "groups": G, "wall_ms": wall * 1e3, "traced_ms": traced * 1e3,
              "busy_ms": busy, "launches": launches, "stages_ms": {k: v * 1e3 for k, v in acc.items()},
-             "kernels": [{"name": k, "ms": us / 1e3, "count": n} for k, us, n in rows]},
+             "kernels": [{"name": k, "ms": us / 1e3, "count": n} for k, us, n in rows],
+             "port_kernels": port},
             indent=1))
 
 

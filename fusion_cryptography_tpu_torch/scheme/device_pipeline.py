@@ -216,20 +216,34 @@ class _Pipeline:
         message words int32[B, Wt], lengths int32[B] -> (cc int32[B, d],
         c_hat_u int64[B, d], triple words int32[Lt, B], lengths int32[B])."""
         B, d = vk.shape[0], self.params.degree
+        return self._signer_hash(vk.reshape(B, 2 * d).t().contiguous(), mw, ml)
+
+    def _signer_hash(self, vk2d_t: torch.Tensor, mw: torch.Tensor, ml: torch.Tensor):
         pre_w, pre_len = self.prehash(mw.t(), ml)
-        return self.signer(vk.reshape(B, 2 * d).t().contiguous(), pre_w, pre_len)
+        return self.signer(vk2d_t, pre_w, pre_len)
 
     def hash_chunk(self, vkc: torch.Tensor, mwc: torch.Tensor, mlc: torch.Tensor):
         """One chunk of complete groups: vkc int32[c, N, 2, d], message words
         int32[c*N, Wt], lengths int32[c*N] -> (cc int32[c*N, d],
-        c_hat_u int64[c*N, d], alphas int32[c, N, d])."""
-        c = vkc.shape[0]
-        cc, c_hat_u, tbuf, tlen = self.challenges(vkc.reshape(c * self.N, 2, -1), mwc, mlc)
-        tb = tbuf.reshape(tbuf.shape[0], c, self.N)
-        tl = tlen.reshape(c, self.N)
-        # agg_fold reads signer k's columns through strides: no copies
-        al = self.group([tb[:, :, k] for k in range(self.N)], [tl[:, k] for k in range(self.N)])
-        return cc, c_hat_u, al
+        c_hat_u int64[c*N, d], alphas int32[c, N, d]).
+
+        The signer stage runs on lanes in signer-major order (lane k*c + g
+        is signer k of group g), so each signer's triples are contiguous
+        columns of the triple buffer and agg_fold reads a row of a tile's
+        groups as one 128-B segment; the per-lane stages do not care, and cc
+        and c_hat_u go back to group-major order."""
+        c, N = vkc.shape[0], self.N
+        vk2d_t = vkc.reshape(c, N, -1).permute(2, 1, 0).reshape(-1, N * c).contiguous()
+        mw = mwc.reshape(c, N, -1).transpose(0, 1).reshape(N * c, -1)
+        ml = mlc.reshape(c, N).t().reshape(-1)
+        cc, c_hat_u, tbuf, tlen = self._signer_hash(vk2d_t, mw, ml)
+        al = self.group([tbuf[:, k * c:(k + 1) * c] for k in range(N)],
+                        [tlen[k * c:(k + 1) * c] for k in range(N)])
+
+        def group_major(x):
+            return x.reshape(N, c, -1).transpose(0, 1).reshape(c * N, -1)
+
+        return group_major(cc), group_major(c_hat_u), al
 
     def lattice(self, vks, c_hat_u, al, aggs):
         """Lattice verification (reference fusion.py:680-728 semantics) ->

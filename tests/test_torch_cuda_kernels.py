@@ -189,6 +189,26 @@ def test_fold_kernels_match_plain(dev, secpar):
     assert all(torch.equal(g, w) for g, w in zip(got_c, want_g))
 
 
+@pytest.mark.parametrize("signer_major", [False, True], ids=["group_major", "signer_major"])
+@pytest.mark.parametrize("secpar,N,G", [(128, 1, 37), (128, 3, 1), (128, 2, 64),
+                                        (256, 2, 65), (256, 4, 1), (256, 4, 300)])
+def test_agg_fold_kernel_matches_plain(dev, secpar, N, G, signer_major):
+    """Kernel ``agg_fold`` == agg_fold_plain on stand-in triples of lengths
+    over the triple's whole range (group 0's first triple the shortest,
+    group 1's the longest: one tile spreads over the whole range), G = 1,
+    G a multiple of the 32-group tile and not, both lane orders."""
+    from test_torch_kernel_host import agg_triples
+
+    params = fusion_setup(secpar, 2)
+    tbs, tls = agg_triples(params, G, N, secpar + 10 * N + G, signer_major, device=dev)
+    before = kernels.LAUNCHES["agg_fold"]
+    got = pf.agg_fold(params, N, tbs, tls)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["agg_fold"] == before + 1
+    want = pf.agg_fold_plain(params, N, tbs, tls)
+    assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("secpar", [128, 256])
 def test_assemble_spec_kernel_matches_plain(dev, secpar):
     """B=300 lanes: the challenge spec (rate-padded), the triple spec, and

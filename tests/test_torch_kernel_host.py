@@ -175,21 +175,130 @@ extern "C" void host_signer_fold_b(const int32_t* ops, int n_ops, const uint32_t
                        pre_len, c_hat_t, batch, b, tri_out, tri_width, tri_total);
 }
 
-// runs of ``run`` words per group, as the grid's word axis splits them
+// agg_fold's blocks, one after another: a tile of TG groups by TW output
+// rows, NWARPS warps of TG lanes, R staged rows per pass, the lengths of OPS
+// ops held at once.  Warp 0's walk (the kernel's
+// agg_walk) runs lane by lane, its vote and min/max reductions as loops over
+// the lanes; each __syncthreads is a phase boundary.  The staging
+// buffer is poisoned before every pass, so a word composed from a row that
+// no thread copied fails the comparison.
+template <int TG, int TW, int R, int NWARPS, int OPS>
+static void host_agg_fold_tiles(const int32_t* ops, int n_ops, const uint32_t* pool,
+                                const uint32_t* const* tb, const int32_t* const* tl,
+                                int64_t row_stride, int64_t col_stride, int64_t len_stride,
+                                int tri_rows, int64_t groups, uint32_t* out, int out_width,
+                                int32_t* total, int64_t* passes) {
+  constexpr int WPT = (TW + NWARPS - 1) / NWARPS;
+  std::vector<uint32_t> stage(R * TG), acc(NWARPS * TG * WPT);
+  const int runs = (out_width + TW - 1) / TW;
+  for (int64_t g0 = 0; g0 < groups; g0 += TG) {
+    for (int run = 0; run < runs; ++run) {
+      const int w0 = run * TW, w1 = std::min(w0 + TW, out_width);
+      const int b0 = 4 * w0, b1 = 4 * w1;
+      std::fill(acc.begin(), acc.end(), 0u);
+      int jbase = 0, s[TG] = {0};
+      for (;;) {
+        const int count = std::min(n_ops - jbase, OPS);
+        int lens[OPS][TG], starts[OPS][TG];
+        for (int k = 0; k < count; ++k)
+          for (int t = 0; t < TG; ++t)
+            lens[k][t] = g0 + t < groups
+                             ? agg_op_len(ops, jbase + k, tl, (g0 + t) * len_stride, tri_rows)
+                             : 0;
+        // the walk: each lane's offsets, the first and last op overlapping
+        // some group, the list and its triples' unions of source rows
+        int first = OPS, last = -1;
+        for (int t = 0; t < TG; ++t) {
+          for (int k = 0; k < count; ++k) {
+            starts[k][t] = s[t];
+            if (g0 + t < groups && agg_overlaps(s[t], lens[k][t], b0, b1)) {
+              first = std::min(first, k);
+              last = std::max(last, k);
+            }
+            s[t] += lens[k][t];
+          }
+        }
+        const int n = last < first ? 0 : last - first + 1;
+        int u_lo[OPS], u_hi[OPS];
+        for (int q = 0; q < n; ++q) {
+          u_lo[q] = 0x7fffffff;
+          u_hi[q] = -0x7fffffff - 1;
+          for (int t = 0; t < TG; ++t) {
+            const int k = first + q;
+            if (g0 + t < groups && agg_overlaps(starts[k][t], lens[k][t], b0, b1)) {
+              int lo, hi;
+              agg_window_rows(starts[k][t], lens[k][t], b0, b1, lo, hi);
+              u_lo[q] = std::min(u_lo[q], lo);
+              u_hi[q] = std::max(u_hi[q], hi);
+            }
+          }
+        }
+        bool more = false;
+        for (int t = 0; t < TG; ++t) more = more || (g0 + t < groups && s[t] < b1);
+        more = more && jbase + count < n_ops;
+        // the block, op by op
+        for (int q = 0; q < n; ++q) {
+          const int k = first + q;
+          const int32_t* o = ops + (jbase + k) * kOpFields;
+          if (o[0] == kOpConst) {
+            for (int w = 0; w < NWARPS; ++w)
+              for (int t = 0; t < TG; ++t)
+                agg_compose<WPT>(&acc[(w * TG + t) * WPT], w0 + w, NWARPS, w1, starts[k][t],
+                                 lens[k][t], pool + o[2], 1, 0, (lens[k][t] + 3) >> 2);
+            continue;
+          }
+          for (int c_lo = u_lo[q]; c_lo <= u_hi[q]; c_lo += R) {
+            const int c_n = std::min(R, u_hi[q] + 1 - c_lo);
+            ++*passes;
+            std::fill(stage.begin(), stage.end(), 0xA5A5A5A5u);
+            for (int w = 0; w < NWARPS; ++w)
+              for (int t = 0; t < TG; ++t)
+                agg_stage_rows<TG>(stage.data(), tb[o[2]], row_stride, (g0 + t) * col_stride,
+                                   g0 + t < groups, c_lo, c_n, w, NWARPS, t);
+            for (int w = 0; w < NWARPS; ++w)
+              for (int t = 0; t < TG; ++t)
+                agg_compose<WPT>(&acc[(w * TG + t) * WPT], w0 + w, NWARPS, w1, starts[k][t],
+                                 lens[k][t], stage.data() + t, TG, c_lo, c_n);
+          }
+        }
+        jbase += count;
+        if (!more) break;
+      }
+      for (int t = 0; t < TG && g0 + t < groups; ++t) {
+        const int64_t g = g0 + t;
+        if (run == 0) {
+          int st = s[t];
+          for (int k = jbase; k < n_ops; ++k) st += agg_op_len(ops, k, tl, g * len_stride, tri_rows);
+          total[g] = st;
+        }
+        for (int w = 0; w < NWARPS; ++w)
+          for (int u = 0; u < WPT; ++u) {
+            const int word = w0 + w + u * NWARPS;
+            if (word < w1) out[(int64_t)word * groups + g] = acc[(w * TG + t) * WPT + u];
+          }
+      }
+    }
+  }
+}
+
+// tile 0: TG 4, TW 7, R 9, 2 warps, the lengths of 3 ops held (passes over
+// sub-windows on any spread, walks that run out of lengths); tile 1: the
+// kernel's own geometry
 extern "C" void host_agg_fold(const int32_t* ops, int n_ops, const uint32_t* pool,
                               const int64_t* ptrs, int n_signers, int64_t row_stride,
                               int64_t col_stride, int64_t len_stride, int tri_rows,
                               int64_t groups, uint32_t* out, int out_width,
-                              int32_t* total, int run) {
+                              int32_t* total, int tile, int64_t* passes) {
   const uint32_t* const* tb = reinterpret_cast<const uint32_t* const*>(ptrs);
   const int32_t* const* tl = reinterpret_cast<const int32_t* const*>(ptrs + n_signers);
-  for (int64_t g = 0; g < groups; ++g) {
-    const AggGroup a = make_agg_group(ops, n_ops, pool, tb, tl, row_stride, col_stride,
-                                      len_stride, tri_rows, g);
-    for (int w0 = 0; w0 < out_width; w0 += run)
-      agg_fold_words(a, w0, w0 + run < out_width ? w0 + run : out_width, out + g, groups);
-    total[g] = agg_total(a);
-  }
+  if (tile == 0)
+    host_agg_fold_tiles<4, 7, 9, 2, 3>(ops, n_ops, pool, tb, tl, row_stride, col_stride,
+                                       len_stride, tri_rows, groups, out, out_width, total,
+                                       passes);
+  else
+    host_agg_fold_tiles<kAggTG, kAggTW, kAggR, kAggWarps, kAggOps>(
+        ops, n_ops, pool, tb, tl, row_stride, col_stride, len_stride, tri_rows, groups, out,
+        out_width, total, passes);
 }
 
 extern "C" void host_assemble_spec(const int32_t* ops, int n_ops, const uint32_t* pool,
@@ -223,7 +332,7 @@ def lib(tmp_path_factory):
     lib.host_ntt_centered.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
     lib.host_signer_fold_a.argtypes = [P, I32, P, P, P, I32, P, I64, P, I32, P, P, I32, P]
     lib.host_signer_fold_b.argtypes = [P, I32, P, P, I32, P, P, I32, P, P, I64, P, I32, P]
-    lib.host_agg_fold.argtypes = [P, I32, P, P, I32, I64, I64, I64, I32, I64, P, I32, P, I32]
+    lib.host_agg_fold.argtypes = [P, I32, P, P, I32, I64, I64, I64, I32, I64, P, I32, P, I32, P]
     lib.host_assemble_spec.argtypes = [P, I32, P, P, I64, P, I64, P, I32, P]
     return lib
 
@@ -397,25 +506,130 @@ def test_fold_lanes_match_plain(lib, secpar):
     np.testing.assert_array_equal(trit.numpy(), want[1].numpy())
 
     # agg_fold over G = 12 groups of N = 3 signers, through strided views of
-    # the [Wtri, G*N] triple buffer, in word runs of 7 and of the full width
+    # the [Wtri, G*N] triple buffer, at the small tile and the kernel's own
     G = B // N
     tb = trib[:, : G * N].reshape(tri_words, G, N)
     tl = trit[: G * N].reshape(G, N)
     tbs = [tb[:, :, k] for k in range(N)]
     tls = [tl[:, k] for k in range(N)]
     want = pf.agg_fold_plain(params, N, tbs, tls)
-    tg = ds.agg_fold_table(params, N)
-    (out_words,) = tg.widths
-    ops, pool = tg.on("cpu")
-    ptrs = torch.tensor([t.data_ptr() for t in (*tbs, *tls)], dtype=torch.int64)
-    for run in (7, out_words):
-        out = torch.full((out_words, G), -1, dtype=torch.int32)
-        total = torch.empty(G, dtype=torch.int32)
-        lib.host_agg_fold(ops.data_ptr(), ops.shape[0], pool.data_ptr(), ptrs.data_ptr(), N,
-                          tbs[0].stride(0), tbs[0].stride(1), tls[0].stride(0), tri_words, G,
-                          out.data_ptr(), out_words, total.data_ptr(), run)
+    for tile in (0, 1):
+        out, total, _ = _host_agg_fold(lib, params, N, tbs, tls, tile)
         np.testing.assert_array_equal(out.numpy(), want[0].numpy())
         np.testing.assert_array_equal(total.numpy(), want[1].numpy())
+
+
+def _host_agg_fold(lib, params, N, tbs, tls, tile):
+    """agg_fold's blocks run serially (tile 0: 4 groups by 7 rows, 9 staged
+    rows; tile 1: the kernel's geometry), outputs pre-filled with -1 ->
+    (out, total, staging passes)."""
+    table = ds.agg_fold_table(params, N)
+    ops, pool = table.on("cpu")
+    (out_words,) = table.widths
+    G = tbs[0].shape[-1]
+    ptrs = torch.tensor([t.data_ptr() for t in (*tbs, *tls)], dtype=torch.int64)
+    out = torch.full((out_words, G), -1, dtype=torch.int32)
+    total = torch.full((G,), -1, dtype=torch.int32)
+    passes = torch.zeros(1, dtype=torch.int64)
+    lib.host_agg_fold(ops.data_ptr(), ops.shape[0], pool.data_ptr(), ptrs.data_ptr(), N,
+                      tbs[0].stride(0), tbs[0].stride(1), tls[0].stride(0), tbs[0].shape[0], G,
+                      out.data_ptr(), out_words, total.data_ptr(), tile, passes.data_ptr())
+    return out, total, int(passes)
+
+
+def agg_triples(params, G, N, seed, signer_major, lens=None, device="cpu"):
+    """Stand-in triples for agg_fold: random nonzero bytes, zero past each
+    length, lengths over the triple's whole range [spec_min_total, out_max]
+    (group 0's triple 0 the shortest, group 1's the longest, so the next
+    triple's offset spreads across one tile by the whole range) unless
+    ``lens`` int[G, N] is given; laid out as the [Wtri, G*N] buffer's
+    strided views (on ``device``), lanes group-major (g*N + k) or
+    signer-major (k*G + g)."""
+    tri_spec = ds.triple_spec(params)
+    lo, hi = ds.spec_min_total(tri_spec, [1]), tri_spec.out_max
+    words = -(-hi // 4)
+    rng = np.random.default_rng(seed)
+    if lens is None:
+        lens = rng.integers(lo, hi + 1, (G, N))
+        lens[0, 0], lens[min(1, G - 1), 0] = lo, hi
+    lens = np.asarray(lens, np.int32)
+    by = rng.integers(1, 256, (G, N, 4 * words), dtype=np.uint8)
+    by[np.arange(4 * words)[None, None, :] >= lens[..., None]] = 0
+    w = by.view(np.int32)  # [G, N, words]
+    if signer_major:
+        buf = torch.from_numpy(w.transpose(2, 1, 0).reshape(words, N * G).copy()).to(device)
+        ln = torch.from_numpy(lens.T.reshape(-1).copy()).to(device)
+        return ([buf[:, k * G:(k + 1) * G] for k in range(N)],
+                [ln[k * G:(k + 1) * G] for k in range(N)])
+    buf = torch.from_numpy(w.transpose(2, 0, 1).reshape(words, G * N).copy()).to(device)
+    buf = buf.reshape(words, G, N)
+    ln = torch.from_numpy(lens.copy()).to(device)
+    return [buf[:, :, k] for k in range(N)], [ln[:, k] for k in range(N)]
+
+
+def agg_bytes_reference(params, N, tbs, tls):
+    """The aggregation preimage by byte concatenation over the op table:
+    (words int32[Wagg, G], totals int32[G])."""
+    table = ds.agg_fold_table(params, N)
+    pool = table.pool.view(np.uint8)
+    (width,) = table.widths
+    G = tbs[0].shape[-1]
+    out = np.zeros((G, 4 * width), np.uint8)
+    totals = np.zeros(G, np.int32)
+    for g in range(G):
+        parts = []
+        for kind, _, a0, a1, _, _ in table.ops:
+            if kind == ds.OP_CONST:
+                parts.append(pool[4 * a0:4 * a0 + a1].tobytes())
+            else:
+                n = int(tls[a0][g])
+                parts.append(tbs[a0][:, g].contiguous().numpy().view(np.uint8)[:n].tobytes())
+        data = b"".join(parts)
+        totals[g] = len(data)
+        out[g, :len(data)] = np.frombuffer(data, np.uint8)
+    return torch.from_numpy(out.view(np.int32).T.copy()), torch.from_numpy(totals)
+
+
+@pytest.mark.parametrize("signer_major", [False, True], ids=["group_major", "signer_major"])
+@pytest.mark.parametrize("N", [1, 2, 3])
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_agg_fold_tiles_match_plain(lib, secpar, N, signer_major):
+    """agg_fold's block at 4 groups by 7 rows: G = 11 groups (not a multiple
+    of the tile), a tile holding the shortest and the longest triple (the
+    staged window spreads over many passes of 9 rows), outputs on -1."""
+    params = fusion_setup(secpar, 5)
+    tbs, tls = agg_triples(params, 11, N, 10 * secpar + N, signer_major)
+    want = pf.agg_fold_plain(params, N, tbs, tls)
+    out, total, passes = _host_agg_fold(lib, params, N, tbs, tls, 0)
+    np.testing.assert_array_equal(out.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(total.numpy(), want[1].numpy())
+    runs = -(-out.shape[0] // 7)
+    assert passes > 2 * runs  # the spread forced passes over sub-windows
+    got1 = _host_agg_fold(lib, params, N, tbs, tls, 1)
+    np.testing.assert_array_equal(got1[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got1[1].numpy(), want[1].numpy())
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+def test_agg_fold_tiles_any_length(lib, tile):
+    """Lengths outside the triple's range (0 to 7 bytes, the full width, and
+    one past it, which the kernel clamps to the width) at N = 5, G = 6 and
+    G = 1: every word equals byte concatenation over the op table."""
+    params = fusion_setup(128, 6)
+    full = 4 * -(-ds.triple_spec(params).out_max // 4)
+    lens = [[0, 1, 2, 3, 5], [4, 0, 0, full, 1], [full, full, 0, 2, 3],
+            [7, 6, 5, 4, 3], [0, 0, 0, 0, 0], [1, full, 1, full, 1]]
+    tbs, tls = agg_triples(params, 6, 5, 7, True, lens)
+    want = agg_bytes_reference(params, 5, tbs, tls)
+    for G in (6, 1):
+        got = _host_agg_fold(lib, params, 5, [t[:, :G] for t in tbs], [t[:G] for t in tls], tile)
+        np.testing.assert_array_equal(got[0].numpy(), want[0][:, :G].numpy())
+        np.testing.assert_array_equal(got[1].numpy(), want[1][:G].numpy())
+    tls[3][0] = full + 9
+    got = _host_agg_fold(lib, params, 5, tbs, tls, tile)
+    tls[3][0] = full
+    want = agg_bytes_reference(params, 5, tbs, tls)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
 
 
 def _host_assemble(lib, spec, values, extras, pad_words=None):
