@@ -14,7 +14,8 @@ integer).
 
 Phases (each fails loudly; any failure exits non-zero):
   1. card, versions, kernel build (one nvcc per source, in parallel)
-  2. kernels vs plain versions (and the sponge vs hashlib), with timings and
+  2. kernels vs plain versions (the sponge on 4,096 lanes of 0..42,787 B,
+     the rate edges among them, and vs hashlib), with timings and
      each kernel's bound (``fusion_cryptography_tpu_torch/bounds.py``);
      ``agg_fold`` on group-major and signer-major lanes, G = 8,192, 8,155
      and 1, outputs on memory filled with -1, one call with host syncs
@@ -27,7 +28,11 @@ Phases (each fails loudly; any failure exits non-zero):
      latency (median of 5 synced calls), 5 calls with one final sync; all
      verdicts true, a tampered aggregate fails in exactly its group;
      derive_coeffs_device on CUDA equals the CPU run (the kernels' plain
-     versions) on 16 groups; one ``P.lattice`` call makes no host sync
+     versions) on 16 groups; one ``P.lattice`` call makes no host sync;
+     ``keccak_absorb`` at the three launches of one verify call (prehash,
+     challenge, aggregation; captured from the call), each equal to the
+     plain absorb at one and two threads per sponge and timed beside its
+     bound
   S. the "spec" assembly, with phase 3's fleet alive: build_fleet gives the
      same fleet, verify (the same measurements) gives all verdicts true and
      rejects a tampered aggregate in exactly its group, derive_coeffs_device
@@ -105,11 +110,14 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events)."""
+    """Mean device time of ``fn()`` over ``reps`` launches (CUDA events).
+    The device first spins for ~0.5 ms, so a kernel shorter than its
+    wrapper's host time is queued back to back and timed, not the host."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -188,17 +196,100 @@ def phase_kernels(dev, kernel_rows: list) -> None:
         f"{b_abs['bound_ms']:.4f} ms by {b_abs['bound_by']}: {n_perm} permutations)")
     log(f"  keccak_squeeze {t_sq:.3f} ms  (plain {t_sq_p:.3f} ms, bound "
         f"{b_sq['bound_ms']:.4f} ms by {b_sq['bound_by']})  [{nw} words]")
+    # the row's ms, plain_ms and bound are the verify call's three launches
+    # (phase_sponge_shapes); these are the edge check's
     kernel_rows += [
         dict(name="keccak_absorb", route="cuda",
              source="fusion_cryptography_tpu_torch/csrc/keccak_sponge.cu",
              replaces="fusion_cryptography_tpu/ops/keccak_pallas.py:81",
-             max_abs_err=err_a, ms=t_abs, plain_ms=t_abs_p, **b_abs, library_ms=None),
+             max_abs_err=err_a, edge_ms=t_abs, edge_plain_ms=t_abs_p,
+             edge_bound_ms=b_abs["bound_ms"], library_ms=None),
         dict(name="keccak_squeeze", route="cuda",
              source="fusion_cryptography_tpu_torch/csrc/keccak_sponge.cu",
              replaces="fusion_cryptography_tpu/ops/keccak_pallas.py:123",
              max_abs_err=max(errs_s), ms=t_sq, plain_ms=t_sq_p, **b_sq, library_ms=None),
     ]
     del padded, words, by, st_k, st_p
+    torch.cuda.empty_cache()
+
+
+SPONGE_LAUNCHES = ("prehash", "challenge", "aggregation")
+ABSORB_TEAMS = (1, 2)  # threads per sponge
+
+
+def phase_sponge_shapes(params, fleet, kernel_rows: list) -> None:
+    """Kernel ``keccak_absorb`` at the verify call's own launches: the
+    (padded words, block counts) of its three ``absorb`` calls (prehash
+    SHA3-256, challenge and aggregation SHAKE256) captured from one
+    ``verify_batch_device`` call on the fleet; each held exactly against the
+    plain absorb at one and two threads per sponge (each into a state
+    pre-filled with -1) and through the wrapper, and timed beside its bound,
+    its permutations and the idle-lane ratio of one and two threads per
+    sponge.  The ``keccak_absorb`` row's ms, plain_ms and bound_ms become
+    the sums over the three launches at the wrapper's choice."""
+    from fusion_cryptography_tpu_torch.ops import keccak, keccak_sponge as ks
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    captured = []
+    absorb = ks.absorb
+
+    def record(words, n_blocks):
+        captured.append((words.clone(), n_blocks.clone()))
+        return absorb(words, n_blocks)
+
+    ks.absorb = record
+    try:
+        dp.verify_batch_device(params, *fleet)
+        torch.cuda.synchronize()
+    finally:
+        ks.absorb = absorb
+    require(len(captured) == len(SPONGE_LAUNCHES),
+            f"a verify call made {len(captured)} absorb launches, not {len(SPONGE_LAUNCHES)}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    row = next(r for r in kernel_rows if r["name"] == "keccak_absorb")
+    shapes, errs = [], [row["max_abs_err"]]
+    for label, (padded, nblk) in zip(SPONGE_LAUNCHES, captured):
+        B = nblk.numel()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = keccak.absorb_padded(padded, nblk)
+        torch.cuda.synchronize()
+        t_plain = (time.time() - t0) * 1e3
+        team_ms = {}
+        for team in ABSORB_TEAMS:
+            state = torch.full((50, B), -1, dtype=torch.int32, device=padded.device)
+            ks._absorb_launch(padded, nblk, team, state)
+            errs.append(max_abs_err(state, want))
+            require(errs[-1] == 0, f"keccak_absorb ({label}, {team} thread(s) a sponge) "
+                    "!= plain absorb")
+            team_ms[team] = cuda_ms(lambda: ks._absorb_launch(padded, nblk, team, state), 5)
+        errs.append(max_abs_err(ks.absorb(padded, nblk), want))
+        require(errs[-1] == 0, f"keccak_absorb ({label}, wrapper) != plain absorb")
+        team = ks.absorb_team(B, sms)
+        t_k = cuda_ms(lambda: ks.absorb(padded, nblk), 5)
+        b = bounds.keccak_absorb(nblk)
+        shape = dict(launch=label, lanes=B, max_blocks=padded.shape[0] // keccak.RATE_WORDS,
+                     longest=int(nblk.max()), permutations=int(nblk.to(torch.int64).sum()),
+                     team=team, ms=t_k, plain_ms=t_plain, **b,
+                     warp_ratio_team1=bounds.keccak_warp_ratio(nblk, 32),
+                     warp_ratio_team2=bounds.keccak_warp_ratio(nblk, 16),
+                     team1_ms=team_ms[1], team2_ms=team_ms[2])
+        shapes.append(shape)
+        log(f"keccak_absorb, the verify call's {label} launch: B={B}, {shape['longest']} blocks "
+            f"at most, {shape['permutations']} permutations: both teams equal the plain "
+            f"absorb; wrapper ({team} thread(s) per sponge) {t_k:.4f} ms, plain "
+            f"{t_plain:.1f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+            f"({t_k / b['bound_ms']:.2f}x); warp ratio {shape['warp_ratio_team1']:.4f} (1 thread) "
+            f"/ {shape['warp_ratio_team2']:.4f} (2 threads)")
+        log(f"  one thread a sponge {team_ms[1]:.4f} ms, two {team_ms[2]:.4f} ms")
+        del want
+    total = {k: sum(sh[k] for sh in shapes) for k in ("ms", "plain_ms", "bound_ms")}
+    bound_by = max(("bytes", "operations"),
+                   key=lambda k: sum(sh["bound_ms"] for sh in shapes if sh["bound_by"] == k))
+    row.update(max_abs_err=max(errs), bound_by=bound_by, shapes=shapes, **total)
+    log(f"keccak_absorb over the verify call's three launches: {total['ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms ({total['ms'] / total['bound_ms']:.2f}x)")
+    del captured
     torch.cuda.empty_cache()
 
 
@@ -932,6 +1023,7 @@ def main() -> int:
     check_tamper(params, fleet)
     check_cuda_vs_cpu(params, fleet)
     check_lattice_no_sync(params, fleet)
+    phase_sponge_shapes(params, fleet, kernel_rows)
 
     # -- S. the "spec" assembly ---------------------------------------------
     spec_metrics, spec_launches = drive_spec_path(params, fleet, metrics, dev)

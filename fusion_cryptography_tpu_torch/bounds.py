@@ -55,6 +55,18 @@ def keccak_absorb(n_blocks: torch.Tensor) -> dict:
     return bound(n_perm * RATE_BYTES + 4 * B + 200 * B, n_perm * KECCAK_OPS)
 
 
+def keccak_warp_ratio(n_blocks: torch.Tensor, sponges_per_warp: int) -> float:
+    """The idle-lane loss of an absorb whose warps hold ``sponges_per_warp``
+    consecutive sponges: the sum over warps of (its sponges x its largest
+    block count) over the sum of the block counts.  A warp runs its longest
+    sponge's permutations; 1.0 means no lane waits."""
+    nb = n_blocks.to(torch.int64).clamp(min=0)
+    pad = -nb.numel() % sponges_per_warp
+    longest = torch.nn.functional.pad(nb, (0, pad)).view(-1, sponges_per_warp).amax(dim=1)
+    run = int(longest.repeat_interleave(sponges_per_warp)[: nb.numel()].sum())
+    return run / max(int(nb.sum()), 1)
+
+
 def keccak_squeeze(B: int, n_words: int) -> dict:
     """Squeeze of ``n_words`` words from B states (the first rate block
     needs no permutation)."""

@@ -32,7 +32,7 @@ _P, _I32, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_u
 # cudaGetLastError()
 SOURCES = {
     "keccak_sponge.cu": {
-        "fct_keccak_absorb": [_P, _P, _P, _I32, _I64, _P],
+        "fct_keccak_absorb": [_P, _P, _P, _I32, _I64, _I32, _P],
         "fct_keccak_squeeze": [_P, _P, _I32, _I64, _P],
     },
     "intt_norm_weight.cu": {

@@ -11,7 +11,7 @@ state int32[50, B] (word 2l = low half of lane l), XOF words int32[n, B].
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,21 +27,50 @@ def _pad_words_lm(words: torch.Tensor, lens: torch.Tensor,
     return keccak.pad_words(words, lens, pad_head, assume_clean=True)
 
 
+SCHEDULERS_PER_SM = 4  # warp schedulers of a Hopper SM
+
+
+def absorb_team(batch: int, sms: int) -> int:
+    """Threads per sponge of kernel ``keccak_absorb`` for ``batch`` sponges
+    on a card of ``sms`` SMs.
+
+    A warp's time is its longest sponge's chain of permutations, so below
+    one warp per scheduler the card idles.  Two threads a sponge (16 sponges
+    a warp) while their warps do not outnumber the schedulers; one thread
+    (the 64-bit form, fewer instructions a sponge) above that."""
+    return 2 if batch <= 16 * SCHEDULERS_PER_SM * sms else 1
+
+
 def absorb(words: torch.Tensor, n_blocks: torch.Tensor) -> torch.Tensor:
     """Padded words int32[max_blocks*34, B] + block counts int32[B] ->
     post-absorb state int32[50, B] (kernel ``keccak_absorb``)."""
     if words.device.type == "cpu":
         return keccak.absorb_padded(words, n_blocks)
+    return _absorb_launch(words, n_blocks)
+
+
+def _absorb_launch(words: torch.Tensor, n_blocks: torch.Tensor, team: Optional[int] = None,
+                   state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of kernel ``keccak_absorb``, at :func:`absorb_team`'s
+    choice unless ``team`` is given, into a new tensor unless ``state`` (a
+    contiguous int32[50, B] on the card) is given: chip_smoke and the tests
+    hold both teams at every shape, on outputs they pre-fill."""
     kernels.require_cuda_tensor(words, "words", torch.int32, 2)
     kernels.require_cuda_tensor(n_blocks, "n_blocks", torch.int32, 1)
     rows, B = words.shape
     if rows % RATE_WORDS or n_blocks.shape[0] != B or n_blocks.device != words.device:
         raise ValueError(f"absorb: bad shapes words {tuple(words.shape)}, "
                          f"n_blocks {tuple(n_blocks.shape)}")
+    if team is None:
+        team = absorb_team(B, torch.cuda.get_device_properties(words.device).multi_processor_count)
+    if state is None:
+        state = torch.empty((50, B), dtype=torch.int32, device=words.device)
+    kernels.require_cuda_tensor(state, "state", torch.int32, 2)
+    if state.shape != (50, B) or state.device != words.device:
+        raise ValueError(f"absorb: state must be int32[50, {B}], got {tuple(state.shape)}")
     lib = kernels.library()
-    state = torch.empty((50, B), dtype=torch.int32, device=words.device)
     rc = lib.fct_keccak_absorb(words.data_ptr(), n_blocks.data_ptr(), state.data_ptr(),
-                               rows // RATE_WORDS, B, kernels.cuda_stream())
+                               rows // RATE_WORDS, B, team, kernels.cuda_stream())
     kernels.LAUNCHES["keccak_absorb"] += 1
     kernels.check_launch(rc, "keccak_absorb")
     return state

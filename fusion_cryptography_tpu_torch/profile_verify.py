@@ -10,7 +10,8 @@ Builds a secpar=256, N=4 fleet on the first CUDA device, then
   3. beside each of the port's kernels, its device time in that trace, its
      launches and its bound (``bounds.py``) summed over the call's launches,
      each launch's bound computed from its own arguments in another,
-     untraced call.
+     untraced call; then each launch of a kernel launched more than once,
+     in order, with its traced time and its bound.
 Stage times include the synchronisations, so they sum to a little more than
 an unsynchronised call.  With ``--out`` the chrome trace and the kernel table
 are written there.  Needs a CUDA device.
@@ -56,10 +57,21 @@ def port_kernel(function: str):
     return next((k for fn, k in KERNEL_FUNCTIONS.items() if fn in head), None)
 
 
+def launch_times(prof) -> dict:
+    """{port kernel: [device ms of each launch, in launch order]} from a trace."""
+    out: dict = {}
+    for e in prof.events():
+        k = port_kernel(e.name) if e.device_type == torch.autograd.DeviceType.CUDA else None
+        if k:
+            out.setdefault(k, []).append(e.time_range.elapsed_us() / 1e3)
+    return out
+
+
 def call_bounds(params, run) -> dict:
-    """{kernel: [launches, bound ms]} over one ``run()``: each kernel wrapper
-    the call reaches is wrapped to add its launch's bound, computed from the
-    launch's own arguments (the block counts, the rendered lengths)."""
+    """{kernel: [launches, bound ms, [bound ms of each launch]]} over one
+    ``run()``: each kernel wrapper the call reaches is wrapped to add its
+    launch's bound, computed from the launch's own arguments (the block
+    counts, the rendered lengths)."""
     from . import bounds
     from .interop import device_serial as ds
     from .ops import keccak_sponge as ks
@@ -75,9 +87,11 @@ def call_bounds(params, run) -> dict:
 
         def wrapped(*args):
             out = fn(*args)
-            entry = per.setdefault(kernel, [0, 0.0])
+            entry = per.setdefault(kernel, [0, 0.0, []])
+            b_ms = bound_of(*args)["bound_ms"]
             entry[0] += 1
-            entry[1] += bound_of(*args)["bound_ms"]
+            entry[1] += b_ms
+            entry[2].append(b_ms)
             return out
         return module, attr, fn, wrapped
 
@@ -139,8 +153,8 @@ def main() -> None:
     verify()
     wall = time.perf_counter() - t0
 
-    # 1. stage breakdown
-    P = dp.get_pipeline(params, N, str(dev))
+    # 1. stage breakdown: the call's own pipeline, its stages timed
+    P = dp.get_pipeline(params, N, str(dev), "fold")
     stages = {
         "prehash": "prehash (SHA3 + decimal)",
         "signer": "signer hash (vk, challenge, decode, NTT, triple)",
@@ -156,6 +170,8 @@ def main() -> None:
     finally:
         for attr, fn in saved.items():
             setattr(P, attr, fn)
+    if not acc:
+        raise SystemExit("profile: the call did not run the timed pipeline")
     print(f"verify G={G}: {wall * 1e3:.2f} ms per call (unsynchronised stages)")
     for k, v in acc.items():
         print(f"  {k:52s} {v * 1e3:9.2f} ms")
@@ -191,14 +207,20 @@ def main() -> None:
             t[0] += n
             t[1] += us / 1e3
     per = call_bounds(params, verify)
+    each = launch_times(prof)
     port = []
     print("port kernels: traced device time, launches, bound summed over the call's launches")
-    for k, (n_b, b_ms) in sorted(per.items(), key=lambda kv: -traced_ms.get(kv[0], [0, 0.0])[1]):
+    for k, (n_b, b_ms, b_each) in sorted(per.items(),
+                                         key=lambda kv: -traced_ms.get(kv[0], [0, 0.0])[1]):
         n, ms = traced_ms.get(k, [0, 0.0])
         port.append({"kernel": k, "ms": ms, "launches": n, "bound_ms": b_ms,
-                     "bound_launches": n_b, "gap_ms": ms - b_ms})
+                     "bound_launches": n_b, "gap_ms": ms - b_ms,
+                     "launch_ms": each.get(k, []), "launch_bound_ms": b_each})
         print(f"  {k:18s} {ms:8.3f} ms  x{n:<3d} bound {b_ms:7.4f} ms  "
               f"({ms / b_ms:5.2f}x, gap {ms - b_ms:6.3f} ms)")
+    for k, b_each in ((k, v[2]) for k, v in per.items() if v[0] > 1):
+        pairs = zip(each.get(k, []), b_each)
+        print(f"  {k} by launch: " + ", ".join(f"{t:.4f} ms (bound {b:.4f})" for t, b in pairs))
     if args.out:
         out = Path(args.out)
         out.mkdir(parents=True, exist_ok=True)

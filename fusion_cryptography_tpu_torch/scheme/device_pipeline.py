@@ -265,9 +265,15 @@ class _Pipeline:
         return eq, norm_ok, weight_ok
 
 
-@lru_cache(maxsize=16)
 def get_pipeline(params: Params, n_signers: int, device: str,
                  assembly: str = "fold") -> _Pipeline:
+    """The pipeline of one configuration, built once: callers that name the
+    default assembly and callers that leave it out share it."""
+    return _cached_pipeline(params, n_signers, device, assembly)
+
+
+@lru_cache(maxsize=16)
+def _cached_pipeline(params: Params, n_signers: int, device: str, assembly: str) -> _Pipeline:
     return _Pipeline(params, n_signers, torch.device(device), assembly)
 
 

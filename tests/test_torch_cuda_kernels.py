@@ -53,6 +53,32 @@ def test_sponge_kernels_match_plain_and_hashlib(dev):
         assert got[i].tobytes() == shake_256(by[i, : lens[i]].tobytes()).digest(200)
 
 
+@pytest.mark.parametrize("B", [1, 31, 33, 8197])
+def test_absorb_kernel_any_batch_and_counts(dev, B):
+    """Kernel ``keccak_absorb`` at one and two threads per sponge and
+    through the wrapper, against the plain absorb exactly, on random words
+    (the absorb reads no padding): all counts 0; counts of 0 and max_blocks
+    mixed; counts from -3 to max_blocks + 3 (clamped).  At each team the
+    kernel writes into a state pre-filled with -1, so a word it leaves
+    unwritten fails."""
+    max_blocks = 5
+    rng = np.random.default_rng(B)
+    words = torch.from_numpy(rng.integers(-(2**31), 2**31, size=(max_blocks * 34, B),
+                                          dtype=np.int64).astype(np.int32)).to(dev)
+    mixed = rng.choice([0, max_blocks], B)
+    mixed[0] = max_blocks
+    wide = rng.integers(-3, max_blocks + 4, B)
+    wide[0], wide[-1] = max_blocks + 1, -1
+    for counts in (np.zeros(B), mixed, wide):
+        nb = torch.from_numpy(counts.astype(np.int32)).to(dev)
+        want = keccak.absorb_padded(words, nb)
+        for team in (1, 2):
+            state = torch.full((50, B), -1, dtype=torch.int32, device=dev)
+            assert ks._absorb_launch(words, nb, team, state) is state
+            assert torch.equal(state, want)
+        assert torch.equal(ks.absorb(words, nb), want)
+
+
 # secpar 128 and 256 (rank 195 and 83) over the Fusion prime, G not a
 # multiple of anything; d = 512 and 1024 over 2013265921 = 15 * 2**27 + 1
 @pytest.mark.parametrize("q,d,root,rank,G", [(Q, 64, 23584283, 195, 37), (Q, 256, 3337519, 83, 53),

@@ -117,3 +117,20 @@ def test_wrappers_never_fall_back_off_cpu():
         ks.absorb(w, n)
     with pytest.raises(ValueError):
         ks.squeeze(torch.zeros((50, 4), dtype=torch.int32, device="meta"), 8)
+
+
+def test_absorb_team_and_warp_ratio():
+    """Two threads a sponge while the pairs' warps (16 sponges each) do not
+    outnumber the card's schedulers (4 an SM), one above; the idle-lane
+    ratio counts each warp's longest sponge for each of its sponges."""
+    from fusion_cryptography_tpu_torch import bounds
+
+    assert ks.absorb_team(1, 132) == 2
+    assert ks.absorb_team(8192, 132) == 2  # a verify call's aggregation
+    assert ks.absorb_team(16 * 4 * 132, 132) == 2
+    assert ks.absorb_team(16 * 4 * 132 + 1, 132) == 1
+    assert ks.absorb_team(32768, 132) == 1  # its prehash and challenge
+    nb = torch.tensor([1, 3, 2, 2, 5], dtype=torch.int32)
+    assert bounds.keccak_warp_ratio(nb, 2) == (3 + 3 + 2 + 2 + 5) / 13
+    assert bounds.keccak_warp_ratio(nb, 1) == 1.0
+    assert bounds.keccak_warp_ratio(torch.tensor([4, -2, 0, 4]), 4) == 16 / 8

@@ -43,10 +43,62 @@ HOST_LOOPS = r"""
 #include "preimage_fold.cu"
 #include "assemble_spec.cu"
 
+// keccak_f1600_pair with the pair's two threads run in turn, s[e] the words
+// of role e: each exchange reads the partner's words from before it.
+static void host_permute_pair(uint32_t s[2][25]) {
+  for (int round = 0; round < 24; ++round) {
+    uint32_t c[2][5], p[2][25];
+    for (int e = 0; e < 2; ++e) il_parity(s[e], c[e]);
+    for (int e = 0; e < 2; ++e) il_theta(s[e], c[e], c[1 - e], e);
+    std::copy(&s[0][0], &s[0][0] + 50, &p[0][0]);
+    for (int e = 0; e < 2; ++e) il_rho_pi_chi_iota(s[e], p[1 - e], e, round);
+  }
+}
+
+// sponge_absorb_pair's arithmetic for lane b, its two threads run in turn.
+static void host_absorb_pair_lane(const uint32_t* words, const int32_t* nblk, uint32_t* state,
+                                  int max_blocks, int64_t batch, int64_t b) {
+  uint32_t s[2][25] = {};
+  int n = nblk[b];
+  n = n < 0 ? 0 : (n > max_blocks ? max_blocks : n);
+  for (int j = 0; j < n; ++j) {
+    uint32_t u[2][17];
+    for (int e = 0; e < 2; ++e)
+      for (int l = 0; l < 17; ++l)
+        u[e][l] = unzip32(words[((int64_t)j * 34 + 2 * l + 1 - e) * batch + b]);
+    for (int e = 0; e < 2; ++e)
+      for (int l = 0; l < 17; ++l) s[e][l] ^= byte_perm(u[e][l], u[1 - e][l], pair_sel(e));
+    host_permute_pair(s);
+  }
+  for (int e = 0; e < 2; ++e)
+    for (int l = 0; l < 25; ++l)
+      state[(int64_t)(2 * l + 1 - e) * batch + b] =
+          zip32(byte_perm(s[e][l], s[1 - e][l], pair_sel(e)));
+}
+
+// team 1: the one-thread lane function; team 2: the pair, emulated
 extern "C" void host_absorb(const uint32_t* words, const int32_t* nblk,
-                            uint32_t* state, int max_blocks, int64_t batch) {
-  for (int64_t b = 0; b < batch; ++b)
-    sponge_absorb_lane(words, nblk, state, max_blocks, batch, b);
+                            uint32_t* state, int max_blocks, int64_t batch, int team) {
+  for (int64_t b = 0; b < batch; ++b) {
+    if (team == 1)
+      sponge_absorb_lane(words, nblk, state, max_blocks, batch, b);
+    else
+      host_absorb_pair_lane(words, nblk, state, max_blocks, batch, b);
+  }
+}
+
+// n states of 25 lanes: keccak_f1600 on each, and the pair's permutation on
+// the same states given as interleaved words (even[k], odd[k]: 25 words each)
+extern "C" void host_permute(uint64_t* lanes, uint32_t* even, uint32_t* odd, int64_t n) {
+  for (int64_t k = 0; k < n; ++k) {
+    keccak_f1600(lanes + 25 * k);
+    uint32_t s[2][25];
+    std::copy(odd + 25 * k, odd + 25 * k + 25, s[0]);
+    std::copy(even + 25 * k, even + 25 * k + 25, s[1]);
+    host_permute_pair(s);
+    std::copy(s[0], s[0] + 25, odd + 25 * k);
+    std::copy(s[1], s[1] + 25, even + 25 * k);
+  }
 }
 
 extern "C" void host_squeeze(const uint32_t* state, uint32_t* out,
@@ -325,7 +377,8 @@ def lib(tmp_path_factory):
                     "-o", str(so), str(src)], check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(so))
     P, I32, I64, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
-    lib.host_absorb.argtypes = [P, P, P, I32, I64]
+    lib.host_absorb.argtypes = [P, P, P, I32, I64, I32]
+    lib.host_permute.argtypes = [P, P, P, I64]
     lib.host_squeeze.argtypes = [P, P, I32, I64]
     lib.host_agg_check.argtypes = [P, I64, I32, I32, P, P, P, P, U32, U32, U32, P, P, P]
     lib.host_ntt_u.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
@@ -337,10 +390,12 @@ def lib(tmp_path_factory):
     return lib
 
 
-def _absorb(lib, padded, nblk):
-    state = torch.empty((50, padded.shape[1]), dtype=torch.int32)
+def _absorb(lib, padded, nblk, team):
+    """The absorb of ``team`` threads per sponge over every lane, the state
+    pre-filled with -1 (every word must be written)."""
+    state = torch.full((50, padded.shape[1]), -1, dtype=torch.int32)
     lib.host_absorb(padded.data_ptr(), nblk.data_ptr(), state.data_ptr(),
-                    padded.shape[0] // tk.RATE_WORDS, padded.shape[1])
+                    padded.shape[0] // tk.RATE_WORDS, padded.shape[1], team)
     return state
 
 
@@ -360,8 +415,10 @@ def test_sponge_lanes_match_plain_and_hashlib(lib, pad_head):
     by[np.arange(4 * rows)[None, :] >= lens[:, None]] = 0
     words = torch.from_numpy(by.view(np.int32).T.copy())
     padded, nblk = tk.pad_words(words, torch.from_numpy(lens), pad_head, assume_clean=True)
-    state = _absorb(lib, padded, nblk)
-    np.testing.assert_array_equal(state.numpy(), tk.absorb_padded(padded, nblk).numpy())
+    want = tk.absorb_padded(padded, nblk)
+    for team in (1, 2):  # one thread per sponge, and the interleaved pair
+        state = _absorb(lib, padded, nblk, team)
+        np.testing.assert_array_equal(state.numpy(), want.numpy())
     for n_words in (1, 8, 34, 35, 300):
         out = _squeeze(lib, state, n_words)
         np.testing.assert_array_equal(
@@ -371,6 +428,56 @@ def test_sponge_lanes_match_plain_and_hashlib(lib, pad_head):
         msg = by[i, :n].tobytes()
         want = shake_256(msg).digest(1200) if pad_head == 0x1F else sha3_256(msg).digest()
         assert got[i, : len(want)].tobytes() == want, int(n)
+
+
+def _interleave(lanes):
+    """uint64 lanes -> (even bits, odd bits) as uint32 words."""
+    bits = (lanes[..., None] >> np.arange(64, dtype=np.uint64)) & np.uint64(1)
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    even = (bits[..., 0::2] * weights).sum(-1).astype(np.uint32)
+    odd = (bits[..., 1::2] * weights).sum(-1).astype(np.uint32)
+    return even, odd
+
+
+def test_pair_permutation_matches_keccak_f(lib):
+    """The interleaved pair's Keccak-f (both threads emulated) against the
+    one-thread keccak_f1600 and the plain torch keccak_f, on random states
+    and the all-zero and all-one states."""
+    rng = np.random.default_rng(1600)
+    lanes = rng.integers(0, 2**64, size=(64, 25), dtype=np.uint64)
+    lanes[0], lanes[1] = 0, np.uint64(2**64 - 1)
+    even, odd = (np.ascontiguousarray(w) for w in _interleave(lanes))
+    single = lanes.copy()
+    lib.host_permute(single.ctypes.data, even.ctypes.data, odd.ctypes.data, lanes.shape[0])
+    plain = tk.keccak_f(torch.from_numpy(lanes.view(np.int64).T.copy())).T.numpy()
+    np.testing.assert_array_equal(single.view(np.int64), plain)
+    want_even, want_odd = _interleave(single)
+    np.testing.assert_array_equal(even, want_even)
+    np.testing.assert_array_equal(odd, want_odd)
+
+
+@pytest.mark.parametrize("pad_head", [0x1F, 0x06], ids=["shake256", "sha3_256"])
+def test_sponge_lanes_rate_edges_and_longest(lib, pad_head):
+    """Lengths 0, 135, 136, 137 and 42,787 bytes (315 blocks, the longest
+    aggregation preimage at secpar 256, N = 4), both teams, against the
+    plain absorb and hashlib."""
+    rng = np.random.default_rng(pad_head + 1)
+    lens = np.array([0, 135, 136, 137, 42787], np.int32)
+    rows = -(-(42787 + 1) // tk.RATE) * tk.RATE_WORDS
+    by = rng.integers(0, 256, size=(lens.size, 4 * rows), dtype=np.uint8)
+    by[np.arange(4 * rows)[None, :] >= lens[:, None]] = 0
+    words = torch.from_numpy(by.view(np.int32).T.copy())
+    padded, nblk = tk.pad_words(words, torch.from_numpy(lens), pad_head, assume_clean=True)
+    assert nblk.tolist() == [1, 1, 2, 2, 315]
+    want = tk.absorb_padded(padded, nblk)
+    for team in (1, 2):
+        state = _absorb(lib, padded, nblk, team)
+        np.testing.assert_array_equal(state.numpy(), want.numpy())
+    got = _squeeze(lib, state, 8).t().contiguous().view(torch.uint8).numpy()
+    for i, n in enumerate(lens):
+        msg = by[i, :n].tobytes()
+        digest = shake_256(msg).digest(32) if pad_head == 0x1F else sha3_256(msg).digest()
+        assert got[i].tobytes() == digest, int(n)
 
 
 def agg_inputs(plan, G, rank, seed):

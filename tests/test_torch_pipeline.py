@@ -64,6 +64,17 @@ def test_unknown_assembly_raises():
         tsetup.build_fleet(p, 1, 2, device="cpu", assembly="pallas")
 
 
+def test_get_pipeline_one_per_configuration():
+    """A caller that names the default assembly and one that leaves it out
+    get the same pipeline; another assembly or signer count gets its own."""
+    p = params_from_numpy(ftpu.fusion_setup(128, 3))
+    P = tdp.get_pipeline(p, 2, "cpu")
+    assert tdp.get_pipeline(p, 2, "cpu", "fold") is P
+    assert tdp.get_pipeline(p, 2, "cpu", assembly="fold") is P
+    assert tdp.get_pipeline(p, 2, "cpu", "spec") is not P
+    assert tdp.get_pipeline(p, 3, "cpu") is not P
+
+
 def test_tampered_aggregate_rejected_and_chunking():
     jp = ftpu.fusion_setup(128, 99)
     p = params_from_numpy(jp)
