@@ -22,7 +22,9 @@ Phases (each fails loudly; any failure exits non-zero):
      forbidden; ``intt_norm_weight`` (the aggregate check: observed
      sum and INTT + norm/weight in one pass) on int32 aggregates of the
      verify call's shape [8192, 83, 256] and of secpar=128's [1024, 195, 64],
-     with every int32 edge value; ``assemble_spec`` on the challenge, triple
+     with every int32 edge value; the signer folds on -1-filled outputs at
+     B = 32,768 (warp 0's lanes ~1,300 words apart), 32,731 and 4 lanes and
+     at secpar=128; ``assemble_spec`` on the challenge, triple
      and aggregation specs, its outputs on memory filled with -1
   3. main path: fleet build (keys/s), verify: one warm call, per-call
      latency (median of 5 synced calls), 5 calls with one final sync; all
@@ -32,7 +34,12 @@ Phases (each fails loudly; any failure exits non-zero):
      ``keccak_absorb`` at the three launches of one verify call (prehash,
      challenge, aggregation; captured from the call), each equal to the
      plain absorb at one and two threads per sponge and timed beside its
-     bound
+     bound; the two signer fold kernels at the inputs of one verify call
+     (captured from the call), each equal to its plain version on
+     -1-filled outputs, and both timed beside their bounds on those inputs,
+     the synthetic ones of phase 2, the same without edge values, without
+     edge values or extreme lanes, and those at one group (back to back and
+     alone)
   S. the "spec" assembly, with phase 3's fleet alive: build_fleet gives the
      same fleet, verify (the same measurements) gives all verdicts true and
      rejects a tampered aggregate in exactly its group, derive_coeffs_device
@@ -59,6 +66,8 @@ Phases (each fails loudly; any failure exits non-zero):
 The last two lines of stdout are the kernel table {"kernels": [...]} and
 {"ok": true, "device": {...}}; the card's name and power limit come just
 before them.  Run from the repository root: ``python3 chip_smoke.py``.
+``python3 chip_smoke.py --fold-times`` builds the kernels and a fleet and
+prints only the signer folds' times on their five input sets.
 """
 from __future__ import annotations
 
@@ -410,23 +419,26 @@ def phase_ntt_kernels(dev, kernel_rows: list) -> None:
     torch.cuda.empty_cache()
 
 
-def fold_inputs(params, B: int, dev):
+def fold_inputs(params, B: int, dev, edge_share: float = 0.05, extremes: bool = True):
     """Seeded lanes at the signer stage's shapes: centered values with 0,
-    +-1 and +-(q-1)/2 among them, prehash digits of 1..78 bytes; lane 0
-    renders every value as "0" with one digit (the shortest triple), lane 1
-    every value as -(q-1)/2 with 78 digits (the longest)."""
+    +-1 and +-(q-1)/2 among them (a share ``edge_share`` of the values),
+    prehash digits of 1..78 bytes; with ``extremes`` lane 0 renders every
+    value as "0" with one digit (the shortest triple), lane 1 every value as
+    -(q-1)/2 with 78 digits (the longest): in str(vk) these two lanes drift
+    ~1,300 words apart, far more than the fold kernels' 64-row rings."""
     from fusion_cryptography_tpu_torch.interop import device_serial as ds
     from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
 
     d, q = params.degree, params.modulus
     rng = np.random.default_rng(SEED + d)
     vals = rng.integers(-(q // 2), q // 2 + 1, (3 * d, B), dtype=np.int64)
-    edge = rng.random((3 * d, B)) < 0.05
+    edge = rng.random((3 * d, B)) < edge_share
     vals[edge] = rng.choice([0, 1, -1, q // 2, -(q // 2)], size=int(edge.sum()))
-    vals[:, 0] = 0
-    vals[:, 1] = -(q // 2)
     lens = rng.integers(1, ds.PREHASH_W + 1, B).astype(np.int32)
-    lens[:2] = [1, ds.PREHASH_W]
+    if extremes:
+        vals[:, 0] = 0
+        vals[:, 1] = -(q // 2)
+        lens[:2] = [1, ds.PREHASH_W]
     by = rng.integers(ord("0"), ord("9") + 1, (B, 4 * pf.PRE_ROWS), dtype=np.uint8)
     by[np.arange(4 * pf.PRE_ROWS)[None, :] >= lens[:, None]] = 0
     vals = torch.from_numpy(vals.astype(np.int32)).to(dev)
@@ -434,9 +446,32 @@ def fold_inputs(params, B: int, dev):
             torch.from_numpy(by.view(np.int32).T.copy()).to(dev), torch.from_numpy(lens).to(dev))
 
 
+def check_signer_folds(params, vk2d_t, c_hat_t, pre_w, pre_len, label: str) -> int:
+    """Both signer fold kernels == their plain versions, every word and
+    length, each into outputs pre-filled with -1 (fold b on the kernel's
+    str(vk)) -> the largest absolute error (0)."""
+    from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
+
+    want_a = pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)
+    got_a = pf._signer_fold_a_launch(params, vk2d_t, pre_w, pre_len,
+                                     [torch.full_like(w, -1) for w in want_a])
+    err = max(max_abs_err(x, y) for x, y in zip(got_a, want_a))
+    require(err == 0, f"signer_fold_a ({label}) != plain version")
+    want_b = pf.signer_fold_b_plain(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t)
+    got_b = pf._signer_fold_b_launch(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t,
+                                     [torch.full_like(w, -1) for w in want_b])
+    err = max([err] + [max_abs_err(x, y) for x, y in zip(got_b, want_b)])
+    require(err == 0, f"signer_fold_b ({label}) != plain version")
+    return err
+
+
 def phase_fold_kernels(dev, kernel_rows: list) -> None:
     """The two signer fold kernels at the main path's shapes: B = G*N =
-    32,768 signer lanes; then ``agg_fold`` on their triples
+    32,768 signer lanes (warp 0 with the widest drift, :func:`fold_inputs`),
+    held exactly against their plain versions on -1-filled outputs at B,
+    B - 37 and 4 lanes and at secpar=128 (B - 37), and timed on these
+    synthetic inputs (their times at the verify call's own inputs come from
+    :func:`phase_fold_shapes`); then ``agg_fold`` on their triples
     (:func:`phase_agg_fold`)."""
     from fusion_cryptography_tpu_torch.interop import device_serial as ds
     from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
@@ -446,51 +481,170 @@ def phase_fold_kernels(dev, kernel_rows: list) -> None:
     d, G, N = params.degree, N_GROUPS, N_SIGNERS
     B = G * N
     vk2d_t, c_hat_t, pre_w, pre_len = fold_inputs(params, B, dev)
+    errs = []
+    for cut in (B, B - 37, 4):
+        errs.append(check_signer_folds(params, *(t[..., :cut].contiguous() for t in (
+            vk2d_t, c_hat_t, pre_w, pre_len)), f"B={cut}"))
+    p128 = fusion_setup(128, SEED)
+    errs.append(check_signer_folds(p128, *fold_inputs(p128, B - 37, dev), "secpar=128"))
     got_a = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
-    want_a = pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)
-    err_a = max(max_abs_err(x, y) for x, y in zip(got_a, want_a))
-    require(err_a == 0, "signer_fold_a != plain version")
     got_b = pf.signer_fold_b(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t)
     want_b = pf.signer_fold_b_plain(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t)
-    err_b = max(max_abs_err(x, y) for x, y in zip(got_b, want_b))
-    require(err_b == 0, "signer_fold_b != plain version")
+    require(all(torch.equal(x, y) for x, y in zip(got_b, want_b)), "signer_fold_b wrapper")
+    del want_b
     tri_spec = ds.triple_spec(params)
     tri_min = ds.spec_min_total(tri_spec, [1])
     tlen = got_b[1]
     require(int(tlen[0]) == tri_min and int(tlen[1]) == tri_spec.out_max,
             f"triple lengths {int(tlen[0])}, {int(tlen[1])} must span "
             f"{tri_min}..{tri_spec.out_max}")
-    log(f"folds: B={B} lanes (secpar={SECPAR}), triples of {int(tlen.min())}..{int(tlen.max())} "
-        "B: signer_fold_a and signer_fold_b equal their plain versions (every word, zero "
-        "tails included)")
-    del want_a, want_b
+    vk_drift = int(got_a[3][1] - got_a[3][0]) // 4
+    log(f"folds: B={B}, {B - 37} and 4 lanes (secpar={SECPAR}) and {B - 37} (secpar=128), "
+        f"triples of {int(tlen.min())}..{int(tlen.max())} B, warp 0's lanes 0 and 1 "
+        f"{vk_drift} words apart in str(vk): signer_fold_a and signer_fold_b equal their "
+        "plain versions on -1-filled outputs (every word, zero tails included)")
 
-    ch_w, vk_w = ds.signer_fold_a_table(params).widths
-    (tri_w,) = ds.signer_fold_b_table(params).widths
     cases = [
-        ("signer_fold_a", "fusion_cryptography_tpu/ops/fold_pallas.py:502", err_a,
+        ("signer_fold_a", "fusion_cryptography_tpu/ops/fold_pallas.py:502",
          lambda: pf.signer_fold_a(params, vk2d_t, pre_w, pre_len),
-         lambda: pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len),
-         bounds.signer_fold_a(d, pre_len, ch_w, vk_w)),
-        ("signer_fold_b", "fusion_cryptography_tpu/ops/fold_pallas.py:587", err_b,
+         lambda: pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)),
+        ("signer_fold_b", "fusion_cryptography_tpu/ops/fold_pallas.py:587",
          lambda: pf.signer_fold_b(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t),
-         lambda: pf.signer_fold_b_plain(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t),
-         bounds.signer_fold_b(d, got_a[3], pre_len, tri_w)),
+         lambda: pf.signer_fold_b_plain(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t)),
     ]
-    for name, replaces, err, kernel, plain, bnd in cases:
-        t_k = cuda_ms(kernel, 10)
+    for name, replaces, kernel, plain in cases:
         t_p = cuda_ms(plain, 2)
-        log(f"  {name:14s} {t_k:.3f} ms  (plain {t_p:.3f} ms, bound "
-            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']})")
         kernel_rows.append(dict(
             name=name, route="cuda",
             source="fusion_cryptography_tpu_torch/csrc/preimage_fold.cu",
-            replaces=replaces, max_abs_err=err, ms=t_k, plain_ms=t_p, **bnd,
-            library_ms=None))
-    del got_a, vk2d_t, c_hat_t, pre_w
+            replaces=replaces, max_abs_err=max(errs), plain_ms=t_p, library_ms=None))
+    del vk2d_t, c_hat_t, pre_w
     phase_agg_fold(params, got_b[0], tlen, dev, kernel_rows)
-    del got_b
+    del got_a, got_b
     torch.cuda.empty_cache()
+
+
+def launch_ms(fn, reps: int) -> float:
+    """Median device time of ``fn()`` launched alone, ``reps`` times (CUDA
+    events around each launch, the device idle before it): no launch
+    overlaps the tail of the one before, as in a verify call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    return median(times)
+
+
+def capture_signer_folds(params, fleet) -> dict:
+    """The arguments of the signer fold calls of one ``verify_batch_device``
+    call on the fleet: {"signer_fold_a": (vk2d_t, pre_w, pre_len),
+    "signer_fold_b": (vk_buf, vk_len, pre_w, pre_len, c_hat_t)}."""
+    from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    captured: dict = {}
+    saved = {name: getattr(pf, name) for name in ("signer_fold_a", "signer_fold_b")}
+
+    def recorder(name):
+        def record(p, *args):
+            captured.setdefault(name, []).append(tuple(a.clone() for a in args))
+            return saved[name](p, *args)
+        return record
+
+    for name in saved:
+        setattr(pf, name, recorder(name))
+    try:
+        dp.verify_batch_device(params, *fleet)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(pf, name, fn)
+    require(sorted(captured) == sorted(saved) and all(len(v) == 1 for v in captured.values()),
+            f"a verify call made signer fold calls {[(k, len(v)) for k, v in captured.items()]}")
+    return {name: calls[0] for name, calls in captured.items()}
+
+
+def signer_fold_times(params, fleet, dev) -> dict:
+    """Both signer fold kernels timed on five input sets, each back to back
+    (``cuda_ms``, 10 launches) and alone (``launch_ms``, median of 5): the
+    verify call's own inputs (captured from one call on the fleet), the
+    synthetic ones of :func:`fold_inputs`, the same without edge values,
+    and without edge values or the two extreme lanes (uniform centered
+    values, random prehash lengths), and those uniform ones at one group
+    (B = 4, the lifecycle's single-group calls), with each set's bound;
+    at the verify call's inputs also the wrapper's host time per call
+    (50 calls without a sync) -> {kernel: {set: {"ms", "alone_ms",
+    "bound_ms", "bound_by"[, "host_ms"]}}}.  Uses only the public wrappers."""
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+    from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
+
+    d, B = params.degree, fleet[0].shape[0] * fleet[0].shape[1]
+    ch_w, vk_w = ds.signer_fold_a_table(params).widths
+    (tri_w,) = ds.signer_fold_b_table(params).widths
+    captured = capture_signer_folds(params, fleet)
+    sets = {"verify_call": (captured["signer_fold_a"], captured["signer_fold_b"])}
+    for label, share, extremes, lanes in (("synthetic", 0.05, True, B),
+                                          ("synthetic_no_edges", 0.0, True, B),
+                                          ("synthetic_uniform", 0.0, False, B),
+                                          ("one_group", 0.0, False, fleet[0].shape[1])):
+        vk2d_t, c_hat_t, pre_w, pre_len = fold_inputs(params, lanes, dev, share, extremes)
+        _, _, vkb, vkl = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
+        sets[label] = ((vk2d_t, pre_w, pre_len), (vkb, vkl, pre_w, pre_len, c_hat_t))
+    out: dict = {"signer_fold_a": {}, "signer_fold_b": {}}
+    for label, (args_a, args_b) in sets.items():
+        run_a = lambda: pf.signer_fold_a(params, *args_a)  # noqa: E731
+        run_b = lambda: pf.signer_fold_b(params, *args_b)  # noqa: E731
+        bounds_of = {"signer_fold_a": bounds.signer_fold_a(d, args_a[2], ch_w, vk_w),
+                     "signer_fold_b": bounds.signer_fold_b(d, args_b[1], args_b[3], tri_w)}
+        for name, run in (("signer_fold_a", run_a), ("signer_fold_b", run_b)):
+            out[name][label] = dict(ms=cuda_ms(run, 10), alone_ms=launch_ms(run, 5),
+                                    **bounds_of[name])
+            if label == "verify_call":
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    run()
+                out[name][label]["host_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+                torch.cuda.synchronize()
+    del sets, captured
+    torch.cuda.empty_cache()
+    for name, by_set in out.items():
+        log(f"{name} by input set (back to back / alone, bound): " + "; ".join(
+            f"{label} {t['ms']:.4f} / {t['alone_ms']:.4f} ms ({t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']}, {t['ms'] / t['bound_ms']:.2f}x)" for label, t in by_set.items())
+            + f"; the wrapper's host time {by_set['verify_call']['host_ms']:.4f} ms a call")
+    return out
+
+
+def phase_fold_shapes(params, fleet, kernel_rows: list) -> None:
+    """The signer fold kernels at the verify call's own inputs: each captured
+    call held exactly against the plain version on -1-filled outputs, then
+    :func:`signer_fold_times`.  Each row's ms and bound are the verify
+    call's inputs' (back to back), beside the synthetic inputs' and the
+    other sets' under ``by_inputs``."""
+    captured = capture_signer_folds(params, fleet)
+    vk2d_t, pre_w, pre_len = captured["signer_fold_a"]
+    c_hat_t = captured["signer_fold_b"][4]
+    err = check_signer_folds(params, vk2d_t, c_hat_t, pre_w, pre_len, "the verify call's inputs")
+    del captured, vk2d_t, pre_w, pre_len, c_hat_t
+    log("signer folds at the inputs of one verify call (captured): both equal their plain "
+        "versions on -1-filled outputs")
+    times = signer_fold_times(params, fleet, fleet[0].device)
+    for name, by_set in times.items():
+        row = next(r for r in kernel_rows if r["name"] == name)
+        own = by_set["verify_call"]
+        row.update(ms=own["ms"], bound_ms=own["bound_ms"], bound_by=own["bound_by"],
+                   synthetic_ms=by_set["synthetic"]["ms"],
+                   synthetic_bound_ms=by_set["synthetic"]["bound_ms"], by_inputs=by_set,
+                   max_abs_err=max(row["max_abs_err"], err))
 
 
 def phase_agg_fold(params, tri_buf: torch.Tensor, tri_len: torch.Tensor, dev,
@@ -985,7 +1139,22 @@ def check_lifecycle_cuda_vs_cpu(params, dev) -> None:
         f"({', '.join(str(len(m.encode('utf-8'))) for m in long_msgs)} B)")
 
 
-def main() -> int:
+def fold_times_only(dev, card: str) -> int:
+    """``--fold-times``: the signer fold kernels' times on the five input
+    sets of :func:`signer_fold_times` and nothing else, through the public
+    wrappers only (so a copy of this script times another tree's kernels)."""
+    from fusion_cryptography_tpu_torch.params import fusion_setup
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    params = fusion_setup(SECPAR, SEED)
+    fleet = build_fleet(params, N_GROUPS, N_SIGNERS, seed0=1, device=dev)
+    times = signer_fold_times(params, fleet, dev)
+    log(f"card: {card}")
+    log(json.dumps({"fold_times": times}))
+    return 0
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1007,6 +1176,10 @@ def main() -> int:
     for line in kernels.build_report().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
+    if argv == ["--fold-times"]:
+        return fold_times_only(dev, card)
+    if argv:
+        raise SystemExit(f"chip_smoke: unknown arguments {argv} (only --fold-times)")
 
     # -- 2. kernels vs plain ------------------------------------------------
     kernel_rows: list = []
@@ -1024,6 +1197,7 @@ def main() -> int:
     check_cuda_vs_cpu(params, fleet)
     check_lattice_no_sync(params, fleet)
     phase_sponge_shapes(params, fleet, kernel_rows)
+    phase_fold_shapes(params, fleet, kernel_rows)
 
     # -- S. the "spec" assembly ---------------------------------------------
     spec_metrics, spec_launches = drive_spec_path(params, fleet, metrics, dev)
@@ -1084,4 +1258,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

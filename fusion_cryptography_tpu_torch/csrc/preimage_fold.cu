@@ -8,23 +8,34 @@
 //   agg_fold      <- _agg_fold_call  (kernel 7: N triples -> the padded
 //                                     aggregation preimage)
 //
-// Layouts, the op tables and the per-lane op walk (Writer, Source,
-// render_dec, run_ops) are in preimage_ops.cuh, shared with
-// assemble_spec.cu.  The text comes from an op table
+// Layouts, the op tables and the two op walks (run_ops, one thread a
+// lane; tile_run_ops, a warp a tile of lanes) are in preimage_ops.cuh,
+// shared with assemble_spec.cu.  The text comes from an op table
 // (interop/device_serial.FoldTable), never from constants compiled in here:
 // the parameter set's dst, degree and root are bytes of its pool.
 //
 // Design.  The TPU kernels evaluate the str() formats as log-depth merge
 // trees of barrel shifts and rolls, because a TPU lane cannot place bytes
 // at a data-dependent offset.  A GPU thread can, so:
-//   * signer_fold_a / signer_fold_b run one thread per lane.  The thread
-//     walks the op table once, renders each value in decimal (sign in
-//     unsigned arithmetic, no leading zeros), and streams the bytes through
-//     a 64-bit accumulator that stores whole words in order (a funnel shift
-//     for unaligned appends).  signer_fold_a streams str(vk) into both of
-//     its outputs in the same pass.  Threads index the batch, so a warp's
-//     loads of a value row are one contiguous segment, and its stores land
-//     on neighbouring lanes of nearby word rows.
+//   * signer_fold_a / signer_fold_b run a warp per tile of consecutive
+//     lanes (tile_run_ops): 32 lanes, one thread each, for signer_fold_b;
+//     16 lanes, two threads each (one per output, each rendering every
+//     other value and taking the other's by a shuffle), for signer_fold_a.
+//     A thread walks the op table for its lane, renders each value in
+//     decimal and streams the bytes into whole words.  A lane's rendered
+//     lengths differ from its neighbours', so storing each word as soon as
+//     it is complete would spread a warp's store over ~8 rows: ~0.7
+//     32-byte sectors per word instead of 0.125.  So a
+//     thread puts its words into its column of a ring of kRing rows in
+//     shared memory, and after each group of items the warp stores every
+//     row all of an output's threads have completed as one segment (128 B,
+//     or two of 64 B), zero tails included.  Lanes that drift further than
+//     the ring holds (rendered lengths of 1 against 11 bytes drift ~1,300
+//     words apart in str(vk)) store the words outside it directly.  On
+//     uniform values the lanes of a warp stay within ~25 words of each
+//     other at secpar 256, so 64 rows never overflow there.  The values and
+//     the extra words (str(vk), the prehash digits) are staged into shared
+//     memory by cp.async 16 rows ahead of the rows being rendered.
 //   * agg_fold is a shifted copy: every output word comes from at most a
 //     few segments (const, triple, separator) at offsets known from the N
 //     triple lengths, which differ from group to group.  Reading each
@@ -43,57 +54,93 @@
 //     the pipeline lays them out) a warp's copies of a row are one 128-B
 //     segment; with group-major lanes (col_stride N) they span 32*N words.
 //
-// What bounds it: memory.  At G=8192, N=4, secpar=256 (B=32,768 signers),
-// counting full widths: signer_fold_a reads ~70 MB and writes ~475 MB,
+// What bounds them.  Their bytes, at G=8192, N=4, secpar=256 (B=32,768
+// signers), counting full widths: signer_fold_a reads ~70 MB and writes ~475 MB,
 // signer_fold_b reads ~270 MB and writes ~350 MB, agg_fold reads ~350 MB and
 // writes ~351 MB: 0.16, 0.19 and 0.21 ms at 3.35 TB/s.  agg_fold re-reads
 // only the spread of its tiles' windows (a few dozen rows per 128 on real
 // triples, mostly from L2); its blocks wait on the lengths, the staged rows
 // and their stores in turn, three blocks an SM overlapping them (PERF.md
-// has its time against the bound).  The decimal rendering is ~70 integer
-// operations per value, far below that.  The per-lane kernels have only B
-// threads (~250 per SM at B=32,768), so their stores are latency-bound;
-// splitting a lane's values across threads needs a prefix sum of the
-// rendered lengths and is left to a later change.
-#include "preimage_ops.cuh"  // FCT_HD, Writer, Source, run_ops
-
-#ifdef __CUDACC__
-#include <cuda_pipeline.h>  // __pipeline_memcpy_async (cp.async)
-#endif
+// has its time against the bound).  The signer folds are bound by integer
+// issue, not by memory: on an NVIDIA H100 80GB HBM3 at 700 W, at the verify
+// call's inputs, signer_fold_a takes 2.4 and signer_fold_b 2.0 times its
+// byte bound (PERF.md), and a copy of them without their global stores
+// took as long.  Per value a thread issues ~50 instructions to render it
+// (two 5-digit halves by reciprocal multiplies, no divisions or branches)
+// and ~45 to append it (one 128-bit shift, four ring slots), most of them
+// on the integer pipe, which takes two cycles a warp instruction.
+#include "preimage_ops.cuh"  // FCT_HD, Source, TileWriter, tile_run_ops, cp.async
 
 namespace {
 
-// Lane b of signer_fold_a: writer 0 = challenge preimage, writer 1 = str(vk);
-// extra 0 = the prehash digits.
-FCT_HD void signer_fold_a_lane(const int32_t* ops, int n_ops, const uint32_t* pool,
-                               const int32_t* vk2d_t, const uint32_t* pre_w,
-                               int pre_rows, const int32_t* pre_len, int64_t batch,
-                               int64_t b, uint32_t* ch_out, int ch_width,
+// The signer folds: blocks of kTileWarps warps, a warp a tile of 32 / G
+// lanes, G threads a lane (signer_fold_a: G = 2, its two outputs;
+// signer_fold_b: G = 1), each warp with a ring of kRing rows and the stage
+// buffers in dynamic shared memory (48 KB a block).
+constexpr int kTileWarps = 4;
+constexpr int kRing = 64;
+
+// A warp's shared memory in words: its ring, then the stage buffers.
+constexpr int kTileSmemWords = kRing * kWarp + kStageWords;
+
+// The tile of 16 lanes whose lane 0 is batch lane b0, as L threads per
+// caller from warp thread t0 (preimage_ops.cuh), with the warp's shared
+// memory ``smem`` (a ring of R rows, then the stage buffers): thread t
+// writes signer_fold_a's output t % 2 of lane t / 2 (0 = the challenge
+// preimage, 1 = str(vk)); extra 0 = the prehash digits.
+template <int L, int R>
+FCT_HD void signer_fold_a_tile(const int32_t* ops, int n_ops, const uint32_t* pool,
+                               const int32_t* vk2d_t, const uint32_t* pre_w, int pre_rows,
+                               const int32_t* pre_len, int64_t batch, int64_t b0, int t0,
+                               uint32_t* smem, uint32_t* ch_out, int ch_width,
                                int32_t* ch_total, uint32_t* vk_out, int vk_width,
                                int32_t* vk_len) {
-  Writer ws[2] = {make_writer(ch_out + b, batch, ch_width),
-                  make_writer(vk_out + b, batch, vk_width)};
-  const Source ex[1] = {make_source(pre_w + b, batch, pre_rows, pre_len[b])};
-  run_ops<2>(ops, n_ops, pool, vk2d_t + b, batch, ex, ws);
-  finish(ws[0]);
-  finish(ws[1]);
-  ch_total[b] = ws[0].total;
-  vk_len[b] = ws[1].total;
+  constexpr int G = 2;
+  TileWriter<L, R, G> w;
+  uint32_t* const outs[G] = {ch_out, vk_out};
+  const int widths[G] = {ch_width, vk_width};
+  init_tile_writer(w, smem, outs, widths, batch, b0, t0);
+  const int32_t* vals[L];
+  Source ex[1][L];
+  for (int l = 0; l < L; ++l) {
+    const int64_t b = tile_lane_index(batch, b0, (t0 + l) / G);
+    vals[l] = vk2d_t + b;
+    ex[0][l] = make_source(pre_w + b, batch, pre_rows, pre_len[b]);
+  }
+  tile_run_ops(ops, n_ops, pool, vals, batch, ex, smem + R * kWarp, w);
+  w.finish();
+  int32_t* const totals[G] = {ch_total, vk_len};
+  for (int l = 0; l < L; ++l) {
+    if (w.live[l]) totals[(t0 + l) % G][b0 + (t0 + l) / G] = w.total[l];
+  }
 }
 
-// Lane b of signer_fold_b: writer 0 = the triple; extra 0 = str(vk),
-// extra 1 = the prehash digits; values = c_hat centered.
-FCT_HD void signer_fold_b_lane(const int32_t* ops, int n_ops, const uint32_t* pool,
+// signer_fold_b's tile of 32 lanes (``smem``: a ring of R rows, then the
+// stage buffers): output 0 = the triple; extra 0 = str(vk), extra 1 = the
+// prehash digits; values = c_hat centered.
+template <int L, int R>
+FCT_HD void signer_fold_b_tile(const int32_t* ops, int n_ops, const uint32_t* pool,
                                const uint32_t* vk_buf, int vk_rows, const int32_t* vk_len,
                                const uint32_t* pre_w, int pre_rows, const int32_t* pre_len,
-                               const int32_t* c_hat_t, int64_t batch, int64_t b,
-                               uint32_t* tri_out, int tri_width, int32_t* tri_total) {
-  Writer ws[1] = {make_writer(tri_out + b, batch, tri_width)};
-  const Source ex[2] = {make_source(vk_buf + b, batch, vk_rows, vk_len[b]),
-                        make_source(pre_w + b, batch, pre_rows, pre_len[b])};
-  run_ops<1>(ops, n_ops, pool, c_hat_t + b, batch, ex, ws);
-  finish(ws[0]);
-  tri_total[b] = ws[0].total;
+                               const int32_t* c_hat_t, int64_t batch, int64_t b0, int t0,
+                               uint32_t* smem, uint32_t* tri_out, int tri_width,
+                               int32_t* tri_total) {
+  TileWriter<L, R, 1> w;
+  uint32_t* const outs[1] = {tri_out};
+  init_tile_writer(w, smem, outs, &tri_width, batch, b0, t0);
+  const int32_t* vals[L];
+  Source ex[2][L];
+  for (int l = 0; l < L; ++l) {
+    const int64_t b = tile_lane_index(batch, b0, t0 + l);
+    vals[l] = c_hat_t + b;
+    ex[0][l] = make_source(vk_buf + b, batch, vk_rows, vk_len[b]);
+    ex[1][l] = make_source(pre_w + b, batch, pre_rows, pre_len[b]);
+  }
+  tile_run_ops(ops, n_ops, pool, vals, batch, ex, smem + R * kWarp, w);
+  w.finish();
+  for (int l = 0; l < L; ++l) {
+    if (w.live[l]) tri_total[b0 + t0 + l] = w.total[l];
+  }
 }
 
 // agg_fold, per group.  The aggregation preimage is a list of segments in
@@ -245,10 +292,11 @@ FCT_HD void agg_stage_rows(uint32_t* stage, const uint32_t* src, int64_t row_str
 }
 
 #ifdef __CUDACC__
-constexpr int kLaneThreads = 64;  // B=32,768 lanes -> 512 blocks over 132 SMs
-constexpr unsigned kFullWarp = 0xffffffffu;
+constexpr size_t kTileSmemBytes = sizeof(uint32_t) * kTileWarps * kTileSmemWords;
+static_assert(kTileSmemBytes <= 48 * 1024,
+              "above 48 KB a block's dynamic shared memory needs an opt-in before each launch");
 
-__global__ void __launch_bounds__(kLaneThreads)
+__global__ void __launch_bounds__(kTileWarps * kWarp)
 signer_fold_a_kernel(const int32_t* __restrict__ ops, int n_ops,
                      const uint32_t* __restrict__ pool,
                      const int32_t* __restrict__ vk2d_t,
@@ -257,14 +305,16 @@ signer_fold_a_kernel(const int32_t* __restrict__ ops, int n_ops,
                      uint32_t* __restrict__ ch_out, int ch_width,
                      int32_t* __restrict__ ch_total, uint32_t* __restrict__ vk_out,
                      int vk_width, int32_t* __restrict__ vk_len) {
-  const int64_t b = (int64_t)blockIdx.x * kLaneThreads + threadIdx.x;
-  if (b < batch) {
-    signer_fold_a_lane(ops, n_ops, pool, vk2d_t, pre_w, pre_rows, pre_len, batch, b,
-                       ch_out, ch_width, ch_total, vk_out, vk_width, vk_len);
-  }
+  extern __shared__ uint32_t tile_smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int64_t b0 = ((int64_t)blockIdx.x * kTileWarps + warp) * (kWarp / 2);
+  if (b0 >= batch) return;  // a whole warp past the batch
+  signer_fold_a_tile<1, kRing>(ops, n_ops, pool, vk2d_t, pre_w, pre_rows, pre_len, batch, b0,
+                               threadIdx.x % kWarp, tile_smem + warp * kTileSmemWords, ch_out,
+                               ch_width, ch_total, vk_out, vk_width, vk_len);
 }
 
-__global__ void __launch_bounds__(kLaneThreads)
+__global__ void __launch_bounds__(kTileWarps * kWarp)
 signer_fold_b_kernel(const int32_t* __restrict__ ops, int n_ops,
                      const uint32_t* __restrict__ pool,
                      const uint32_t* __restrict__ vk_buf, int vk_rows,
@@ -274,11 +324,14 @@ signer_fold_b_kernel(const int32_t* __restrict__ ops, int n_ops,
                      const int32_t* __restrict__ c_hat_t, int64_t batch,
                      uint32_t* __restrict__ tri_out, int tri_width,
                      int32_t* __restrict__ tri_total) {
-  const int64_t b = (int64_t)blockIdx.x * kLaneThreads + threadIdx.x;
-  if (b < batch) {
-    signer_fold_b_lane(ops, n_ops, pool, vk_buf, vk_rows, vk_len, pre_w, pre_rows,
-                       pre_len, c_hat_t, batch, b, tri_out, tri_width, tri_total);
-  }
+  extern __shared__ uint32_t tile_smem[];
+  const int warp = threadIdx.x / kWarp;
+  const int64_t b0 = ((int64_t)blockIdx.x * kTileWarps + warp) * kWarp;
+  if (b0 >= batch) return;
+  signer_fold_b_tile<1, kRing>(ops, n_ops, pool, vk_buf, vk_rows, vk_len, pre_w, pre_rows,
+                               pre_len, c_hat_t, batch, b0, threadIdx.x % kWarp,
+                               tile_smem + warp * kTileSmemWords, tri_out, tri_width,
+                               tri_total);
 }
 
 // A block's shared state: the lengths of a window of ops, their byte
@@ -314,22 +367,22 @@ __device__ __forceinline__ void agg_walk(AggTile& sh, int n_ops, int jbase, bool
     }
     s += len;
   }
-  first = __reduce_min_sync(kFullWarp, first);
-  last = __reduce_max_sync(kFullWarp, last);
+  first = __reduce_min_sync(kAllThreads, first);
+  last = __reduce_max_sync(kAllThreads, last);
   const int n = last < first ? 0 : last - first + 1;
   for (int q = 0; q < n; ++q) {
     const int k = first + q;
     const int len = sh.lens[k][lane], at = sh.starts[k][lane];
     int lo = 0x7fffffff, hi = -0x7fffffff - 1;
     if (live && agg_overlaps(at, len, b0, b1)) agg_window_rows(at, len, b0, b1, lo, hi);
-    lo = __reduce_min_sync(kFullWarp, lo);
-    hi = __reduce_max_sync(kFullWarp, hi);
+    lo = __reduce_min_sync(kAllThreads, lo);
+    hi = __reduce_max_sync(kAllThreads, hi);
     if (lane == 0) {
       sh.u_lo[q] = lo;
       sh.u_hi[q] = hi;
     }
   }
-  const bool more = jbase + count < n_ops && __any_sync(kFullWarp, live && s < b1);
+  const bool more = jbase + count < n_ops && __any_sync(kAllThreads, live && s < b1);
   if (lane == 0) {
     sh.n = n;
     sh.first = first;
@@ -416,6 +469,12 @@ agg_fold_kernel(const int32_t* __restrict__ ops, int n_ops,
 }  // namespace
 
 #ifdef __CUDACC__
+// Blocks for ``batch`` lanes at ``lanes`` lanes a warp.
+static unsigned tile_blocks(int64_t batch, int lanes) {
+  const int64_t per_block = (int64_t)kTileWarps * lanes;
+  return (unsigned)((batch + per_block - 1) / per_block);
+}
+
 // C entry points (bound with ctypes).  Each launches on ``stream`` and
 // returns cudaGetLastError().  ops int32[n_ops, 6] and pool int32[...] are a
 // FoldTable; every other array is described in the lane functions above.
@@ -426,8 +485,8 @@ extern "C" int fct_signer_fold_a(const int32_t* ops, int n_ops, const uint32_t* 
                                  uint32_t* vk_out, int vk_width, int32_t* vk_len,
                                  void* stream) {
   if (batch <= 0) return 0;
-  const unsigned grid = (unsigned)((batch + kLaneThreads - 1) / kLaneThreads);
-  signer_fold_a_kernel<<<grid, kLaneThreads, 0, (cudaStream_t)stream>>>(
+  signer_fold_a_kernel<<<tile_blocks(batch, kWarp / 2), kTileWarps * kWarp,
+                         kTileSmemBytes, (cudaStream_t)stream>>>(
       ops, n_ops, pool, vk2d_t, pre_w, pre_rows, pre_len, batch, ch_out, ch_width,
       ch_total, vk_out, vk_width, vk_len);
   return (int)cudaGetLastError();
@@ -441,8 +500,8 @@ extern "C" int fct_signer_fold_b(const int32_t* ops, int n_ops, const uint32_t* 
                                  uint32_t* tri_out, int tri_width, int32_t* tri_total,
                                  void* stream) {
   if (batch <= 0) return 0;
-  const unsigned grid = (unsigned)((batch + kLaneThreads - 1) / kLaneThreads);
-  signer_fold_b_kernel<<<grid, kLaneThreads, 0, (cudaStream_t)stream>>>(
+  signer_fold_b_kernel<<<tile_blocks(batch, kWarp), kTileWarps * kWarp,
+                         kTileSmemBytes, (cudaStream_t)stream>>>(
       ops, n_ops, pool, vk_buf, vk_rows, vk_len, pre_w, pre_rows, pre_len, c_hat_t,
       batch, tri_out, tri_width, tri_total);
   return (int)cudaGetLastError();

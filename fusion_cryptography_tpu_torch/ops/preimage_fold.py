@@ -87,6 +87,19 @@ def _check_lanes(name: str, t: torch.Tensor, rows: int, B: int, device) -> None:
                          f"got {tuple(t.shape)} on {t.device}")
 
 
+def _outputs(outs, shapes, device) -> list:
+    """``outs`` checked against int32 ``shapes`` on ``device``, or new
+    tensors of those shapes."""
+    if outs is None:
+        return [torch.empty(shape, dtype=torch.int32, device=device) for shape in shapes]
+    for t, shape in zip(outs, shapes):
+        kernels.require_cuda_tensor(t, "out", torch.int32, len(shape))
+        if tuple(t.shape) != shape or t.device != device:
+            raise ValueError(f"out: expected int32{list(shape)} on {device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    return list(outs)
+
+
 def signer_fold_a(params, vk2d_t: torch.Tensor, pre_w: torch.Tensor, pre_len: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """vk2d_t int32[2d, B] centered, pre_w int32[20, B] prehash digits,
@@ -96,6 +109,12 @@ def signer_fold_a(params, vk2d_t: torch.Tensor, pre_w: torch.Tensor, pre_len: to
     ``signer_fold_a``)."""
     if vk2d_t.device.type == "cpu":
         return signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)
+    return _signer_fold_a_launch(params, vk2d_t, pre_w, pre_len)
+
+
+def _signer_fold_a_launch(params, vk2d_t, pre_w, pre_len, outs=None):
+    """Kernel ``signer_fold_a`` into ``outs`` (its four outputs, for example
+    pre-filled by a test) or new tensors."""
     table = ds.signer_fold_a_table(params)
     dev = vk2d_t.device
     B = vk2d_t.shape[-1]
@@ -104,10 +123,7 @@ def signer_fold_a(params, vk2d_t: torch.Tensor, pre_w: torch.Tensor, pre_len: to
     _check_lanes("pre_len", pre_len, 0, B, dev)
     ops, pool = table.on(dev)
     ch_words, vk_words = table.widths
-    chb = torch.empty((ch_words, B), dtype=torch.int32, device=dev)
-    cht = torch.empty(B, dtype=torch.int32, device=dev)
-    vkb = torch.empty((vk_words, B), dtype=torch.int32, device=dev)
-    vkl = torch.empty(B, dtype=torch.int32, device=dev)
+    chb, cht, vkb, vkl = _outputs(outs, ((ch_words, B), (B,), (vk_words, B), (B,)), dev)
     rc = kernels.library().fct_signer_fold_a(
         ops.data_ptr(), ops.shape[0], pool.data_ptr(), vk2d_t.data_ptr(), pre_w.data_ptr(),
         PRE_ROWS, pre_len.data_ptr(), B, chb.data_ptr(), ch_words, cht.data_ptr(),
@@ -126,6 +142,12 @@ def signer_fold_b(params, vk_buf: torch.Tensor, vk_len: torch.Tensor, pre_w: tor
     tri_total int32[B]) (kernel ``signer_fold_b``)."""
     if vk_buf.device.type == "cpu":
         return signer_fold_b_plain(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t)
+    return _signer_fold_b_launch(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t)
+
+
+def _signer_fold_b_launch(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t, outs=None):
+    """Kernel ``signer_fold_b`` into ``outs`` (its two outputs) or new
+    tensors."""
     table = ds.signer_fold_b_table(params)
     dev = vk_buf.device
     B = vk_buf.shape[-1]
@@ -137,8 +159,7 @@ def signer_fold_b(params, vk_buf: torch.Tensor, vk_len: torch.Tensor, pre_w: tor
     _check_lanes("c_hat_t", c_hat_t, params.degree, B, dev)
     ops, pool = table.on(dev)
     (tri_words,) = table.widths
-    trib = torch.empty((tri_words, B), dtype=torch.int32, device=dev)
-    trit = torch.empty(B, dtype=torch.int32, device=dev)
+    trib, trit = _outputs(outs, ((tri_words, B), (B,)), dev)
     rc = kernels.library().fct_signer_fold_b(
         ops.data_ptr(), ops.shape[0], pool.data_ptr(), vk_buf.data_ptr(), vk_words,
         vk_len.data_ptr(), pre_w.data_ptr(), PRE_ROWS, pre_len.data_ptr(),

@@ -215,6 +215,37 @@ def test_fold_kernels_match_plain(dev, secpar):
     assert all(torch.equal(g, w) for g, w in zip(got_c, want_g))
 
 
+@pytest.mark.parametrize("B", [1, 4, 33, 32768 - 37])
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_signer_fold_kernels_any_batch(dev, secpar, B):
+    """Kernels ``signer_fold_a`` and ``signer_fold_b`` (a warp a tile of
+    lanes, rows staged in shared memory) == their plain versions word for
+    word, into outputs pre-filled with -1: a first warp whose lanes 0 and 1
+    drift more than a ring apart (every value "0" against every value in 11
+    bytes), B = 1, 4 (the lifecycle's one group), 33 and 32,768 - 37 (a last
+    warp and a last block part full); then through the wrappers."""
+    from test_torch_kernel_host import drift_fold_inputs
+
+    params = fusion_setup(secpar, 4)
+    vk2d_t, c_hat_t, pre_w, pre_len = (t.to(dev) for t in drift_fold_inputs(params, B, B))
+    want_a = pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)
+    want_b = pf.signer_fold_b_plain(params, want_a[2], want_a[3], pre_w, pre_len, c_hat_t)
+    before = dict(kernels.LAUNCHES)
+    outs_a = [torch.full_like(w, -1) for w in want_a]
+    got_a = pf._signer_fold_a_launch(params, vk2d_t, pre_w, pre_len, outs_a)
+    outs_b = [torch.full_like(w, -1) for w in want_b]
+    got_b = pf._signer_fold_b_launch(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t, outs_b)
+    torch.cuda.synchronize()
+    assert all(g is o for g, o in zip((*got_a, *got_b), (*outs_a, *outs_b)))
+    for got, want in zip((*got_a, *got_b), (*want_a, *want_b)):
+        assert torch.equal(got, want)
+    got_a = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
+    got_b = pf.signer_fold_b(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t)
+    assert all(torch.equal(g, w) for g, w in zip((*got_a, *got_b), (*want_a, *want_b)))
+    assert all(kernels.LAUNCHES[k] == before.get(k, 0) + 2
+               for k in ("signer_fold_a", "signer_fold_b"))
+
+
 @pytest.mark.parametrize("signer_major", [False, True], ids=["group_major", "signer_major"])
 @pytest.mark.parametrize("secpar,N,G", [(128, 1, 37), (128, 3, 1), (128, 2, 64),
                                         (256, 2, 65), (256, 4, 1), (256, 4, 300)])

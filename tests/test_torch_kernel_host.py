@@ -3,13 +3,16 @@
 ``csrc/*.cu`` keep each kernel's per-lane and per-row work (Keccak-f and the
 sponge lanes; the Cooley-Tukey and Gentleman-Sande butterflies, Shoup
 multiplies, the NTT's centered loads and stores and the centered reduction;
-the preimage folds' and the spec assembler's op-table walk, decimal
+the preimage folds' and the spec assembler's op-table walks, decimal
 rendering and word stream) in functions that also compile as plain C++: without nvcc,
 ``FCT_HD`` is ``static inline`` and the ``__global__`` parts drop out.  These
 tests build them with the host C++ compiler, with a serial loop in place of
 the CUDA grid, and hold them against the plain torch versions and hashlib.
-The launch geometry, the warp reductions and the ctypes binding run only on
-the card (tests/test_torch_cuda_kernels.py, marked ``cuda``)."""
+Where a kernel's threads cooperate (the absorb's pairs, the signer folds'
+warp tiles), the loop runs them in lockstep and each shuffle or warp
+reduction reads the other threads' registers.  The launch geometry, cp.async
+and the ctypes binding run only on the card (tests/test_torch_cuda_kernels.py,
+marked ``cuda``)."""
 import ctypes
 import shutil
 import subprocess
@@ -206,14 +209,23 @@ extern "C" void host_ntt_centered(const int32_t* x, int32_t* y, int64_t rows, in
   host_ntt_rows(x, y, rows, d, tw, tw_sh, inverse, n_inv, n_inv_sh, q);
 }
 
+// The signer folds through the one-thread-a-lane walk (run_ops with
+// Writer, the walk assemble_spec.cu runs), lane by lane.
 extern "C" void host_signer_fold_a(const int32_t* ops, int n_ops, const uint32_t* pool,
                                    const int32_t* vk2d_t, const uint32_t* pre_w,
                                    int pre_rows, const int32_t* pre_len, int64_t batch,
                                    uint32_t* ch_out, int ch_width, int32_t* ch_total,
                                    uint32_t* vk_out, int vk_width, int32_t* vk_len) {
-  for (int64_t b = 0; b < batch; ++b)
-    signer_fold_a_lane(ops, n_ops, pool, vk2d_t, pre_w, pre_rows, pre_len, batch, b,
-                       ch_out, ch_width, ch_total, vk_out, vk_width, vk_len);
+  for (int64_t b = 0; b < batch; ++b) {
+    Writer ws[2] = {make_writer(ch_out + b, batch, ch_width),
+                    make_writer(vk_out + b, batch, vk_width)};
+    const Source ex[1] = {make_source(pre_w + b, batch, pre_rows, pre_len[b])};
+    run_ops<2>(ops, n_ops, pool, vk2d_t + b, batch, ex, ws);
+    finish(ws[0]);
+    finish(ws[1]);
+    ch_total[b] = ws[0].total;
+    vk_len[b] = ws[1].total;
+  }
 }
 
 extern "C" void host_signer_fold_b(const int32_t* ops, int n_ops, const uint32_t* pool,
@@ -222,9 +234,87 @@ extern "C" void host_signer_fold_b(const int32_t* ops, int n_ops, const uint32_t
                                    int pre_rows, const int32_t* pre_len,
                                    const int32_t* c_hat_t, int64_t batch,
                                    uint32_t* tri_out, int tri_width, int32_t* tri_total) {
-  for (int64_t b = 0; b < batch; ++b)
-    signer_fold_b_lane(ops, n_ops, pool, vk_buf, vk_rows, vk_len, pre_w, pre_rows,
-                       pre_len, c_hat_t, batch, b, tri_out, tri_width, tri_total);
+  for (int64_t b = 0; b < batch; ++b) {
+    Writer ws[1] = {make_writer(tri_out + b, batch, tri_width)};
+    const Source ex[2] = {make_source(vk_buf + b, batch, vk_rows, vk_len[b]),
+                          make_source(pre_w + b, batch, pre_rows, pre_len[b])};
+    run_ops<1>(ops, n_ops, pool, c_hat_t + b, batch, ex, ws);
+    finish(ws[0]);
+    tri_total[b] = ws[0].total;
+  }
+}
+
+// The signer fold kernels' tiles, one after another: the kernels' own tile
+// functions with L = 32, so one call runs a warp's 32 threads in lockstep
+// (fold a: 16 lanes, two threads each; fold b: 32 lanes), the shuffles
+// reads of the source thread's registers and the warp reductions loops
+// over the threads.  Each tile's ring and stage buffers are poisoned first,
+// so a row stored from a slot no thread wrote, or a value read from a row
+// not staged, fails the comparison.  ring 0: the kernels' kRing rows;
+// otherwise R = 32, the shallowest ring (a window of 13 rows: more threads
+// lag and lead).
+template <int R>
+static void host_fold_a_tiles(const int32_t* ops, int n_ops, const uint32_t* pool,
+                              const int32_t* vk2d_t, const uint32_t* pre_w, int pre_rows,
+                              const int32_t* pre_len, int64_t batch, uint32_t* ch_out,
+                              int ch_width, int32_t* ch_total, uint32_t* vk_out, int vk_width,
+                              int32_t* vk_len) {
+  std::vector<uint32_t> smem(R * kWarp + kStageWords);
+  for (int64_t b0 = 0; b0 < batch; b0 += kWarp / 2) {  // 16 lanes a warp, two threads a lane
+    std::fill(smem.begin(), smem.end(), 0xA5A5A5A5u);
+    signer_fold_a_tile<kWarp, R>(ops, n_ops, pool, vk2d_t, pre_w, pre_rows, pre_len, batch, b0,
+                                 0, smem.data(), ch_out, ch_width, ch_total, vk_out, vk_width,
+                                 vk_len);
+  }
+}
+
+template <int R>
+static void host_fold_b_tiles(const int32_t* ops, int n_ops, const uint32_t* pool,
+                              const uint32_t* vk_buf, int vk_rows, const int32_t* vk_len,
+                              const uint32_t* pre_w, int pre_rows, const int32_t* pre_len,
+                              const int32_t* c_hat_t, int64_t batch, uint32_t* tri_out,
+                              int tri_width, int32_t* tri_total) {
+  std::vector<uint32_t> smem(R * kWarp + kStageWords);
+  for (int64_t b0 = 0; b0 < batch; b0 += kWarp) {
+    std::fill(smem.begin(), smem.end(), 0xA5A5A5A5u);
+    signer_fold_b_tile<kWarp, R>(ops, n_ops, pool, vk_buf, vk_rows, vk_len, pre_w, pre_rows,
+                                 pre_len, c_hat_t, batch, b0, 0, smem.data(), tri_out,
+                                 tri_width, tri_total);
+  }
+}
+
+// render_dec_halves of n values: bytes [n, 16] and lengths [n]
+extern "C" void host_render_halves(const int32_t* v, int64_t n, uint8_t* out, int32_t* len) {
+  for (int64_t i = 0; i < n; ++i) {
+    uint64_t lo;
+    uint32_t hi;
+    len[i] = render_dec_halves(v[i], lo, hi);
+    for (int j = 0; j < 8; ++j) out[16 * i + j] = (uint8_t)(lo >> (8 * j));
+    for (int j = 0; j < 4; ++j) out[16 * i + 8 + j] = (uint8_t)(hi >> (8 * j));
+  }
+}
+
+extern "C" void host_signer_fold_a_tiles(const int32_t* ops, int n_ops, const uint32_t* pool,
+                                         const int32_t* vk2d_t, const uint32_t* pre_w,
+                                         int pre_rows, const int32_t* pre_len, int64_t batch,
+                                         uint32_t* ch_out, int ch_width, int32_t* ch_total,
+                                         uint32_t* vk_out, int vk_width, int32_t* vk_len,
+                                         int ring) {
+  (ring == 0 ? host_fold_a_tiles<kRing> : host_fold_a_tiles<32>)(
+      ops, n_ops, pool, vk2d_t, pre_w, pre_rows, pre_len, batch, ch_out, ch_width, ch_total,
+      vk_out, vk_width, vk_len);
+}
+
+extern "C" void host_signer_fold_b_tiles(const int32_t* ops, int n_ops, const uint32_t* pool,
+                                         const uint32_t* vk_buf, int vk_rows,
+                                         const int32_t* vk_len, const uint32_t* pre_w,
+                                         int pre_rows, const int32_t* pre_len,
+                                         const int32_t* c_hat_t, int64_t batch,
+                                         uint32_t* tri_out, int tri_width, int32_t* tri_total,
+                                         int ring) {
+  (ring == 0 ? host_fold_b_tiles<kRing> : host_fold_b_tiles<32>)(
+      ops, n_ops, pool, vk_buf, vk_rows, vk_len, pre_w, pre_rows, pre_len, c_hat_t, batch,
+      tri_out, tri_width, tri_total);
 }
 
 // agg_fold's blocks, one after another: a tile of TG groups by TW output
@@ -385,6 +475,11 @@ def lib(tmp_path_factory):
     lib.host_ntt_centered.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
     lib.host_signer_fold_a.argtypes = [P, I32, P, P, P, I32, P, I64, P, I32, P, P, I32, P]
     lib.host_signer_fold_b.argtypes = [P, I32, P, P, I32, P, P, I32, P, P, I64, P, I32, P]
+    lib.host_render_halves.argtypes = [P, I64, P, P]
+    lib.host_signer_fold_a_tiles.argtypes = [P, I32, P, P, P, I32, P, I64, P, I32, P, P, I32, P,
+                                             I32]
+    lib.host_signer_fold_b_tiles.argtypes = [P, I32, P, P, I32, P, P, I32, P, P, I64, P, I32, P,
+                                             I32]
     lib.host_agg_fold.argtypes = [P, I32, P, P, I32, I64, I64, I64, I32, I64, P, I32, P, I32, P]
     lib.host_assemble_spec.argtypes = [P, I32, P, P, I64, P, I64, P, I32, P]
     return lib
@@ -624,6 +719,198 @@ def test_fold_lanes_match_plain(lib, secpar):
         out, total, _ = _host_agg_fold(lib, params, N, tbs, tls, tile)
         np.testing.assert_array_equal(out.numpy(), want[0].numpy())
         np.testing.assert_array_equal(total.numpy(), want[1].numpy())
+
+
+def drift_fold_inputs(params, B, seed):
+    """_fold_inputs with the widest drift a warp can see in its first tile:
+    lane 0 renders every value as "0" and has 1 prehash digit, lane 1 renders
+    every value in 11 bytes (-(q-1)/2) and has 78; lane 2 holds the int32
+    edges and lane 3 small values (the first B of these lanes when B < 4).
+    The prehash digits of lanes 32..63 end at most 17 words in (lane 33's
+    exactly: one word into a second chunk of 16) and those of lanes 64..
+    at most 16 (lane 64's exactly: a chunk with nothing after it)."""
+    q = params.modulus
+    vk2d_t, c_hat_t, pre_w, pre_len = _fold_inputs(params, max(B, 4), seed)
+    for t in (vk2d_t, c_hat_t):
+        t[:, 2] = t[:, 0]
+        t[:, 3] = torch.from_numpy(np.random.default_rng(seed).integers(-9, 10, t.shape[0]))
+        t[:, 0] = 0
+        t[:, 1] = -(q // 2)
+    pre_len[:2] = torch.tensor([1, ds.PREHASH_W], dtype=torch.int32)
+    pre_len[32:64] = pre_len[32:64].clamp(max=71)
+    pre_len[64:] = pre_len[64:].clamp(max=67)
+    pre_len[33:34] = 68
+    pre_len[64:65] = 64
+    return tuple(t[..., :B].contiguous() for t in (vk2d_t, c_hat_t, pre_w, pre_len))
+
+
+def _host_fold_tiles(lib, params, vk2d_t, c_hat_t, pre_w, pre_len, ring):
+    """Both signer folds through their kernels' tile functions (a warp's 32
+    lanes in lockstep, ``ring`` 0 for the kernels' ring, 1 for 32 rows), fold
+    b on fold a's str(vk); every output pre-filled with -1 ->
+    (ch_wbuf, ch_total, vk_buf, vk_len), (tri_wbuf, tri_total)."""
+    B = vk2d_t.shape[-1]
+    ta, tb = ds.signer_fold_a_table(params), ds.signer_fold_b_table(params)
+    ch_words, vk_words = ta.widths
+    (tri_words,) = tb.widths
+    a = [torch.full(shape, -1, dtype=torch.int32)
+         for shape in ((ch_words, B), (B,), (vk_words, B), (B,))]
+    ops, pool = ta.on("cpu")
+    lib.host_signer_fold_a_tiles(ops.data_ptr(), ops.shape[0], pool.data_ptr(),
+                                 vk2d_t.data_ptr(), pre_w.data_ptr(), pf.PRE_ROWS,
+                                 pre_len.data_ptr(), B, a[0].data_ptr(), ch_words,
+                                 a[1].data_ptr(), a[2].data_ptr(), vk_words, a[3].data_ptr(), ring)
+    b = [torch.full(shape, -1, dtype=torch.int32) for shape in ((tri_words, B), (B,))]
+    ops, pool = tb.on("cpu")
+    lib.host_signer_fold_b_tiles(ops.data_ptr(), ops.shape[0], pool.data_ptr(), a[2].data_ptr(),
+                                 vk_words, a[3].data_ptr(), pre_w.data_ptr(), pf.PRE_ROWS,
+                                 pre_len.data_ptr(), c_hat_t.data_ptr(), B, b[0].data_ptr(),
+                                 tri_words, b[1].data_ptr(), ring)
+    return a, b
+
+
+@pytest.mark.parametrize("B", [69, 4])
+@pytest.mark.parametrize("ring", [0, 1], ids=["kernel_ring", "ring32"])
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_fold_tiles_match_plain(lib, secpar, ring, B):
+    """The signer fold kernels' tiled walk (32 lanes in lockstep, whole rows
+    staged in a ring) == the plain versions, every word of -1-filled outputs:
+    a first tile whose lanes 0 and 1 drift far more than a ring apart (the
+    laggard and leader paths, at the kernels' ring and at 32 rows), a last tile of B %
+    32 lanes (B = 69; B = 4 is the lifecycle's one group)."""
+    params = fusion_setup(secpar, 3)
+    vk2d_t, c_hat_t, pre_w, pre_len = drift_fold_inputs(params, B, secpar + B)
+    got_a, got_b = _host_fold_tiles(lib, params, vk2d_t, c_hat_t, pre_w, pre_len, ring)
+    want_a = pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)
+    for got, exp in zip(got_a, want_a):
+        np.testing.assert_array_equal(got.numpy(), exp.numpy())
+    want_b = pf.signer_fold_b_plain(params, want_a[2], want_a[3], pre_w, pre_len, c_hat_t)
+    for got, exp in zip(got_b, want_b):
+        np.testing.assert_array_equal(got.numpy(), exp.numpy())
+    # lane 1 ran more than the kernels' 64-row ring ahead of lane 0
+    assert int(want_a[3][1] - want_a[3][0]) > 4 * 64 * 4
+
+
+def test_render_dec_halves_matches_str(lib):
+    """The tiled walk's decimal render == str() on every power of ten and its
+    neighbours, both signs, the int32 extremes, random int32, and every
+    value of each 5-digit half (0..99,999, and 100,000 * h for every upper
+    half h; one sign each)."""
+    tens = [10**k + d for k in range(10) for d in (-2, -1, 0, 1, 2)]
+    edges = [0, 2**31 - 1, -(2**31), -(2**31) + 1] + tens + [-t for t in tens]
+    rnd = np.random.default_rng(13).integers(-(2**31), 2**31, 200_000)
+    halves = np.concatenate([np.arange(100_000), -100_000 * np.arange(21_475)])
+    v = np.concatenate([np.array([t for t in edges if -(2**31) <= t < 2**31]), rnd,
+                        halves]).astype(np.int32)
+    out = np.zeros((v.size, 16), np.uint8)
+    lens = np.zeros(v.size, np.int32)
+    lib.host_render_halves(v.ctypes.data, v.size, out.ctypes.data, lens.ctypes.data)
+    for i, x in enumerate(v.tolist()):
+        want = str(x).encode()
+        assert lens[i] == len(want) and out[i, :len(want)].tobytes() == want, x
+
+
+def _random_table(rng, d, n_ops, n_extras, masks):
+    """A random op table over ``d`` value rows and ``n_extras`` extras:
+    consts of 0..70 bytes, cells with separators of 0..8 bytes and 0..d
+    values, extras; each op for a writer mask drawn from ``masks`` ->
+    (ops int32[n, 6], pool int32[...])."""
+    pool, ops = [], []
+
+    def intern(data):
+        at = len(pool)
+        pool.extend(np.frombuffer(data + b"\0" * (-len(data) % 4), "<u4").view(np.int32).tolist())
+        return at
+
+    for _ in range(n_ops):
+        kind, mask = rng.integers(0, 3), int(rng.choice(masks))
+        if kind == ds.OP_CONST:
+            data = bytes(rng.integers(1, 256, rng.integers(0, 71)).astype(np.uint8))
+            ops.append((ds.OP_CONST, mask, intern(data), len(data), 0, 0))
+        elif kind == ds.OP_CELLS:
+            sep = bytes(rng.integers(1, 256, rng.integers(0, 9)).astype(np.uint8))
+            i0 = int(rng.integers(0, d))
+            count = int(rng.integers(0, d - i0 + 1))
+            ops.append((ds.OP_CELLS, mask, intern(sep), len(sep), i0, count))
+        else:
+            ops.append((ds.OP_EXTRA, mask, int(rng.integers(0, n_extras)), 0, 0, 0))
+    return np.array(ops, np.int32), np.array(pool or [0], np.int32)
+
+
+def _concat_table(ops, pool, values, extras, writer):
+    """Writer ``writer``'s bytes of each lane by concatenation: values
+    int32[K, B], extras [(bytes uint8[B, n], lengths)]."""
+    pool_b = pool.view(np.uint8)
+    out = []
+    for b in range(values.shape[1]):
+        parts = []
+        for kind, mask, a0, a1, a2, a3 in ops.tolist():
+            if not (mask >> writer) & 1:
+                continue
+            if kind == ds.OP_CONST:
+                parts.append(pool_b[4 * a0:4 * a0 + a1].tobytes())
+            elif kind == ds.OP_CELLS:
+                sep = pool_b[4 * a0:4 * a0 + a1].tobytes()
+                parts += [sep + str(int(values[a2 + i, b])).encode() for i in range(a3)]
+            else:
+                by, ln = extras[a0]
+                parts.append(by[b, :int(ln[b])].tobytes())
+        out.append(b"".join(parts))
+    return out
+
+
+def _expected_words(want, width):
+    exp = np.zeros((len(want), 4 * width), np.uint8)
+    for b, w in enumerate(want):
+        exp[b, :min(len(w), 4 * width)] = np.frombuffer(w[:4 * width], np.uint8)
+    return exp.view(np.int32).T
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+@pytest.mark.parametrize("fold", ["a", "b"])
+def test_tile_walk_any_table(lib, fold, seed):
+    """The tiled walk on random op tables (long separators, long consts,
+    empty cells, extras of any length, widths that cut the content short)
+    == byte concatenation, every word of -1-filled outputs, at the kernels'
+    ring and at 32 rows; 69 lanes with the drift of drift_fold_inputs.
+    Fold b's tile (one thread a lane) on tables of one writer; fold a's
+    (two threads a lane, one per output) on ops for writer 1, 2 or both."""
+    params = fusion_setup(128, 3)
+    d, B = params.degree, 69
+    rng = np.random.default_rng(seed)
+    vk2d_t, c_hat_t, pre_w, pre_len = drift_fold_inputs(params, B, seed)
+    by_pre = pre_w.t().contiguous().view(torch.uint8).numpy()
+    if fold == "b":
+        ops, pool = _random_table(rng, d, 12, 2, [1])
+        vk_words = 40
+        ex_len = torch.from_numpy(rng.integers(0, 4 * vk_words + 1, B).astype(np.int32))
+        ex_len[:3] = torch.tensor([0, 4 * vk_words, 4 * 16 + 1], dtype=torch.int32)
+        ex_buf = torch.from_numpy(rng.integers(-(2**31), 2**31, (vk_words, B)).astype(np.int32))
+        by_ex = ex_buf.t().contiguous().view(torch.uint8).numpy()
+        wants = [_concat_table(ops, pool, c_hat_t, [(by_ex, ex_len), (by_pre, pre_len)], 0)]
+    else:
+        ops, pool = _random_table(rng, 2 * d, 12, 1, [1, 2, 3])
+        wants = [_concat_table(ops, pool, vk2d_t, [(by_pre, pre_len)], j) for j in (0, 1)]
+    longest = max(len(w) for want in wants for w in want)
+    for width in (-(-longest // 4) + 3, longest // 8):
+        for ring in (0, 1):
+            outs = [torch.full((width, B), -1, dtype=torch.int32) for _ in wants]
+            totals = [torch.full((B,), -1, dtype=torch.int32) for _ in wants]
+            if fold == "b":
+                lib.host_signer_fold_b_tiles(ops.ctypes.data, ops.shape[0], pool.ctypes.data,
+                                             ex_buf.data_ptr(), vk_words, ex_len.data_ptr(),
+                                             pre_w.data_ptr(), pf.PRE_ROWS, pre_len.data_ptr(),
+                                             c_hat_t.data_ptr(), B, outs[0].data_ptr(), width,
+                                             totals[0].data_ptr(), ring)
+            else:
+                lib.host_signer_fold_a_tiles(ops.ctypes.data, ops.shape[0], pool.ctypes.data,
+                                             vk2d_t.data_ptr(), pre_w.data_ptr(), pf.PRE_ROWS,
+                                             pre_len.data_ptr(), B, outs[0].data_ptr(), width,
+                                             totals[0].data_ptr(), outs[1].data_ptr(), width,
+                                             totals[1].data_ptr(), ring)
+            for out, total, want in zip(outs, totals, wants):
+                np.testing.assert_array_equal(out.numpy(), _expected_words(want, width))
+                np.testing.assert_array_equal(total.numpy(), [len(w) for w in want])
 
 
 def _host_agg_fold(lib, params, N, tbs, tls, tile):
