@@ -15,7 +15,8 @@ integer).
 Phases (each fails loudly; any failure exits non-zero):
   1. card, versions, kernel build (one nvcc per source, in parallel)
   2. kernels vs plain versions (the sponge on 4,096 lanes of 0..42,787 B,
-     the rate edges among them, and vs hashlib), with timings and
+     the rate edges among them, the squeeze at one and two threads a
+     sponge, and vs hashlib), with timings and
      each kernel's bound (``fusion_cryptography_tpu_torch/bounds.py``);
      ``agg_fold`` on group-major and signer-major lanes, G = 8,192, 8,155
      and 1, outputs on memory filled with -1, one call with host syncs
@@ -25,16 +26,18 @@ Phases (each fails loudly; any failure exits non-zero):
      with every int32 edge value; the signer folds on -1-filled outputs at
      B = 32,768 (warp 0's lanes ~1,300 words apart), 32,731 and 4 lanes and
      at secpar=128; ``assemble_spec`` on the challenge, triple
-     and aggregation specs, its outputs on memory filled with -1
+     and aggregation specs of those synthetic inputs, at full width and 37
+     lanes fewer, its outputs on memory filled with -1
   3. main path: fleet build (keys/s), verify: one warm call, per-call
      latency (median of 5 synced calls), 5 calls with one final sync; all
      verdicts true, a tampered aggregate fails in exactly its group;
      derive_coeffs_device on CUDA equals the CPU run (the kernels' plain
      versions) on 16 groups; one ``P.lattice`` call makes no host sync;
-     ``keccak_absorb`` at the three launches of one verify call (prehash,
-     challenge, aggregation; captured from the call), each equal to the
-     plain absorb at one and two threads per sponge and timed beside its
-     bound; the two signer fold kernels at the inputs of one verify call
+     ``keccak_absorb`` and ``keccak_squeeze`` at the three launches each
+     of one verify call (prehash, challenge, aggregation; captured from the
+     call), each equal to the plain absorb or squeeze at one and two
+     threads per sponge on -1-filled outputs and timed beside its bound;
+     the two signer fold kernels at the inputs of one verify call
      (captured from the call), each equal to its plain version on
      -1-filled outputs, and both timed beside their bounds on those inputs,
      the synthetic ones of phase 2, the same without edge values, without
@@ -44,7 +47,10 @@ Phases (each fails loudly; any failure exits non-zero):
      same fleet, verify (the same measurements) gives all verdicts true and
      rejects a tampered aggregate in exactly its group, derive_coeffs_device
      equals the "fold" configuration's over all 8,192 groups; kernel
-     ``assemble_spec`` runs twice per verify call, the signer folds never
+     ``assemble_spec`` runs twice per verify call, the signer folds never;
+     then its two calls of one verify call (challenge and triple spec,
+     captured) each equal the plain version on -1-filled outputs, timed
+     beside their bounds
   L. lifecycle, with phase 3's fleet alive: keygen of the fleet's 32,768
      keys (vk equals the fleet's), sign of all of them, aggregate and verify
      of 64 groups one call each (each aggregate equals the fleet's), a
@@ -180,6 +186,12 @@ def phase_kernels(dev, kernel_rows: list) -> None:
         out_p = keccak.shake256_squeeze_words(st_p, nw)
         errs_s.append(max_abs_err(out_k, out_p))
         require(errs_s[-1] == 0, f"keccak_squeeze != plain squeeze ({n_bytes} B)")
+        for team in SPONGE_TEAMS:
+            out_t = torch.full_like(out_p, -1)
+            ks._squeeze_launch(st_k, nw, team, out_t)
+            errs_s.append(max_abs_err(out_t, out_p))
+            require(errs_s[-1] == 0, f"keccak_squeeze ({team} thread(s) a sponge, {n_bytes} B) "
+                    "!= plain squeeze")
         got = out_k[:, :64].t().contiguous().view(torch.uint8).cpu().numpy()
         pay = by[:64].cpu().numpy()
         ln = lens[:64].cpu().numpy()
@@ -191,8 +203,9 @@ def phase_kernels(dev, kernel_rows: list) -> None:
     for i in range(64):
         want = hashlib.sha3_256(by[i, : int(lens[i])].cpu().numpy().tobytes()).digest()
         require(got[i].tobytes() == want, f"SHA3-256 lane {i} != hashlib")
-    log(f"sponge: B={B}, lengths 0..42787 B: absorb and squeeze (8423, 15872 B) "
-        "equal the plain versions; 64 lanes equal hashlib shake_256/sha3_256")
+    log(f"sponge: B={B}, lengths 0..42787 B: absorb and squeeze (8423, 15872 B; the squeeze "
+        "at one and two threads a sponge too) equal the plain versions; 64 lanes equal "
+        "hashlib shake_256/sha3_256")
     t_abs = cuda_ms(lambda: ks.absorb(padded, nblk), 3)
     t_abs_p = cuda_ms(lambda: keccak.absorb_padded(padded, nblk), 1)
     nw = -(-15872 // 4)
@@ -205,8 +218,8 @@ def phase_kernels(dev, kernel_rows: list) -> None:
         f"{b_abs['bound_ms']:.4f} ms by {b_abs['bound_by']}: {n_perm} permutations)")
     log(f"  keccak_squeeze {t_sq:.3f} ms  (plain {t_sq_p:.3f} ms, bound "
         f"{b_sq['bound_ms']:.4f} ms by {b_sq['bound_by']})  [{nw} words]")
-    # the row's ms, plain_ms and bound are the verify call's three launches
-    # (phase_sponge_shapes); these are the edge check's
+    # the rows' ms, plain_ms and bound are the verify call's three launches
+    # (phase_sponge_shapes); these are the edge checks'
     kernel_rows += [
         dict(name="keccak_absorb", route="cuda",
              source="fusion_cryptography_tpu_torch/csrc/keccak_sponge.cu",
@@ -216,48 +229,78 @@ def phase_kernels(dev, kernel_rows: list) -> None:
         dict(name="keccak_squeeze", route="cuda",
              source="fusion_cryptography_tpu_torch/csrc/keccak_sponge.cu",
              replaces="fusion_cryptography_tpu/ops/keccak_pallas.py:123",
-             max_abs_err=max(errs_s), ms=t_sq, plain_ms=t_sq_p, **b_sq, library_ms=None),
+             max_abs_err=max(errs_s), edge_ms=t_sq, edge_plain_ms=t_sq_p,
+             edge_bound_ms=b_sq["bound_ms"], library_ms=None),
     ]
     del padded, words, by, st_k, st_p
     torch.cuda.empty_cache()
 
 
 SPONGE_LAUNCHES = ("prehash", "challenge", "aggregation")
-ABSORB_TEAMS = (1, 2)  # threads per sponge
+SPONGE_TEAMS = (1, 2)  # threads per sponge
 
 
-def phase_sponge_shapes(params, fleet, kernel_rows: list) -> None:
-    """Kernel ``keccak_absorb`` at the verify call's own launches: the
-    (padded words, block counts) of its three ``absorb`` calls (prehash
-    SHA3-256, challenge and aggregation SHAKE256) captured from one
-    ``verify_batch_device`` call on the fleet; each held exactly against the
-    plain absorb at one and two threads per sponge (each into a state
-    pre-filled with -1) and through the wrapper, and timed beside its bound,
-    its permutations and the idle-lane ratio of one and two threads per
-    sponge.  The ``keccak_absorb`` row's ms, plain_ms and bound_ms become
-    the sums over the three launches at the wrapper's choice."""
-    from fusion_cryptography_tpu_torch.ops import keccak, keccak_sponge as ks
+def capture_sponges(params, fleet) -> tuple:
+    """The arguments of the sponge calls of one ``verify_batch_device`` call
+    on the fleet: ([(padded words, block counts)] of its absorb calls,
+    [(state, n_words)] of its squeeze calls), each in call order."""
+    from fusion_cryptography_tpu_torch.ops import keccak_sponge as ks
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
 
-    captured = []
-    absorb = ks.absorb
+    absorbs, squeezes = [], []
+    absorb, squeeze = ks.absorb, ks.squeeze
 
-    def record(words, n_blocks):
-        captured.append((words.clone(), n_blocks.clone()))
+    def record_absorb(words, n_blocks):
+        absorbs.append((words.clone(), n_blocks.clone()))
         return absorb(words, n_blocks)
 
-    ks.absorb = record
+    def record_squeeze(state, n_words):
+        squeezes.append((state.clone(), n_words))
+        return squeeze(state, n_words)
+
+    ks.absorb, ks.squeeze = record_absorb, record_squeeze
     try:
         dp.verify_batch_device(params, *fleet)
         torch.cuda.synchronize()
     finally:
-        ks.absorb = absorb
-    require(len(captured) == len(SPONGE_LAUNCHES),
-            f"a verify call made {len(captured)} absorb launches, not {len(SPONGE_LAUNCHES)}")
+        ks.absorb, ks.squeeze = absorb, squeeze
+    for name, calls in (("absorb", absorbs), ("squeeze", squeezes)):
+        require(len(calls) == len(SPONGE_LAUNCHES),
+                f"a verify call made {len(calls)} {name} launches, not {len(SPONGE_LAUNCHES)}")
+    return absorbs, squeezes
+
+
+def sum_launches(row: dict, shapes: list, errs: list) -> None:
+    """A sponge kernel's row: ms, plain_ms and bound_ms summed over the
+    verify call's launches (``shapes``), bound_by that of the larger
+    share of the bound."""
+    total = {k: sum(sh[k] for sh in shapes) for k in ("ms", "plain_ms", "bound_ms")}
+    bound_by = max(("bytes", "operations"),
+                   key=lambda k: sum(sh["bound_ms"] for sh in shapes if sh["bound_by"] == k))
+    row.update(max_abs_err=max(errs), bound_by=bound_by, shapes=shapes, **total)
+    log(f"{row['name']} over the verify call's three launches: {total['ms']:.4f} ms, bound "
+        f"{total['bound_ms']:.4f} ms ({total['ms'] / total['bound_ms']:.2f}x)")
+
+
+def phase_sponge_shapes(params, fleet, kernel_rows: list) -> None:
+    """Kernels ``keccak_absorb`` and ``keccak_squeeze`` at the verify call's
+    own launches: the arguments of its three ``absorb`` calls (padded words,
+    block counts) and three ``squeeze`` calls (state, words) -- prehash
+    SHA3-256, challenge and aggregation SHAKE256 -- captured from one
+    ``verify_batch_device`` call on the fleet; each held exactly against the
+    plain absorb or squeeze at one and two threads per sponge (each into an
+    output pre-filled with -1) and through the wrapper, and timed beside
+    its bound (for the absorb also its permutations and the idle-lane ratio
+    of one and two threads per sponge).  Each row's ms, plain_ms and
+    bound_ms become the sums over the three launches at the wrapper's
+    choice."""
+    from fusion_cryptography_tpu_torch.ops import keccak, keccak_sponge as ks
+
+    absorbs, squeezes = capture_sponges(params, fleet)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     row = next(r for r in kernel_rows if r["name"] == "keccak_absorb")
     shapes, errs = [], [row["max_abs_err"]]
-    for label, (padded, nblk) in zip(SPONGE_LAUNCHES, captured):
+    for label, (padded, nblk) in zip(SPONGE_LAUNCHES, absorbs):
         B = nblk.numel()
         torch.cuda.synchronize()
         t0 = time.time()
@@ -265,7 +308,7 @@ def phase_sponge_shapes(params, fleet, kernel_rows: list) -> None:
         torch.cuda.synchronize()
         t_plain = (time.time() - t0) * 1e3
         team_ms = {}
-        for team in ABSORB_TEAMS:
+        for team in SPONGE_TEAMS:
             state = torch.full((50, B), -1, dtype=torch.int32, device=padded.device)
             ks._absorb_launch(padded, nblk, team, state)
             errs.append(max_abs_err(state, want))
@@ -292,13 +335,42 @@ def phase_sponge_shapes(params, fleet, kernel_rows: list) -> None:
             f"/ {shape['warp_ratio_team2']:.4f} (2 threads)")
         log(f"  one thread a sponge {team_ms[1]:.4f} ms, two {team_ms[2]:.4f} ms")
         del want
-    total = {k: sum(sh[k] for sh in shapes) for k in ("ms", "plain_ms", "bound_ms")}
-    bound_by = max(("bytes", "operations"),
-                   key=lambda k: sum(sh["bound_ms"] for sh in shapes if sh["bound_by"] == k))
-    row.update(max_abs_err=max(errs), bound_by=bound_by, shapes=shapes, **total)
-    log(f"keccak_absorb over the verify call's three launches: {total['ms']:.4f} ms, bound "
-        f"{total['bound_ms']:.4f} ms ({total['ms'] / total['bound_ms']:.2f}x)")
-    del captured
+    sum_launches(row, shapes, errs)
+
+    row = next(r for r in kernel_rows if r["name"] == "keccak_squeeze")
+    shapes, errs = [], [row["max_abs_err"]]
+    for label, (state, n_words) in zip(SPONGE_LAUNCHES, squeezes):
+        B = state.shape[1]
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want = keccak.shake256_squeeze_words(state, n_words)
+        torch.cuda.synchronize()
+        t_plain = (time.time() - t0) * 1e3
+        team_ms = {}
+        for team in SPONGE_TEAMS:
+            out = torch.full((n_words, B), -1, dtype=torch.int32, device=state.device)
+            ks._squeeze_launch(state, n_words, team, out)
+            errs.append(max_abs_err(out, want))
+            require(errs[-1] == 0, f"keccak_squeeze ({label}, {team} thread(s) a sponge) "
+                    "!= plain squeeze")
+            team_ms[team] = cuda_ms(lambda: ks._squeeze_launch(state, n_words, team, out), 5)
+        errs.append(max_abs_err(ks.squeeze(state, n_words), want))
+        require(errs[-1] == 0, f"keccak_squeeze ({label}, wrapper) != plain squeeze")
+        team = ks.squeeze_team(B, n_words, sms)
+        t_k = cuda_ms(lambda: ks.squeeze(state, n_words), 5)
+        b = bounds.keccak_squeeze(B, n_words)
+        shape = dict(launch=label, lanes=B, words=n_words,
+                     permutations=B * (-(-n_words // keccak.RATE_WORDS) - 1), team=team,
+                     ms=t_k, plain_ms=t_plain, **b, team1_ms=team_ms[1], team2_ms=team_ms[2])
+        shapes.append(shape)
+        log(f"keccak_squeeze, the verify call's {label} launch: B={B}, {n_words} words, "
+            f"{shape['permutations']} permutations: both teams equal the plain squeeze; "
+            f"wrapper ({team} thread(s) per sponge) {t_k:.4f} ms, plain {t_plain:.1f} ms, "
+            f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({t_k / b['bound_ms']:.2f}x)")
+        log(f"  one thread a sponge {team_ms[1]:.4f} ms, two {team_ms[2]:.4f} ms")
+        del want
+    sum_launches(row, shapes, errs)
+    del absorbs, squeezes
     torch.cuda.empty_cache()
 
 
@@ -716,14 +788,53 @@ def phase_agg_fold(params, tri_buf: torch.Tensor, tri_len: torch.Tensor, dev,
     del tb_s, tl_s, layouts, want, tbs, tls
 
 
+def check_assemble(spec, values, extras, bnds, pad_words, label: str) -> int:
+    """Kernel ``assemble_spec`` == its plain version, every word and length,
+    into outputs pre-filled with -1, and through the wrapper -> the largest
+    absolute error (0)."""
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+    from fusion_cryptography_tpu_torch.ops.assemble_spec import (
+        _assemble_spec_launch, assemble_spec)
+
+    want = ds.assemble_chunks_words(spec, values, extras, bnds, pad_words)
+    got = _assemble_spec_launch(spec, values, extras, pad_words,
+                                tuple(torch.full_like(w, -1) for w in want))
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    require(err == 0, f"assemble_spec ({label}) != plain version")
+    got = assemble_spec(spec, values, extras, bnds, pad_words)
+    err = max([err] + [max_abs_err(x, y) for x, y in zip(got, want)])
+    require(err == 0, f"assemble_spec ({label}, wrapper) != plain version")
+    return err
+
+
+def time_assemble(spec, values, extras, bnds, pad_words) -> dict:
+    """Kernel ``assemble_spec`` (through the wrapper) and its plain version
+    timed on one input set, with its bound -> {"ms", "plain_ms",
+    "bound_ms", "bound_by", "lanes", "values", "width"}."""
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+    from fusion_cryptography_tpu_torch.ops.assemble_spec import assemble_spec
+
+    (width,) = ds.spec_table(spec, pad_words).widths
+    lanes = (values if values is not None else extras[0][0]).shape[-1]
+    n_vals = 0 if values is None else values.shape[0]
+    args = (spec, values, extras, bnds, pad_words)
+    return dict(
+        ms=cuda_ms(lambda: assemble_spec(*args), 10),
+        plain_ms=cuda_ms(lambda: ds.assemble_chunks_words(*args), 2),
+        **bounds.assemble_spec(n_vals, lanes, [el for _, el in extras], width),
+        lanes=lanes, values=n_vals, width=width)
+
+
 def phase_assemble_kernel(dev, kernel_rows: list) -> None:
-    """Kernel ``assemble_spec`` on the three specs at full width: the
-    challenge spec (B = 32,768 lanes, values int32[512, B], the prehash
-    extra, rate-padded), the triple spec (values int32[768, B]) and the
-    aggregation spec (G = 8,192 groups, N = 4 strided triple views: an
-    extras-only program).  Each output lands on a block of the caching
-    allocator filled with -1 just before the call, so a word the kernel
-    leaves unwritten fails the exact comparison with the plain version."""
+    """Kernel ``assemble_spec`` on the three specs at full width, on the
+    synthetic inputs of :func:`fold_inputs` (warp 0's lanes ~1,300 words
+    apart): the challenge spec (B = 32,768 lanes, values int32[512, B], the
+    prehash extra, rate-padded), the triple spec (values int32[768, B]) and
+    the aggregation spec (G = 8,192 groups, N = 4 strided triple views: an
+    extras-only program), each held exactly against its plain version on
+    outputs pre-filled with -1 and through the wrapper, also at B - 37
+    lanes, and timed (the row's ms and triple_ms come from the verify
+    call's own inputs, :func:`phase_assemble_shapes`)."""
     from fusion_cryptography_tpu_torch.interop import device_serial as ds
     from fusion_cryptography_tpu_torch.ops import ragged_words as rw
     from fusion_cryptography_tpu_torch.ops.assemble_spec import assemble_spec
@@ -751,31 +862,73 @@ def phase_assemble_kernel(dev, kernel_rows: list) -> None:
                replaces="fusion_cryptography_tpu/ops/assemble_pallas.py:49", library_ms=None)
     errs = []
     for label, spec, values, extras, bnds, width in cases:
-        lanes = (values if values is not None else extras[0][0]).shape[-1]
-        torch.cuda.synchronize()
-        junk = torch.full((width, lanes), -1, dtype=torch.int32, device=dev)
-        junk_ptr = junk.data_ptr()
-        del junk
-        got = assemble_spec(spec, values, extras, bnds, width)
-        require(got[0].data_ptr() == junk_ptr,
-                f"assemble_spec ({label}): the output did not land on the -1-filled block")
-        want = ds.assemble_chunks_words(spec, values, extras, bnds, width)
-        errs.append(max(max_abs_err(x, y) for x, y in zip(got, want)))
-        require(errs[-1] == 0, f"assemble_spec ({label} spec) != plain version")
-        del got, want
-        t_k = cuda_ms(lambda: assemble_spec(spec, values, extras, bnds, width), 10)
-        t_p = cuda_ms(lambda: ds.assemble_chunks_words(spec, values, extras, bnds, width), 2)
-        n_vals = 0 if values is None else values.shape[0]
-        bnd = bounds.assemble_spec(n_vals, lanes, [el for _, el in extras], width)
-        log(f"assemble_spec, {label} spec: {lanes} lanes, {n_vals} values, {len(extras)} "
-            f"extras, {width} words equal the plain version; {t_k:.3f} ms (plain {t_p:.3f} ms, "
-            f"bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']})")
-        key = "" if label == "challenge" else f"{label}_"
-        row.update({f"{key}ms": t_k, f"{key}plain_ms": t_p, f"{key}bound_ms": bnd["bound_ms"],
-                    f"{key}bound_by": bnd["bound_by"]})
+        errs.append(check_assemble(spec, values, extras, bnds, width, f"{label} spec"))
+        cut = G * N - 37 if values is not None else G - 37
+        errs.append(check_assemble(
+            spec, None if values is None else values[:, :cut].contiguous(),
+            [(eb[:, :cut], el[:cut]) for eb, el in extras], bnds, width,
+            f"{label} spec, {cut} lanes"))
+        t = time_assemble(spec, values, extras, bnds, width)
+        log(f"assemble_spec, {label} spec (synthetic): {t['lanes']} lanes, {t['values']} values, "
+            f"{len(extras)} extras, {width} words equal the plain version on -1-filled outputs "
+            f"(also at {cut} lanes); {t['ms']:.3f} ms (plain {t['plain_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']}, {t['ms'] / t['bound_ms']:.2f}x)")
+        key = {"challenge": "synthetic_", "triple": "synthetic_triple_",
+               "aggregation": "aggregation_"}[label]
+        row.update({f"{key}ms": t["ms"], f"{key}plain_ms": t["plain_ms"],
+                    f"{key}bound_ms": t["bound_ms"], f"{key}bound_by": t["bound_by"]})
     row["max_abs_err"] = max(errs)
     kernel_rows.append(row)
     del tb, tl, tbv, tlv, tvals, cases
+    torch.cuda.empty_cache()
+
+
+def capture_assemble(params, fleet) -> list:
+    """The arguments (spec, values, extras, extra_bounds, pad_words) of the
+    ``assemble_spec`` calls of one ``verify_batch_device(...,
+    assembly="spec")`` call on the fleet, in call order."""
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    captured = []
+    saved = dp.assemble_spec
+
+    def record(spec, values=None, extras=(), extra_bounds=None, pad_words=None):
+        captured.append((spec, None if values is None else values.clone(),
+                         [(eb.clone(), el.clone()) for eb, el in extras], extra_bounds,
+                         pad_words))
+        return saved(spec, values, extras, extra_bounds, pad_words)
+
+    dp.assemble_spec = record
+    try:
+        dp.verify_batch_device(params, *fleet, assembly="spec")
+        torch.cuda.synchronize()
+    finally:
+        dp.assemble_spec = saved
+    require(len(captured) == 2, f'a "spec" verify call made {len(captured)} assemble_spec '
+            "calls, not 2")
+    return captured
+
+
+def phase_assemble_shapes(params, fleet, kernel_rows: list) -> None:
+    """Kernel ``assemble_spec`` at the "spec" verify call's own inputs: its
+    two calls (the challenge spec and the triple spec) captured from one
+    call on the fleet, each held exactly against the plain version on
+    -1-filled outputs and through the wrapper, and timed beside its bound.
+    The row's ms and triple_ms (and their plain times and bounds) become
+    these."""
+    row = next(r for r in kernel_rows if r["name"] == "assemble_spec")
+    errs = [row["max_abs_err"]]
+    for label, args in zip(("challenge", "triple"), capture_assemble(params, fleet)):
+        errs.append(check_assemble(*args, f"the verify call's {label} spec"))
+        t = time_assemble(*args)
+        log(f"assemble_spec, the verify call's {label} spec: {t['lanes']} lanes, {t['values']} "
+            f"values, {t['width']} words equal the plain version on -1-filled outputs; "
+            f"{t['ms']:.4f} ms (plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']}, {t['ms'] / t['bound_ms']:.2f}x)")
+        key = "" if label == "challenge" else "triple_"
+        row.update({f"{key}ms": t["ms"], f"{key}plain_ms": t["plain_ms"],
+                    f"{key}bound_ms": t["bound_ms"], f"{key}bound_by": t["bound_by"]})
+    row["max_abs_err"] = max(errs)
     torch.cuda.empty_cache()
 
 
@@ -1202,6 +1355,7 @@ def main(argv) -> int:
     # -- S. the "spec" assembly ---------------------------------------------
     spec_metrics, spec_launches = drive_spec_path(params, fleet, metrics, dev)
     metrics.update(spec_metrics)
+    phase_assemble_shapes(params, fleet, kernel_rows)
 
     # -- L. lifecycle ---------------------------------------------------------
     life_metrics, life_launches = drive_lifecycle(params, fleet, dev)

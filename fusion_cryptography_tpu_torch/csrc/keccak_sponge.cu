@@ -9,20 +9,25 @@
 // per-lane block counts i32[B], state u32[50, B] (word 2l = low half of lane
 // l), XOF words u32[n_words, B].  Bytes are little-endian in each word.
 //
-// Design.  keccak_absorb puts one or two threads on a sponge, in blocks of
-// 128 threads, as the wrapper chooses from the batch
-// (ops/keccak_sponge.absorb_team):
+// Design.  Both kernels put one or two threads on a sponge, in blocks of
+// 128 threads, as the wrappers choose from the batch
+// (ops/keccak_sponge.absorb_team, squeeze_team):
 //  - one thread (the 64-bit form): the 25 lanes live as uint64_t in
-//    registers, and the thread loops over its own block count nblk[b] in
-//    place of the TPU's masked sequential grid axis;
+//    registers; the absorb loops over its own block count nblk[b] in place
+//    of the TPU's masked sequential grid axis;
 //  - two threads (the bit-interleaved form, below): each holds one half of
 //    every lane's bits, and a round exchanges 17 words with the partner
 //    (__shfl_xor_sync).  A warp then holds 16 sponges and runs the warp's
-//    largest count, so every shuffle is a full-warp one.
-// Both load block j + 1 before permuting block j.  Threads index the batch
+//    largest count, so every shuffle is a full-warp one.  The absorb
+//    interleaves each block's words as it XORs them in and de-interleaves
+//    the state once at the end; the squeeze interleaves the state once and
+//    de-interleaves each rate block's 17 lanes before storing them (one
+//    exchange a word), each thread storing its word of each lane.
+// The absorb loads block j + 1 before permuting block j.  The squeeze
+// permutes before every block after the first; the TPU kernel permutes
+// after every block, which gives the same words.  Threads index the batch
 // axis, so a warp's loads and stores are contiguous segments.  Any B is
-// accepted; counts are clamped to [0, max_blocks].  keccak_squeeze keeps
-// one thread per sponge.
+// accepted; counts are clamped to [0, max_blocks].
 //
 // What bounds it: integer issue.  A permutation needs ~4,320 32-bit
 // instructions (bounds.KECCAK_OPS) and reads 136 bytes, far from the
@@ -32,17 +37,22 @@
 // x 4).  At G=8192, N=4 a verify call absorbs in three launches: the
 // prehash (32,768 sponges of 1 block), the challenge (32,768 sponges of
 // <=54 blocks, ~1.6 M permutations) and the aggregation (8,192 sponges of
-// <=315 blocks, ~2.3 M permutations).  The first two are 1,024 warps at
-// one thread a sponge, about two a scheduler.  The aggregation is 256
-// warps at one thread a sponge, half the schedulers idle; at two threads a
-// sponge it is 512.  A pair's round costs each thread about 95 logic ops
-// and funnel shifts (the 64-bit form's count per sponge, split in two), 12
-// adds for its role's rotation amounts and 17 shuffles, and each absorbed
-// block 17 more shuffles and ~15 ops a word to interleave it.  So two
-// threads a sponge fill the card where one cannot, and one thread a sponge
-// is cheaper where both can.  The sponges of a launch differ by a few
-// blocks at most, so lanes idle in a warp only briefly and are not
-// regrouped by count.
+// <=315 blocks, ~2.3 M permutations); it squeezes in three more: 8 words
+// (no permutation), 61 permutations a sponge of 32,768, and ~116 of
+// 8,192.  At 32,768 sponges one thread a sponge is 1,024 warps, about two
+// a scheduler.  At 8,192 it is 256 warps, half the schedulers idle; at two
+// threads a sponge it is 512.  A pair's round costs each thread about 95
+// logic ops and funnel shifts (the 64-bit form's count per sponge, split
+// in two), 12 adds for its role's rotation amounts and 17 shuffles, and
+// each absorbed or squeezed block 17 more shuffles and ~15 ops a word to
+// interleave or de-interleave it.  So two threads a sponge fill the card
+// where one cannot, and one thread a sponge is cheaper where both can.
+// The sponges of a launch differ by a few blocks at most, so lanes idle
+// in a warp only briefly and are not regrouped by count.
+// The squeeze's pair issues ~3,300 instructions a block per thread (its
+// SASS), ~1.5 times the minimum per sponge, at about one every two cycles,
+// the integer pipe's rate for the one warp on each scheduler: on an H100
+// its aggregation launch takes 1.5 times its bound.
 #include <cstdint>
 
 #ifdef __CUDACC__
@@ -440,11 +450,64 @@ keccak_absorb_kernel(const uint32_t* __restrict__ words,
   }
 }
 
+// Squeeze lane b with the pair of threads of role e: each loads its word
+// of every lane (role 1 the low words, role 0 the high words) and forms
+// its interleaved word as the absorb forms a block's (one exchange a
+// word).  Before each 34-word block its 17 rate lanes are de-interleaved,
+// one exchange a word, as the absorb's final state is, and each role
+// stores its word of each lane.  The pair permutes before every block
+// after the first.  A pair past the batch (``live`` false) runs with its
+// warp, so every exchange is a full-warp shuffle, and stores nothing.
+__device__ __forceinline__ void sponge_squeeze_pair(const uint32_t* __restrict__ state,
+                                                    uint32_t* __restrict__ out, int n_words,
+                                                    int64_t batch, int64_t b, bool live,
+                                                    uint32_t e) {
+  const uint32_t sel = pair_sel(e);
+  const int64_t high = 1 - (int64_t)e;  // the row of the lane's word this role holds
+  uint32_t s[25];
+#pragma unroll
+  for (int l = 0; l < 25; ++l) {
+    const uint32_t u = unzip32(state[(2 * l + high) * batch + b]);
+    s[l] = byte_perm(u, __shfl_xor_sync(kFullWarp, u, 1), sel);
+  }
+  const int n_blocks = (n_words + 33) / 34;
+  for (int k = 0; k < n_blocks; ++k) {
+    if (k) keccak_f1600_pair(s, e);
+    // the 17 words first, then their stores in one branch: a store
+    // predicated word by word would put each word's zip chain in a branch
+    // of its own, and the 17 chains would run one after another
+    uint32_t v[17];
+#pragma unroll
+    for (int l = 0; l < 17; ++l)
+      v[l] = zip32(byte_perm(s[l], __shfl_xor_sync(kFullWarp, s[l], 1), sel));
+    const int base = 34 * k + (int)high;
+    uint32_t* dst = out + (int64_t)base * batch + b;
+    if (live && 34 * (k + 1) <= n_words) {
+#pragma unroll
+      for (int l = 0; l < 17; ++l) dst[(int64_t)(2 * l) * batch] = v[l];
+    } else if (live) {  // the last block, part full
+#pragma unroll
+      for (int l = 0; l < 17; ++l) {
+        if (base + 2 * l < n_words) dst[(int64_t)(2 * l) * batch] = v[l];
+      }
+    }
+  }
+}
+
+// TEAM threads per sponge, as keccak_absorb_kernel.
+template <int TEAM>
 __global__ void __launch_bounds__(kSqueezeThreads)
 keccak_squeeze_kernel(const uint32_t* __restrict__ state,
                       uint32_t* __restrict__ out, int n_words, int64_t batch) {
-  const int64_t b = (int64_t)blockIdx.x * kSqueezeThreads + threadIdx.x;
-  if (b < batch) sponge_squeeze_lane(state, out, n_words, batch, b);
+  const int64_t t = (int64_t)blockIdx.x * kSqueezeThreads + threadIdx.x;
+  if (TEAM == 1) {
+    if (t < batch) sponge_squeeze_lane(state, out, n_words, batch, t);
+  } else {
+    const int64_t b = t >> 1;
+    const bool live = b < batch;
+    sponge_squeeze_pair(state, out, n_words, batch, live ? b : batch - 1, live,
+                        ~(uint32_t)t & 1u);
+  }
 }
 #endif
 
@@ -454,7 +517,7 @@ keccak_squeeze_kernel(const uint32_t* __restrict__ state,
 // C entry points (bound with ctypes).  Each launches on ``stream`` and
 // returns cudaGetLastError() so a refused launch is reported to the caller.
 // ``team`` (1 or 2 threads per sponge) is chosen by the wrapper from the
-// batch; a block is always kAbsorbThreads threads.
+// batch; a block is always 128 threads.
 extern "C" int fct_keccak_absorb(const uint32_t* words, const int32_t* nblk,
                                  uint32_t* state, int max_blocks,
                                  int64_t batch, int team, void* stream) {
@@ -471,11 +534,16 @@ extern "C" int fct_keccak_absorb(const uint32_t* words, const int32_t* nblk,
 }
 
 extern "C" int fct_keccak_squeeze(const uint32_t* state, uint32_t* out,
-                                  int n_words, int64_t batch, void* stream) {
+                                  int n_words, int64_t batch, int team, void* stream) {
+  if (team != 1 && team != 2) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || n_words <= 0) return 0;
-  const unsigned grid = (unsigned)((batch + kSqueezeThreads - 1) / kSqueezeThreads);
-  keccak_squeeze_kernel<<<grid, kSqueezeThreads, 0, (cudaStream_t)stream>>>(
-      state, out, n_words, batch);
+  const unsigned grid = (unsigned)((batch * team + kSqueezeThreads - 1) / kSqueezeThreads);
+  if (team == 1)
+    keccak_squeeze_kernel<1><<<grid, kSqueezeThreads, 0, (cudaStream_t)stream>>>(
+        state, out, n_words, batch);
+  else
+    keccak_squeeze_kernel<2><<<grid, kSqueezeThreads, 0, (cudaStream_t)stream>>>(
+        state, out, n_words, batch);
   return (int)cudaGetLastError();
 }
 #endif

@@ -8,11 +8,11 @@
 //   agg_fold      <- _agg_fold_call  (kernel 7: N triples -> the padded
 //                                     aggregation preimage)
 //
-// Layouts, the op tables and the two op walks (run_ops, one thread a
-// lane; tile_run_ops, a warp a tile of lanes) are in preimage_ops.cuh,
-// shared with assemble_spec.cu.  The text comes from an op table
-// (interop/device_serial.FoldTable), never from constants compiled in here:
-// the parameter set's dst, degree and root are bytes of its pool.
+// Layouts, the op tables and the tiled op walk (tile_run_ops, a warp a
+// tile of lanes) are in preimage_ops.cuh, shared with assemble_spec.cu.
+// The text comes from an op table (interop/device_serial.FoldTable), never
+// from constants compiled in here: the parameter set's dst, degree and root
+// are bytes of its pool.
 //
 // Design.  The TPU kernels evaluate the str() formats as log-depth merge
 // trees of barrel shifts and rolls, because a TPU lane cannot place bytes
@@ -73,15 +73,9 @@
 
 namespace {
 
-// The signer folds: blocks of kTileWarps warps, a warp a tile of 32 / G
-// lanes, G threads a lane (signer_fold_a: G = 2, its two outputs;
-// signer_fold_b: G = 1), each warp with a ring of kRing rows and the stage
-// buffers in dynamic shared memory (48 KB a block).
-constexpr int kTileWarps = 4;
-constexpr int kRing = 64;
-
-// A warp's shared memory in words: its ring, then the stage buffers.
-constexpr int kTileSmemWords = kRing * kWarp + kStageWords;
+// The signer folds: blocks of kTileWarps warps (preimage_ops.cuh), a warp a
+// tile of 32 / G lanes, G threads a lane (signer_fold_a: G = 2, its two
+// outputs; signer_fold_b: G = 1).
 
 // The tile of 16 lanes whose lane 0 is batch lane b0, as L threads per
 // caller from warp thread t0 (preimage_ops.cuh), with the warp's shared
@@ -292,10 +286,6 @@ FCT_HD void agg_stage_rows(uint32_t* stage, const uint32_t* src, int64_t row_str
 }
 
 #ifdef __CUDACC__
-constexpr size_t kTileSmemBytes = sizeof(uint32_t) * kTileWarps * kTileSmemWords;
-static_assert(kTileSmemBytes <= 48 * 1024,
-              "above 48 KB a block's dynamic shared memory needs an opt-in before each launch");
-
 __global__ void __launch_bounds__(kTileWarps * kWarp)
 signer_fold_a_kernel(const int32_t* __restrict__ ops, int n_ops,
                      const uint32_t* __restrict__ pool,
@@ -469,12 +459,6 @@ agg_fold_kernel(const int32_t* __restrict__ ops, int n_ops,
 }  // namespace
 
 #ifdef __CUDACC__
-// Blocks for ``batch`` lanes at ``lanes`` lanes a warp.
-static unsigned tile_blocks(int64_t batch, int lanes) {
-  const int64_t per_block = (int64_t)kTileWarps * lanes;
-  return (unsigned)((batch + per_block - 1) / per_block);
-}
-
 // C entry points (bound with ctypes).  Each launches on ``stream`` and
 // returns cudaGetLastError().  ops int32[n_ops, 6] and pool int32[...] are a
 // FoldTable; every other array is described in the lane functions above.

@@ -13,10 +13,11 @@
 // the table once, renders each value in decimal (sign in unsigned
 // arithmetic, no leading zeros), and streams the bytes into whole words in
 // order (a funnel shift for unaligned appends).  Two walks do this:
-// run_ops (one thread a lane, each word stored as soon as it is complete;
-// assemble_spec.cu) and tile_run_ops (a warp a tile of lanes, words staged
-// in shared memory and stored as whole row segments; the signer folds),
-// below.
+// tile_run_ops (a warp a tile of lanes, words staged in shared memory and
+// stored as whole row segments; the kernels of preimage_fold.cu and
+// assemble_spec.cu), below, and run_ops (one thread a lane, each word
+// stored as soon as it is complete), the plain walk that the host tests
+// hold the tiled one against.
 //
 // Without nvcc, FCT_HD is `static inline` and these compile as plain C++
 // (tests/test_torch_kernel_host.py builds them with the host compiler).
@@ -244,6 +245,22 @@ constexpr int kStageRows = 16;  // rows of values or extra words per staged chun
 constexpr int kStageWords = 2 * kStageRows * kWarp;  // a warp's two stage buffers
 constexpr unsigned kAllThreads = 0xffffffffu;
 constexpr int kIntMax = 0x7fffffff;
+
+// The tiled kernels' blocks: kTileWarps warps, each with a ring of kRing
+// rows and the stage buffers in dynamic shared memory (48 KB a block, the
+// most a launch gets without an opt-in).
+constexpr int kTileWarps = 4;
+constexpr int kRing = 64;
+constexpr int kTileSmemWords = kRing * kWarp + kStageWords;  // a warp's: ring, then stage
+constexpr int kTileSmemBytes = 4 * kTileWarps * kTileSmemWords;
+static_assert(kTileSmemBytes <= 48 * 1024,
+              "above 48 KB a block's dynamic shared memory needs an opt-in before each launch");
+
+// Blocks of kTileWarps warps for ``batch`` lanes at ``lanes`` lanes a warp.
+inline unsigned tile_blocks(int64_t batch, int lanes) {
+  const int64_t per_block = (int64_t)kTileWarps * lanes;
+  return (unsigned)((batch + per_block - 1) / per_block);
+}
 
 // Trailing zero bits of a nonzero 64-bit word.
 FCT_HD int ctz64(uint64_t x) {
@@ -650,11 +667,13 @@ FCT_HD int tile_item(uint64_t sep, int sep_len, int32_t v, uint64_t& a, uint64_t
 
 // run_ops for a warp's tile: thread t0 + l writes when its output's bit
 // (t % G) is in an op's mask; ``vals[l]`` points at its lane's value row 0
-// (stride ``vstride``), ``ex[e][l]`` is its lane's Source of extra e;
-// ``stage`` is the warp's kStageWords words of shared memory.
-template <int L, int R, int G>
+// (stride ``vstride``), ``ex[e][l]`` is its lane's Source of extra e (an
+// array Source[E][L], or any type whose [e][l] makes one), every lane's
+// with one row stride; ``stage`` is the warp's kStageWords words of shared
+// memory.
+template <int L, int R, int G, class Extras>
 FCT_HD void tile_run_ops(const int32_t* ops, int n_ops, const uint32_t* pool,
-                         const int32_t* const* vals, int64_t vstride, const Source (*ex)[L],
+                         const int32_t* const* vals, int64_t vstride, const Extras& ex,
                          uint32_t* stage, TileWriter<L, R, G>& w) {
   const int t0 = w.t0;
   for (int o = 0; o < n_ops; ++o) {
@@ -735,7 +754,8 @@ FCT_HD void tile_run_ops(const int32_t* ops, int n_ops, const uint32_t* pool,
         tile_stage<L, G>(stage, buf, src, vstride, c + 2 * kStageRows, par, rows, t0);
       }
     } else if (kind == kOpExtra) {
-      const Source* s = ex[op[2]];
+      Source s[L];
+      for (int l = 0; l < L; ++l) s[l] = ex[op[2]][l];
       const uint32_t* src[L];
       int full[L], first[L];
       for (int l = 0; l < L; ++l) {

@@ -33,7 +33,7 @@ _P, _I32, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_u
 SOURCES = {
     "keccak_sponge.cu": {
         "fct_keccak_absorb": [_P, _P, _P, _I32, _I64, _I32, _P],
-        "fct_keccak_squeeze": [_P, _P, _I32, _I64, _P],
+        "fct_keccak_squeeze": [_P, _P, _I32, _I64, _I32, _P],
     },
     "intt_norm_weight.cu": {
         "fct_intt_norm_weight": [_P, _I64, _I32, _I32, _P, _P, _P, _P, _U32, _U32, _U32,
@@ -122,6 +122,20 @@ def cuda_stream() -> ctypes.c_void_p:
 def check_launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {rc}")
+
+
+def outputs(outs, shapes, device) -> list:
+    """A kernel's int32 outputs: ``outs`` (a caller's tensors, for example
+    pre-filled ones) checked against ``shapes`` on ``device``, or new
+    tensors of those shapes when ``outs`` is None."""
+    if outs is None:
+        return [torch.empty(shape, dtype=torch.int32, device=device) for shape in shapes]
+    for t, shape in zip(outs, shapes):
+        require_cuda_tensor(t, "out", torch.int32, len(shape))
+        if tuple(t.shape) != tuple(shape) or t.device != device:
+            raise ValueError(f"out: expected int32{list(shape)} on {device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    return list(outs)
 
 
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

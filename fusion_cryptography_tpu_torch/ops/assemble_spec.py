@@ -55,7 +55,19 @@ def assemble_spec(
     lead = values if values is not None else extras[0][0]
     if lead.device.type == "cpu":
         return ds.assemble_chunks_words(spec, values, extras, extra_bounds, pad_words)
+    return _assemble_spec_launch(spec, values, extras, pad_words)
 
+
+def _assemble_spec_launch(spec: ds.PreimageSpec, values: Optional[torch.Tensor],
+                          extras: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                          pad_words: Optional[int] = None,
+                          outs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of kernel ``assemble_spec`` (arguments as
+    :func:`assemble_spec`'s, checked there) into ``outs`` (int32[Ww, B] and
+    int32[B] on the card) or new tensors: chip_smoke and the tests write
+    onto outputs they pre-fill."""
+    lead = values if values is not None else extras[0][0]
     dev = lead.device
     B = lead.shape[-1]
     if values is not None:
@@ -81,8 +93,7 @@ def assemble_spec(
     prog = ds.spec_table(spec, pad_words)
     ops, pool = prog.on(dev)
     (width,) = prog.widths
-    out = torch.empty((width, B), dtype=torch.int32, device=dev)
-    total = torch.empty(B, dtype=torch.int32, device=dev)
+    out, total = kernels.outputs(outs, ((width, B), (B,)), dev)
     rc = kernels.library().fct_assemble_spec(
         ops.data_ptr(), ops.shape[0], pool.data_ptr(),
         None if values is None else values.data_ptr(),

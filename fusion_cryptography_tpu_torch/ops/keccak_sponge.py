@@ -41,6 +41,13 @@ def absorb_team(batch: int, sms: int) -> int:
     return 2 if batch <= 16 * SCHEDULERS_PER_SM * sms else 1
 
 
+def squeeze_team(batch: int, n_words: int, sms: int) -> int:
+    """Threads per sponge of kernel ``keccak_squeeze``: the absorb's rule
+    (:func:`absorb_team`), except that a squeeze of one rate block (at most
+    34 words) has no permutation to share and takes one thread."""
+    return 1 if n_words <= RATE_WORDS else absorb_team(batch, sms)
+
+
 def absorb(words: torch.Tensor, n_blocks: torch.Tensor) -> torch.Tensor:
     """Padded words int32[max_blocks*34, B] + block counts int32[B] ->
     post-absorb state int32[50, B] (kernel ``keccak_absorb``)."""
@@ -63,11 +70,7 @@ def _absorb_launch(words: torch.Tensor, n_blocks: torch.Tensor, team: Optional[i
                          f"n_blocks {tuple(n_blocks.shape)}")
     if team is None:
         team = absorb_team(B, torch.cuda.get_device_properties(words.device).multi_processor_count)
-    if state is None:
-        state = torch.empty((50, B), dtype=torch.int32, device=words.device)
-    kernels.require_cuda_tensor(state, "state", torch.int32, 2)
-    if state.shape != (50, B) or state.device != words.device:
-        raise ValueError(f"absorb: state must be int32[50, {B}], got {tuple(state.shape)}")
+    (state,) = kernels.outputs(None if state is None else [state], [(50, B)], words.device)
     lib = kernels.library()
     rc = lib.fct_keccak_absorb(words.data_ptr(), n_blocks.data_ptr(), state.data_ptr(),
                                rows // RATE_WORDS, B, team, kernels.cuda_stream())
@@ -81,14 +84,25 @@ def squeeze(state: torch.Tensor, n_words: int) -> torch.Tensor:
     (kernel ``keccak_squeeze``)."""
     if state.device.type == "cpu":
         return keccak.shake256_squeeze_words(state, n_words)
+    return _squeeze_launch(state, n_words)
+
+
+def _squeeze_launch(state: torch.Tensor, n_words: int, team: Optional[int] = None,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of kernel ``keccak_squeeze``, at :func:`squeeze_team`'s
+    choice unless ``team`` is given, into a new tensor unless ``out`` (a
+    contiguous int32[n_words, B] on the card) is given: chip_smoke and the
+    tests hold both teams at every shape, on outputs they pre-fill."""
     kernels.require_cuda_tensor(state, "state", torch.int32, 2)
     if state.shape[0] != 50:
         raise ValueError(f"squeeze: state must be int32[50, B], got {tuple(state.shape)}")
     B = state.shape[1]
-    lib = kernels.library()
-    out = torch.empty((n_words, B), dtype=torch.int32, device=state.device)
-    rc = lib.fct_keccak_squeeze(state.data_ptr(), out.data_ptr(), n_words, B,
-                                kernels.cuda_stream())
+    if team is None:
+        team = squeeze_team(B, n_words,
+                            torch.cuda.get_device_properties(state.device).multi_processor_count)
+    (out,) = kernels.outputs(None if out is None else [out], [(n_words, B)], state.device)
+    rc = kernels.library().fct_keccak_squeeze(state.data_ptr(), out.data_ptr(), n_words, B,
+                                              team, kernels.cuda_stream())
     kernels.LAUNCHES["keccak_squeeze"] += 1
     kernels.check_launch(rc, "keccak_squeeze")
     return out

@@ -1,8 +1,12 @@
 """Where a grouped verify spends its time on the GPU.
 
-    python -m fusion_cryptography_tpu_torch.profile_verify [--groups 8192] [--out DIR]
+    python -m fusion_cryptography_tpu_torch.profile_verify [--groups 8192]
+        [--assembly fold|spec] [--out DIR]
 
-Builds a secpar=256, N=4 fleet on the first CUDA device, then
+Builds a secpar=256, N=4 fleet on the first CUDA device, then, for verify
+calls in the ``--assembly`` configuration ("fold", the default: the
+signer fold kernels; "spec": ``assemble_spec`` on the challenge and triple
+specs),
   1. times each stage of one verify (prehash, signer hash, group hash,
      lattice) between device synchronisations;
   2. traces one verify with torch.profiler and prints the device time by
@@ -76,6 +80,7 @@ def call_bounds(params, run) -> dict:
     from .interop import device_serial as ds
     from .ops import keccak_sponge as ks
     from .ops import preimage_fold as pf
+    from .ops import ragged_words as rw
     from .scheme import device_pipeline as dp
 
     d = params.degree
@@ -85,10 +90,10 @@ def call_bounds(params, run) -> dict:
     def record(module, attr, kernel, bound_of):
         fn = getattr(module, attr)
 
-        def wrapped(*args):
-            out = fn(*args)
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
             entry = per.setdefault(kernel, [0, 0.0, []])
-            b_ms = bound_of(*args)["bound_ms"]
+            b_ms = bound_of(*args, **kwargs)["bound_ms"]
             entry[0] += 1
             entry[1] += b_ms
             entry[2].append(b_ms)
@@ -110,6 +115,12 @@ def call_bounds(params, run) -> dict:
                    d, vk_len, pre_len, tri_w)),
         record(pf, "agg_fold", "agg_fold", lambda p, n, tbs, tls: bounds.agg_fold(
             tls, ds.agg_fold_table(p, n).widths[0])),
+        record(dp, "assemble_spec", "assemble_spec",
+               lambda spec, values=None, extras=(), extra_bounds=None, pad_words=None:
+               bounds.assemble_spec(0 if values is None else values.shape[0],
+                                    (extras[0][0] if values is None else values).shape[-1],
+                                    [el for _, el in extras],
+                                    pad_words or rw.words_for(spec.out_max))),
     ]
     for module, attr, _, wrapped in patches:
         setattr(module, attr, wrapped)
@@ -129,6 +140,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--groups", type=int, default=8192)
     ap.add_argument("--group-chunk", type=int, default=dp.DEFAULT_GROUP_CHUNK)
+    ap.add_argument("--assembly", choices=dp.ASSEMBLIES, default="fold")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -144,7 +156,8 @@ def main() -> None:
     vks, msgs, aggs = build_fleet(params, G, N, device=dev, group_chunk=args.group_chunk)
 
     def verify():
-        out = dp.verify_batch_device(params, vks, msgs, aggs, group_chunk=args.group_chunk)
+        out = dp.verify_batch_device(params, vks, msgs, aggs, group_chunk=args.group_chunk,
+                                     assembly=args.assembly)
         torch.cuda.synchronize()
         return out
 
@@ -154,7 +167,7 @@ def main() -> None:
     wall = time.perf_counter() - t0
 
     # 1. stage breakdown: the call's own pipeline, its stages timed
-    P = dp.get_pipeline(params, N, str(dev), "fold")
+    P = dp.get_pipeline(params, N, str(dev), args.assembly)
     stages = {
         "prehash": "prehash (SHA3 + decimal)",
         "signer": "signer hash (vk, challenge, decode, NTT, triple)",
@@ -172,7 +185,8 @@ def main() -> None:
             setattr(P, attr, fn)
     if not acc:
         raise SystemExit("profile: the call did not run the timed pipeline")
-    print(f"verify G={G}: {wall * 1e3:.2f} ms per call (unsynchronised stages)")
+    print(f"verify G={G}, assembly {args.assembly!r}: {wall * 1e3:.2f} ms per call "
+          "(unsynchronised stages)")
     for k, v in acc.items():
         print(f"  {k:52s} {v * 1e3:9.2f} ms")
 
@@ -226,7 +240,8 @@ def main() -> None:
         out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out / "verify_trace.json"))
         (out / "verify_kernels.json").write_text(json.dumps(
-            {"card": card, "groups": G, "wall_ms": wall * 1e3, "traced_ms": traced * 1e3,
+            {"card": card, "groups": G, "assembly": args.assembly, "wall_ms": wall * 1e3,
+             "traced_ms": traced * 1e3,
              "busy_ms": busy, "launches": launches, "stages_ms": {k: v * 1e3 for k, v in acc.items()},
              "kernels": [{"name": k, "ms": us / 1e3, "count": n} for k, us, n in rows],
              "port_kernels": port},

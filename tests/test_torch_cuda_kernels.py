@@ -15,6 +15,8 @@ from fusion_cryptography_tpu_torch.interop import device_serial as ds
 from fusion_cryptography_tpu_torch.ops import keccak, keccak_sponge as ks
 from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
 from fusion_cryptography_tpu_torch.ops import ragged_words as rw
+from fusion_cryptography_tpu_torch.ops.assemble_spec import _assemble_spec_launch as \
+    assemble_spec_launch
 from fusion_cryptography_tpu_torch.ops.assemble_spec import assemble_spec
 from fusion_cryptography_tpu_torch.ops.field import Q
 from fusion_cryptography_tpu_torch.ops.intt_norm_weight import agg_check, agg_check_plain, agg_table
@@ -77,6 +79,27 @@ def test_absorb_kernel_any_batch_and_counts(dev, B):
             assert ks._absorb_launch(words, nb, team, state) is state
             assert torch.equal(state, want)
         assert torch.equal(ks.absorb(words, nb), want)
+
+
+@pytest.mark.parametrize("B", [1, 17, 8192 + 3])
+def test_squeeze_kernel_both_teams(dev, B):
+    """Kernel ``keccak_squeeze`` at one and two threads per sponge and
+    through the wrapper == the plain squeeze, into words pre-filled with -1,
+    on random states: one rate block or less (1, 8, 34 words), a partial
+    last block (35, 300), whole blocks (68), and the widths of a verify
+    call's challenge (2,106) and aggregation (3,968) squeezes."""
+    rng = np.random.default_rng(B + 7)
+    state = torch.from_numpy(rng.integers(-(2**31), 2**31, (50, B),
+                                          dtype=np.int64).astype(np.int32)).to(dev)
+    for n_words in (1, 8, 34, 35, 68, 300, 2106, 3968):
+        want = keccak.shake256_squeeze_words(state, n_words)
+        for team in (1, 2):
+            out = torch.full((n_words, B), -1, dtype=torch.int32, device=dev)
+            assert ks._squeeze_launch(state, n_words, team, out) is out
+            assert torch.equal(out, want)
+        assert torch.equal(ks.squeeze(state, n_words), want)
+    with pytest.raises(RuntimeError):  # no such team: the launch is refused
+        ks._squeeze_launch(state, 8, 3)
 
 
 # secpar 128 and 256 (rank 195 and 83) over the Fusion prime, G not a
@@ -307,6 +330,47 @@ def test_assemble_spec_kernel_matches_plain(dev, secpar):
     with pytest.raises(ValueError):  # extra of the wrong width
         assemble_spec(agg_spec, None, [(tb[:-1], tl)] * N)
     assert rw.words_for(tri_spec.out_max) == tb.shape[0]
+
+
+@pytest.mark.parametrize("B", [1, 4, 33, 69, 32768 - 37])
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_assemble_spec_kernel_any_batch(dev, secpar, B):
+    """Kernel ``assemble_spec`` (a warp a tile of 32 lanes, rows staged in
+    shared memory) == assemble_chunks_words word for word, into outputs
+    pre-filled with -1: the challenge spec (rate-padded) and the triple
+    spec on a first warp whose lanes 0 and 1 drift more than a ring apart,
+    B = 1, 4 (one group), 33, 69 and 32,768 - 37 (a last warp and a last
+    block part full); the aggregation spec over N = 3 strided views of the
+    triples (B // 3 groups, at least 1)."""
+    from test_torch_kernel_host import drift_fold_inputs
+
+    params = fusion_setup(secpar, 4)
+    vk2d_t, c_hat_t, pre_w, pre_len = (t.to(dev) for t in drift_fold_inputs(params, B, B + 1))
+    pre = [(pre_w, pre_len)]
+    ch_spec, tri_spec = ds.challenge_preimage_spec(params), ds.triple_spec(params)
+    N = 3
+    G = max(B // N, 1)
+    tvals = torch.cat([vk2d_t, c_hat_t])
+    want_t = ds.assemble_chunks_words(tri_spec, tvals, pre)
+    tbv = want_t[0][:, : G * N] if B >= N else want_t[0][:, :1].expand(-1, N)
+    tlv = want_t[1][: G * N] if B >= N else want_t[1][:1].expand(N)
+    tbv, tlv = tbv.reshape(tbv.shape[0], G, N), tlv.reshape(G, N)
+    extras = [(tbv[:, :, k], tlv[:, k]) for k in range(N)]
+    agg_spec = ds.agg_preimage_spec(params, N, tri_spec.out_max)
+    cases = [(ch_spec, vk2d_t, pre, ds.signer_fold_a_table(params).widths[0]),
+             (tri_spec, tvals, pre, None),
+             (agg_spec, None, extras, ds.agg_fold_table(params, N).widths[0])]
+    before = kernels.LAUNCHES["assemble_spec"]
+    for spec, values, ex, pad in cases:
+        want = ds.assemble_chunks_words(spec, values, ex, pad_words=pad)
+        outs = tuple(torch.full_like(w, -1) for w in want)
+        got = assemble_spec_launch(spec, values, ex, pad, outs)
+        torch.cuda.synchronize()
+        assert all(g is o for g, o in zip(got, outs))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert all(torch.equal(g, w) for g, w in zip(assemble_spec(spec, values, ex, None, pad),
+                                                     want))
+    assert kernels.LAUNCHES["assemble_spec"] == before + 2 * len(cases)
 
 
 @pytest.mark.parametrize("secpar", [128, 256])

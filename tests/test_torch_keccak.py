@@ -134,3 +134,16 @@ def test_absorb_team_and_warp_ratio():
     assert bounds.keccak_warp_ratio(nb, 2) == (3 + 3 + 2 + 2 + 5) / 13
     assert bounds.keccak_warp_ratio(nb, 1) == 1.0
     assert bounds.keccak_warp_ratio(torch.tensor([4, -2, 0, 4]), 4) == 16 / 8
+
+
+def test_squeeze_team():
+    """The squeeze takes the absorb's rule, except that one rate block (at
+    most 34 words: no permutation) takes one thread: at a verify call's
+    G = 8,192 the aggregation squeeze (3,968 words) two threads a sponge,
+    the challenge squeeze (32,768 sponges) and the prehash digest (8
+    words) one."""
+    assert ks.squeeze_team(8192, 3968, 132) == 2
+    assert ks.squeeze_team(32768, 2106, 132) == 1
+    assert ks.squeeze_team(32768, 8, 132) == 1
+    assert ks.squeeze_team(8192, 34, 132) == 1
+    assert ks.squeeze_team(8192, 35, 132) == 2

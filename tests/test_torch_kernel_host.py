@@ -104,10 +104,36 @@ extern "C" void host_permute(uint64_t* lanes, uint32_t* even, uint32_t* odd, int
   }
 }
 
+// sponge_squeeze_pair's arithmetic for lane b, its two threads run in turn:
+// each role's word of every lane unzipped, the interleaved words formed
+// from both, and before each block's store the rate lanes zipped back.
+static void host_squeeze_pair_lane(const uint32_t* state, uint32_t* out, int n_words,
+                                   int64_t batch, int64_t b) {
+  uint32_t u[2][25], s[2][25];
+  for (int e = 0; e < 2; ++e)
+    for (int l = 0; l < 25; ++l) u[e][l] = unzip32(state[(int64_t)(2 * l + 1 - e) * batch + b]);
+  for (int e = 0; e < 2; ++e)
+    for (int l = 0; l < 25; ++l) s[e][l] = byte_perm(u[e][l], u[1 - e][l], pair_sel(e));
+  for (int k = 0; k < (n_words + 33) / 34; ++k) {
+    if (k) host_permute_pair(s);
+    for (int e = 0; e < 2; ++e)
+      for (int l = 0; l < 17; ++l) {
+        const int w = 34 * k + 2 * l + 1 - e;
+        if (w < n_words)
+          out[(int64_t)w * batch + b] = zip32(byte_perm(s[e][l], s[1 - e][l], pair_sel(e)));
+      }
+  }
+}
+
+// team 1: the one-thread lane function; team 2: the pair, emulated
 extern "C" void host_squeeze(const uint32_t* state, uint32_t* out,
-                             int n_words, int64_t batch) {
-  for (int64_t b = 0; b < batch; ++b)
-    sponge_squeeze_lane(state, out, n_words, batch, b);
+                             int n_words, int64_t batch, int team) {
+  for (int64_t b = 0; b < batch; ++b) {
+    if (team == 1)
+      sponge_squeeze_lane(state, out, n_words, batch, b);
+    else
+      host_squeeze_pair_lane(state, out, n_words, batch, b);
+  }
 }
 
 // The aggregate check's rows, one warp of 32 lanes emulated serially: the
@@ -209,8 +235,8 @@ extern "C" void host_ntt_centered(const int32_t* x, int32_t* y, int64_t rows, in
   host_ntt_rows(x, y, rows, d, tw, tw_sh, inverse, n_inv, n_inv_sh, q);
 }
 
-// The signer folds through the one-thread-a-lane walk (run_ops with
-// Writer, the walk assemble_spec.cu runs), lane by lane.
+// The signer folds through the plain one-thread-a-lane walk (run_ops
+// with Writer), lane by lane.
 extern "C" void host_signer_fold_a(const int32_t* ops, int n_ops, const uint32_t* pool,
                                    const int32_t* vk2d_t, const uint32_t* pre_w,
                                    int pre_rows, const int32_t* pre_len, int64_t batch,
@@ -443,13 +469,49 @@ extern "C" void host_agg_fold(const int32_t* ops, int n_ops, const uint32_t* poo
         out_width, total, passes);
 }
 
+// A spec's table through the plain one-thread walk (run_ops), lane by
+// lane, each extra read through the kernel's table (spec_extra).
+struct HostSpecLane {
+  const int64_t* table;
+  int64_t b;
+  Source operator[](int e) const { return spec_extra(table, e, b); }
+};
+
 extern "C" void host_assemble_spec(const int32_t* ops, int n_ops, const uint32_t* pool,
                                    const int32_t* values, int64_t vstride,
                                    const int64_t* extras, int64_t batch, uint32_t* out,
                                    int out_width, int32_t* total) {
-  for (int64_t b = 0; b < batch; ++b)
-    assemble_spec_lane(ops, n_ops, pool, values, vstride, extras, batch, b, out, out_width,
-                       total);
+  for (int64_t b = 0; b < batch; ++b) {
+    Writer ws[1] = {make_writer(out + b, batch, out_width)};
+    run_ops<1>(ops, n_ops, pool, values ? values + b : values, vstride, HostSpecLane{extras, b},
+               ws);
+    finish(ws[0]);
+    total[b] = ws[0].total;
+  }
+}
+
+// The assemble_spec kernel's tiles, one after another (the kernel's own
+// tile function with L = 32, as host_fold_b_tiles), each tile's ring and
+// stage buffers poisoned first.  ring 0: the kernel's kRing rows; otherwise
+// 32.
+template <int R>
+static void host_spec_tiles(const int32_t* ops, int n_ops, const uint32_t* pool,
+                            const int32_t* values, int64_t vstride, const int64_t* extras,
+                            int64_t batch, uint32_t* out, int out_width, int32_t* total) {
+  std::vector<uint32_t> smem(R * kWarp + kStageWords);
+  for (int64_t b0 = 0; b0 < batch; b0 += kWarp) {
+    std::fill(smem.begin(), smem.end(), 0xA5A5A5A5u);
+    assemble_spec_tile<kWarp, R>(ops, n_ops, pool, values, vstride, extras, batch, b0, 0,
+                                 smem.data(), out, out_width, total);
+  }
+}
+
+extern "C" void host_assemble_spec_tiles(const int32_t* ops, int n_ops, const uint32_t* pool,
+                                         const int32_t* values, int64_t vstride,
+                                         const int64_t* extras, int64_t batch, uint32_t* out,
+                                         int out_width, int32_t* total, int ring) {
+  (ring == 0 ? host_spec_tiles<kRing> : host_spec_tiles<32>)(
+      ops, n_ops, pool, values, vstride, extras, batch, out, out_width, total);
 }
 """
 
@@ -469,7 +531,7 @@ def lib(tmp_path_factory):
     P, I32, I64, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
     lib.host_absorb.argtypes = [P, P, P, I32, I64, I32]
     lib.host_permute.argtypes = [P, P, P, I64]
-    lib.host_squeeze.argtypes = [P, P, I32, I64]
+    lib.host_squeeze.argtypes = [P, P, I32, I64, I32]
     lib.host_agg_check.argtypes = [P, I64, I32, I32, P, P, P, P, U32, U32, U32, P, P, P]
     lib.host_ntt_u.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
     lib.host_ntt_centered.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
@@ -482,6 +544,7 @@ def lib(tmp_path_factory):
                                              I32]
     lib.host_agg_fold.argtypes = [P, I32, P, P, I32, I64, I64, I64, I32, I64, P, I32, P, I32, P]
     lib.host_assemble_spec.argtypes = [P, I32, P, P, I64, P, I64, P, I32, P]
+    lib.host_assemble_spec_tiles.argtypes = [P, I32, P, P, I64, P, I64, P, I32, P, I32]
     return lib
 
 
@@ -494,9 +557,11 @@ def _absorb(lib, padded, nblk, team):
     return state
 
 
-def _squeeze(lib, state, n_words):
-    out = torch.empty((n_words, state.shape[1]), dtype=torch.int32)
-    lib.host_squeeze(state.data_ptr(), out.data_ptr(), n_words, state.shape[1])
+def _squeeze(lib, state, n_words, team=1):
+    """The squeeze of ``team`` threads per sponge over every lane, into
+    words pre-filled with -1 (every word must be written)."""
+    out = torch.full((n_words, state.shape[1]), -1, dtype=torch.int32)
+    lib.host_squeeze(state.data_ptr(), out.data_ptr(), n_words, state.shape[1], team)
     return out
 
 
@@ -573,6 +638,28 @@ def test_sponge_lanes_rate_edges_and_longest(lib, pad_head):
         msg = by[i, :n].tobytes()
         digest = shake_256(msg).digest(32) if pad_head == 0x1F else sha3_256(msg).digest()
         assert got[i].tobytes() == digest, int(n)
+
+
+@pytest.mark.parametrize("n_words", [1, 33, 34, 35, 68, 300])
+def test_squeeze_pair_matches_plain_and_hashlib(lib, n_words):
+    """The squeeze at two threads a sponge (the pair emulated) and at one,
+    into words pre-filled with -1: no permutation (n_words <= 34), a
+    partial last block, exactly two blocks and nine; against the plain
+    squeeze and hashlib, on states of messages across the rate edges."""
+    rng = np.random.default_rng(n_words)
+    lens = np.array([0, 1, 135, 136, 137, 300] + list(rng.integers(0, 400, 11)), np.int32)
+    rows = -(-(400 + 1) // tk.RATE) * tk.RATE_WORDS
+    by = rng.integers(0, 256, size=(lens.size, 4 * rows), dtype=np.uint8)
+    by[np.arange(4 * rows)[None, :] >= lens[:, None]] = 0
+    words = torch.from_numpy(by.view(np.int32).T.copy())
+    state = tk.shake256_absorb_words(words, torch.from_numpy(lens))
+    want = tk.shake256_squeeze_words(state, n_words)
+    for team in (1, 2):
+        got = _squeeze(lib, state, n_words, team)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    got = np.ascontiguousarray(got.numpy().T).view(np.uint8)
+    for i, n in enumerate(lens):
+        assert got[i].tobytes() == shake_256(by[i, :n].tobytes()).digest(4 * n_words), int(n)
 
 
 def agg_inputs(plan, G, rank, seed):
@@ -1026,9 +1113,10 @@ def test_agg_fold_tiles_any_length(lib, tile):
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
 
 
-def _host_assemble(lib, spec, values, extras, pad_words=None):
-    """The assemble_spec lane function over every lane, output pre-filled
-    with -1 (every word must be written)."""
+def _host_assemble(lib, spec, values, extras, pad_words=None, ring=None):
+    """The plain one-thread walk over every lane (``ring`` None) or the
+    assemble_spec kernel's tiles (``ring`` 0: the kernel's ring, 1: 32
+    rows), outputs pre-filled with -1 (every word must be written)."""
     prog = ds.spec_table(spec, pad_words)
     ops, pool = prog.on("cpu")
     (width,) = prog.widths
@@ -1038,10 +1126,14 @@ def _host_assemble(lib, spec, values, extras, pad_words=None):
                          dtype=torch.int64)
     out = torch.full((width, B), -1, dtype=torch.int32)
     total = torch.full((B,), -1, dtype=torch.int32)
-    lib.host_assemble_spec(ops.data_ptr(), ops.shape[0], pool.data_ptr(),
-                           None if values is None else values.data_ptr(),
-                           0 if values is None else values.stride(0), table.data_ptr(), B,
-                           out.data_ptr(), width, total.data_ptr())
+    args = (ops.data_ptr(), ops.shape[0], pool.data_ptr(),
+            None if values is None else values.data_ptr(),
+            0 if values is None else values.stride(0), table.data_ptr(), B, out.data_ptr(),
+            width, total.data_ptr())
+    if ring is None:
+        lib.host_assemble_spec(*args)
+    else:
+        lib.host_assemble_spec_tiles(*args, ring)
     return out, total
 
 
@@ -1072,5 +1164,45 @@ def test_assemble_spec_lanes_match_plain(lib, secpar):
     agg_spec = ds.agg_preimage_spec(params, N, tri_spec.out_max)
     got = _host_assemble(lib, agg_spec, None, extras)
     want = ds.assemble_chunks_words(agg_spec, None, extras)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("B", [69, 4])
+@pytest.mark.parametrize("ring", [0, 1], ids=["kernel_ring", "ring32"])
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_assemble_spec_tiles_match_plain(lib, secpar, ring, B):
+    """The assemble_spec kernel's tiled walk (32 lanes in lockstep, whole
+    rows staged in a ring) == assemble_chunks_words, every word of -1-filled
+    outputs, at the kernel's ring and at 32 rows: the challenge spec
+    (rate-padded) and the triple spec on a first tile whose lanes 0 and 1
+    drift far more than a ring apart, and a last tile of B % 32 lanes
+    (B = 4: one group); the aggregation spec over N = 3 strided views of
+    the triples (23 groups, or 1; group 0 holds the shortest and the longest)."""
+    params = fusion_setup(secpar, 4)
+    vk2d_t, c_hat_t, pre_w, pre_len = drift_fold_inputs(params, B, secpar + B + 1)
+    pre = [(pre_w, pre_len)]
+    ch_spec, tri_spec = ds.challenge_preimage_spec(params), ds.triple_spec(params)
+    pad = ds.signer_fold_a_table(params).widths[0]
+    got = _host_assemble(lib, ch_spec, vk2d_t, pre, pad, ring)
+    want = ds.assemble_chunks_words(ch_spec, vk2d_t, pre, pad_words=pad)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert int(want[1][1] - want[1][0]) > 4 * 64 * 4  # lane 1 ran a ring ahead of lane 0
+    tvals = torch.cat([vk2d_t, c_hat_t])
+    tb, tl = _host_assemble(lib, tri_spec, tvals, pre, None, ring)
+    want = ds.assemble_chunks_words(tri_spec, tvals, pre)
+    np.testing.assert_array_equal(tb.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(tl.numpy(), want[1].numpy())
+
+    N = 3
+    G = B // N
+    tbv = tb[:, : G * N].reshape(tb.shape[0], G, N)
+    tlv = tl[: G * N].reshape(G, N)
+    extras = [(tbv[:, :, k], tlv[:, k]) for k in range(N)]
+    agg_spec = ds.agg_preimage_spec(params, N, tri_spec.out_max)
+    pad = ds.agg_fold_table(params, N).widths[0]
+    got = _host_assemble(lib, agg_spec, None, extras, pad, ring)
+    want = ds.assemble_chunks_words(agg_spec, None, extras, pad_words=pad)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
