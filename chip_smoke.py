@@ -27,7 +27,9 @@ Phases (each fails loudly; any failure exits non-zero):
      B = 32,768 (warp 0's lanes ~1,300 words apart), 32,731 and 4 lanes and
      at secpar=128; ``assemble_spec`` on the challenge, triple
      and aggregation specs of those synthetic inputs, at full width and 37
-     lanes fewer, its outputs on memory filled with -1
+     lanes fewer, its outputs on memory filled with -1; ``ntt_u`` and
+     ``ntt_centered`` both ways on -1-filled outputs at [32,768, 256] int64
+     and [65,536, 256] int32, at 37 rows fewer, at 4 rows and at d = 64
   3. main path: fleet build (keys/s), verify: one warm call, per-call
      latency (median of 5 synced calls), 5 calls with one final sync; all
      verdicts true, a tampered aggregate fails in exactly its group;
@@ -444,50 +446,83 @@ def phase_agg_check(dev, kernel_rows: list) -> None:
 
 
 def phase_ntt_kernels(dev, kernel_rows: list) -> None:
-    """The two NTT kernels: ``ntt_u`` on the signer stage's residues
-    [32,768, 256], ``ntt_centered`` on keygen's centered int32 [65,536, 256]
-    (32,768 keys x 2 sides); forward (the direction the paths run) and
-    inverse, each against its plain version."""
+    """The two NTT kernels, forward (the direction the paths run) and
+    inverse, each into outputs filled with -1 and against its plain
+    version, and inverse(forward(x)) == x: ``ntt_u`` on the signer stage's
+    residues [32,768, 256], ``ntt_centered`` on keygen's centered int32
+    [65,536, 256] (32,768 keys x 2 sides), both timed there; then each at
+    a row count that is no multiple of a block's rows, at one lifecycle
+    group's 4 rows, and at secpar=128's degree (d = 64).  Each time is the
+    mean of 5 launches, few enough that the wrapper's host time stays
+    inside ``cuda_ms``'s spin."""
     from fusion_cryptography_tpu_torch.ops import ntt
     from fusion_cryptography_tpu_torch.params import fusion_setup
 
     plan = fusion_setup(SECPAR, SEED).plan
-    d, q = plan.degree, plan.modulus
+    plan64 = fusion_setup(128, SEED).plan
     B = N_GROUPS * N_SIGNERS
     g = torch.Generator(device=dev).manual_seed(SEED)
-    u = torch.randint(0, q, (B, d), dtype=torch.int64, device=dev, generator=g)
-    u[0], u[1] = 0, q - 1
-    c = (torch.randint(0, q, (2 * B, d), dtype=torch.int64, device=dev, generator=g)
-         - q // 2).to(torch.int32)
-    c[0, :5] = torch.tensor([0, 1, -1, q // 2, -(q // 2)], dtype=torch.int32)
-    c[1], c[2], c[3] = 0, -(q // 2), q // 2
+
+    def inputs(p, rows: int, centered: bool) -> torch.Tensor:
+        d, q = p.degree, p.modulus
+        x = torch.randint(0, q, (rows, d), dtype=torch.int64, device=dev, generator=g)
+        if not centered:
+            x[0, :3] = torch.tensor([0, 1, q - 1])
+            x[1:2], x[2:3] = 0, q - 1
+            return x
+        x = (x - q // 2).to(torch.int32)
+        x[0, :5] = torch.tensor([0, 1, -1, q // 2, -(q // 2)], dtype=torch.int32)
+        x[1:2], x[2:3], x[3:4] = 0, -(q // 2), q // 2
+        return x
+
+    def check(name, p, x, fwd_p, inv_p) -> int:
+        centered = name == "ntt_centered"
+        y = ntt._launch(p, x, False, centered, torch.full_like(x, -1))
+        z = ntt._launch(p, y, True, centered, torch.full_like(x, -1))
+        err = max(max_abs_err(y, fwd_p(p, x)), max_abs_err(z, inv_p(p, y)))
+        require(err == 0, f"{name} {list(x.shape)} != plain version")
+        require(torch.equal(z, x), f"{name} {list(x.shape)}: inverse(forward(x)) != x")
+        return err
+
     cases = [
-        ("ntt_u", "fusion_cryptography_tpu/ops/ntt_mxu_pallas.py:87", u, 16,
+        ("ntt_u", "fusion_cryptography_tpu/ops/ntt_mxu_pallas.py:87", B, 16,
          ntt.ntt_fwd_u, ntt.ntt_fwd_u_plain, ntt.ntt_inv_u, ntt.ntt_inv_u_plain),
-        ("ntt_centered", "fusion_cryptography_tpu/ops/ntt_pallas.py:94", c, 8,
+        ("ntt_centered", "fusion_cryptography_tpu/ops/ntt_pallas.py:94", 2 * B, 8,
          ntt.ntt_fwd, ntt.ntt_fwd_plain, ntt.ntt_inv, ntt.ntt_inv_plain),
     ]
-    for name, replaces, x, bytes_per_coef, fwd, fwd_p, inv, inv_p in cases:
+    for name, replaces, rows, bytes_per_coef, fwd, fwd_p, inv, inv_p in cases:
+        centered = name == "ntt_centered"
+        x = inputs(plan, rows, centered)
+        err = check(name, plan, x, fwd_p, inv_p)
         y = fwd(plan, x)
-        err = max(max_abs_err(y, fwd_p(plan, x)), max_abs_err(inv(plan, y), inv_p(plan, y)))
-        require(err == 0, f"{name} != plain version")
-        require(torch.equal(inv(plan, y), x), f"{name}: inverse(forward(x)) != x")
-        t_f = cuda_ms(lambda: fwd(plan, x), 20)
+        d = plan.degree
+        t_f = cuda_ms(lambda: fwd(plan, x), 5)
         t_fp = cuda_ms(lambda: fwd_p(plan, x), 3)
-        t_i = cuda_ms(lambda: inv(plan, y), 20)
+        t_i = cuda_ms(lambda: inv(plan, y), 5)
         t_ip = cuda_ms(lambda: inv_p(plan, y), 3)
-        rows = x.numel() // d
         b_f = bounds.ntt(rows, d, bytes_per_coef)
         b_i = bounds.ntt(rows, d, bytes_per_coef, inverse=True)
         log(f"{name}: [{rows}, {d}] {x.dtype} forward and inverse equal the plain versions; "
-            f"forward {t_f:.3f} ms (plain {t_fp:.3f} ms, bound {b_f['bound_ms']:.4f} ms by "
-            f"{b_f['bound_by']}), inverse {t_i:.3f} ms (plain {t_ip:.3f} ms, bound "
+            f"forward {t_f:.4f} ms (plain {t_fp:.3f} ms, bound {b_f['bound_ms']:.4f} ms by "
+            f"{b_f['bound_by']}), inverse {t_i:.4f} ms (plain {t_ip:.3f} ms, bound "
             f"{b_i['bound_ms']:.4f} ms)")
+        del x, y
+        more = {}
+        for p, n in ((plan, rows - 37), (plan, 4), (plan64, rows // 8), (plan64, 4)):
+            x = inputs(p, n, centered)
+            err = max(err, check(name, p, x, fwd_p, inv_p))
+            y = fwd(p, x)
+            t_f2, t_i2 = cuda_ms(lambda: fwd(p, x), 5), cuda_ms(lambda: inv(p, y), 5)
+            more[f"{n}x{p.degree}"] = [t_f2, t_i2]
+            b_n = bounds.ntt(n, p.degree, bytes_per_coef)["bound_ms"]
+            log(f"  {name} [{n}, {p.degree}]: equal the plain versions; forward {t_f2:.4f} ms, "
+                f"inverse {t_i2:.4f} ms (bound {b_n:.4f} ms)")
         kernel_rows.append(dict(
             name=name, route="cuda", source="fusion_cryptography_tpu_torch/csrc/ntt.cu",
             replaces=replaces, max_abs_err=err, ms=t_f, plain_ms=t_fp, **b_f, library_ms=None,
-            inverse_ms=t_i, inverse_plain_ms=t_ip, inverse_bound_ms=b_i["bound_ms"]))
-    del u, c, y
+            inverse_ms=t_i, inverse_plain_ms=t_ip, inverse_bound_ms=b_i["bound_ms"],
+            other_shapes_ms=more))
+        del x, y
     torch.cuda.empty_cache()
 
 

@@ -47,11 +47,9 @@
 // Without nvcc the per-lane functions compile as plain C++ (FCT_HD is
 // `static inline`); tests/test_torch_kernel_host.py runs them with a serial
 // emulation of the warp's 32 lanes in place of the shuffles.
-#include "ntt_butterfly.cuh"  // FCT_HD, mulmod_shoup
+#include "ntt_butterfly.cuh"  // the stage functions, gs_warp_network
 
 namespace {
-
-constexpr int WARP = 32;
 
 // The canonical residue x mod q of any int32, for q in (2^30, 2^31).
 FCT_HD uint32_t lift_residue(int32_t x, uint32_t q) {
@@ -61,51 +59,10 @@ FCT_HD uint32_t lift_residue(int32_t x, uint32_t q) {
   return u >= q ? u - q : u;
 }
 
-FCT_HD uint32_t add_mod(uint32_t a, uint32_t b, uint32_t q) {
-  const uint32_t s = a + b;  // a, b < q < 2^31: no wrap
-  return s >= q ? s - q : s;
-}
-
-FCT_HD uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t q) {
-  return a >= b ? a - b : a + (q - b);
-}
-
 // |centered(c)| = min(c, q - c) for a residue c.
 FCT_HD uint32_t centered_abs(uint32_t c, uint32_t q) {
   const uint32_t n = q - c;
   return c < n ? c : n;
-}
-
-FCT_HD constexpr int log2i(int n) { return n <= 1 ? 0 : 1 + log2i(n >> 1); }
-
-// The last stage's second twiddle times n^-1, and its Shoup word: stored in
-// the table's unused slot 0.
-FCT_HD void fused_last_twiddle(const uint32_t* tw, uint32_t n_inv, uint32_t n_inv_sh,
-                               uint32_t q, uint32_t* w, uint32_t* w_sh) {
-  const uint32_t v = mulmod_shoup(tw[1], n_inv, n_inv_sh, q);
-  *w = v;
-  *w_sh = (uint32_t)(((uint64_t)v << 32) / q);
-}
-
-// Load n consecutive uint32 (n a power of two, p aligned to min(n, 4) words).
-template <int n>
-FCT_HD void load_run(const uint32_t* p, uint32_t* out) {
-#ifdef __CUDA_ARCH__
-  if constexpr (n % 4 == 0) {
-#pragma unroll
-    for (int i = 0; i < n; i += 4) {
-      const uint4 v = *reinterpret_cast<const uint4*>(p + i);
-      out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
-    }
-    return;
-  } else if constexpr (n == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    out[0] = v.x; out[1] = v.y;
-    return;
-  }
-#endif
-#pragma unroll
-  for (int i = 0; i < n; ++i) out[i] = p[i];
 }
 
 // Lift a lane's E aggregate values (blocked layout, row offset lane*E) and
@@ -122,99 +79,6 @@ FCT_HD void lane_lift_accumulate(const int32_t* row, const uint32_t* a_u_row,
   for (int e = 0; e < E; ++e) {
     x[e] = lift_residue((int32_t)raw[e], q);
     acc[e] = add_mod(acc[e], mulmod_shoup(x[e], au[e], ash[e], q), q);
-  }
-}
-
-// Gentleman-Sande stages b = 0 .. log2(E)-1 (pair distance t = 2^b < E)
-// inside the lane, blocked layout (k = lane*E + e).  Stage b has h = d/2^(b+1)
-// blocks; the lane's pairs use the E/2^(b+1) consecutive twiddles from
-// h + lane*E/2^(b+1).
-template <int D, int b>
-FCT_HD void blocked_stage(uint32_t* x, int lane, const uint32_t* s_w, const uint32_t* s_wsh,
-                          uint32_t q) {
-  constexpr int E = D / WARP;
-  constexpr int t = 1 << b;
-  constexpr int nj = E >> (b + 1);
-  constexpr int h = D >> (b + 1);
-  uint32_t w[nj], wsh[nj];
-  load_run<nj>(s_w + h + lane * nj, w);
-  load_run<nj>(s_wsh + h + lane * nj, wsh);
-#pragma unroll
-  for (int j = 0; j < nj; ++j) {
-#pragma unroll
-    for (int i = 0; i < t; ++i) {
-      const int e0 = 2 * j * t + i;
-      const uint32_t u = x[e0], v = x[e0 + t];
-      x[e0] = add_mod(u, v, q);
-      x[e0 + t] = mulmod_shoup(sub_mod(u, v, q), w[j], wsh[j], q);
-    }
-  }
-}
-
-template <int D, int b>
-FCT_HD void blocked_stages(uint32_t* x, int lane, const uint32_t* s_w, const uint32_t* s_wsh,
-                           uint32_t q) {
-  if constexpr ((1 << b) < D / WARP) {
-    blocked_stage<D, b>(x, lane, s_w, s_wsh, q);
-    blocked_stages<D, b + 1>(x, lane, s_w, s_wsh, q);
-  }
-}
-
-// Stage b with E <= t = 2^b < 32, blocked layout: the partner element of
-// every register is in lane ^ (t/E); y holds the partner lane's registers.
-// The lower lane keeps u + v, the upper (u - v) * w with u the partner's.
-template <int D>
-FCT_HD void exchange_stage(uint32_t* x, const uint32_t* y, int lane, int b,
-                           const uint32_t* s_w, const uint32_t* s_wsh, uint32_t q) {
-  constexpr int E = D / WARP;
-  constexpr int lE = log2i(E);
-  const int pl = 1 << (b - lE);
-  const bool lower = (lane & pl) == 0;
-  const int idx = (D >> (b + 1)) + (lane >> (b + 1 - lE));
-  const uint32_t w = s_w[idx], wsh = s_wsh[idx];
-#pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const uint32_t s = add_mod(x[e], y[e], q);
-    const uint32_t m = mulmod_shoup(sub_mod(y[e], x[e], q), w, wsh, q);
-    x[e] = lower ? s : m;
-  }
-}
-
-// Shared-memory index of element k in a warp's transpose buffer: one pad
-// word per 32, so the blocked-layout writes and the strided reads are both
-// free of bank conflicts.
-FCT_HD int pad_index(int k) { return k + (k >> 5); }
-
-// Stages b = 5 .. log2(D)-1 (t >= 32) inside the lane, strided layout
-// (k = lane + 32*e): stage b pairs registers e and e + t/32 and reads the
-// broadcast twiddle h + (e >> (b-4)).  The last stage (one block) scales by
-// n^-1: its outputs are (u + v) * n^-1 and (u - v) * (w * n^-1), the second
-// factor in slot 0 of the table.
-template <int D>
-FCT_HD void strided_stages(uint32_t* x, const uint32_t* s_w, const uint32_t* s_wsh,
-                           uint32_t n_inv, uint32_t n_inv_sh, uint32_t q) {
-  constexpr int E = D / WARP;
-  constexpr int L = log2i(D);
-#pragma unroll
-  for (int b = 5; b < L - 1; ++b) {
-    const int te = 1 << (b - 5);
-    const int h = D >> (b + 1);
-#pragma unroll
-    for (int e0 = 0; e0 < E; ++e0) {
-      if (e0 & te) continue;
-      const int idx = h + (e0 >> (b - 4));
-      const uint32_t u = x[e0], v = x[e0 + te];
-      x[e0] = add_mod(u, v, q);
-      x[e0 + te] = mulmod_shoup(sub_mod(u, v, q), s_w[idx], s_wsh[idx], q);
-    }
-  }
-  constexpr int te = E / 2;
-  const uint32_t w = s_w[0], wsh = s_wsh[0];
-#pragma unroll
-  for (int e0 = 0; e0 < te; ++e0) {
-    const uint32_t u = x[e0], v = x[e0 + te];
-    x[e0] = mulmod_shoup(add_mod(u, v, q), n_inv, n_inv_sh, q);
-    x[e0 + te] = mulmod_shoup(sub_mod(u, v, q), w, wsh, q);
   }
 }
 
@@ -242,7 +106,6 @@ __global__ void agg_check_kernel(const int32_t* __restrict__ aggs, int rank,
                                  uint32_t n_inv_sh, uint32_t q, int64_t* __restrict__ observed,
                                  int32_t* __restrict__ nrm, int32_t* __restrict__ wgt) {
   constexpr int E = D / WARP;
-  constexpr int lE = log2i(E);
   constexpr int PAD = D + D / WARP;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* s_w = smem;
@@ -267,21 +130,7 @@ __global__ void agg_check_kernel(const int32_t* __restrict__ aggs, int rank,
     uint32_t x[E];
     lane_lift_accumulate<E>(aggs + row * D, a_u + (int64_t)r * D, a_sh + (int64_t)r * D,
                             lane, q, x, acc);
-    blocked_stages<D, 0>(x, lane, s_w, s_wsh, q);
-#pragma unroll
-    for (int b = lE; b < 5; ++b) {
-      uint32_t y[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) y[e] = __shfl_xor_sync(0xffffffffu, x[e], 1 << (b - lE));
-      exchange_stage<D>(x, y, lane, b, s_w, s_wsh, q);
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) buf[pad_index(lane * E + e)] = x[e];
-    __syncwarp();
-#pragma unroll
-    for (int e = 0; e < E; ++e) x[e] = buf[pad_index(lane + WARP * e)];
-    __syncwarp();
-    strided_stages<D>(x, s_w, s_wsh, n_inv, n_inv_sh, q);
+    gs_warp_network<D>(x, lane, buf, s_w, s_wsh, n_inv, n_inv_sh, q);
     uint32_t m, c;
     lane_norm_weight<E>(x, q, &m, &c);
     m = __reduce_max_sync(0xffffffffu, m);

@@ -124,18 +124,24 @@ def check_launch(rc: int, name: str) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {rc}")
 
 
-def outputs(outs, shapes, device) -> list:
-    """A kernel's int32 outputs: ``outs`` (a caller's tensors, for example
-    pre-filled ones) checked against ``shapes`` on ``device``, or new
+def outputs(outs, shapes, device, dtype: torch.dtype = torch.int32) -> list:
+    """A kernel's outputs of ``dtype``: ``outs`` (a caller's tensors, for
+    example pre-filled ones) checked against ``shapes`` on ``device``, or new
     tensors of those shapes when ``outs`` is None."""
     if outs is None:
-        return [torch.empty(shape, dtype=torch.int32, device=device) for shape in shapes]
+        return [torch.empty(shape, dtype=dtype, device=device) for shape in shapes]
     for t, shape in zip(outs, shapes):
-        require_cuda_tensor(t, "out", torch.int32, len(shape))
+        require_cuda_tensor(t, "out", dtype, len(shape))
         if tuple(t.shape) != tuple(shape) or t.device != device:
-            raise ValueError(f"out: expected int32{list(shape)} on {device}, "
+            raise ValueError(f"out: expected {dtype}{list(shape)} on {device}, "
                              f"got {tuple(t.shape)} on {t.device}")
     return list(outs)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data does not start on a 16-byte
+    boundary: the kernels read and write rows as 16-byte vectors."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def require_cuda_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

@@ -92,7 +92,7 @@ def agg_check(plan: NTTPlan, table: AggTable, aggs: torch.Tensor):
                          f"expected [..., {rank}, {d}]")
     kernels.require_cuda_tensor(aggs, "aggs", torch.int32, aggs.dim())
     lead = aggs.shape[:-2]
-    x = aggs.view(-1, rank, d)
+    x = kernels.aligned(aggs.view(-1, rank, d))
     if table.a_u.device != x.device:
         raise ValueError(f"intt_norm_weight: table on {table.a_u.device}, aggregates on {x.device}")
     groups = x.shape[0]

@@ -187,9 +187,12 @@ def ntt_inv_plain(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:
     return F.to_centered(ntt_inv_u_plain(plan, F.to_unsigned(x)))
 
 
-def _launch(plan: NTTPlan, x: torch.Tensor, inverse: bool, centered: bool) -> torch.Tensor:
+def _launch(plan: NTTPlan, x: torch.Tensor, inverse: bool, centered: bool,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One launch of ``fct_ntt_centered`` (int32) or ``fct_ntt_u`` (int64)
-    over the rows of ``x``'s trailing axis."""
+    over the rows of ``x``'s trailing axis, into ``out`` (contiguous, 16-byte
+    aligned, ``x``'s shape and type, not ``x``; for example pre-filled) or a
+    new tensor."""
     d = plan.degree
     name = "ntt_centered" if centered else "ntt_u"
     if d < 64 or d > 1024 or d & (d - 1):
@@ -199,10 +202,13 @@ def _launch(plan: NTTPlan, x: torch.Tensor, inverse: bool, centered: bool) -> to
     dtype = torch.int32 if centered else torch.int64
     x2 = x.reshape(-1, d).contiguous()
     kernels.require_cuda_tensor(x2, "x", dtype, 2)
-    y = torch.empty_like(x2)
+    x2 = kernels.aligned(x2)
+    (y,) = kernels.outputs(None if out is None else [out], [tuple(x.shape)], x.device, dtype)
+    if y.data_ptr() % 16:
+        raise ValueError(f"{name}: out must start on a 16-byte boundary")
     rows = x2.shape[0]
     if rows == 0:
-        return y.view(x.shape)
+        return y
     tw, tw_sh = plan.twiddles(inverse, x.device)
     lib = kernels.library()
     fn = lib.fct_ntt_centered if centered else lib.fct_ntt_u
@@ -210,7 +216,7 @@ def _launch(plan: NTTPlan, x: torch.Tensor, inverse: bool, centered: bool) -> to
             int(inverse), plan.n_inv, plan.n_inv_shoup, plan.modulus, kernels.cuda_stream())
     kernels.LAUNCHES[name] += 1
     kernels.check_launch(rc, name)
-    return y.view(x.shape)
+    return y
 
 
 def ntt_fwd_u(plan: NTTPlan, x: torch.Tensor) -> torch.Tensor:

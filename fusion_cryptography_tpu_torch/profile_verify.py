@@ -43,8 +43,8 @@ def _timed(fn, acc: dict, name: str):
 
 
 # the port's kernels by a piece of their CUDA function's name in a trace
-# (``ntt_kernel`` is both NTT kernels: int64 residues for ntt_u, int32
-# centered values for ntt_centered)
+# (``ntt_kernel<d, inverse, T>`` is both NTT kernels: T = long, the int64
+# residues, for ntt_u; T = int, the centered values, for ntt_centered)
 KERNEL_FUNCTIONS = {
     "keccak_absorb_kernel": "keccak_absorb", "keccak_squeeze_kernel": "keccak_squeeze",
     "agg_check_kernel": "intt_norm_weight", "signer_fold_a_kernel": "signer_fold_a",

@@ -133,34 +133,59 @@ def test_intt_norm_weight_kernel_matches_plain(dev, q, d, root, rank, G):
         assert g.dtype == w.dtype and torch.equal(g, w)
     lead = agg_check(plan, agg_table(plan.field, pub, dev), aggs[:2].reshape(1, 2, rank, d))
     assert all(torch.equal(g.reshape(w[:2].shape), w[:2]) for g, w in zip(lead, want))
+    flat = torch.empty(aggs.numel() + 1, dtype=torch.int32, device=dev)
+    off = flat[1:].view(aggs.shape)  # not on a 16-byte boundary: copied first
+    off.copy_(aggs)
+    got = agg_check(plan, agg_table(plan.field, pub, dev), off)
+    assert off.data_ptr() % 16 and all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-@pytest.mark.parametrize("d,root,rows", [(64, 23584283, 333), (256, 3337519, 1001),
-                                         (64, 23584283, 1001), (256, 3337519, 333)])
-def test_ntt_kernels_match_plain(dev, d, root, rows):
-    """Both kernels, both directions: residues with rows of 0 and q-1,
-    centered values with 0, +-1 and +-(q-1)/2."""
-    plan = make_plan(Q, d, root)
+NTT_ROOTS = {64: (Q, 23584283), 128: (Q, 128339038), 256: (Q, 3337519),
+             512: (2013265921, 341742893), 1024: (2013265921, 1340477990)}
+
+
+@pytest.mark.parametrize("d,rows", [(64, 333), (256, 1001), (64, 1001), (256, 333),
+                                    (64, 1), (64, 4), (256, 1), (256, 4),
+                                    (128, 1), (128, 4), (128, 333), (512, 1), (512, 4),
+                                    (512, 333), (1024, 1), (1024, 4), (1024, 333)])
+def test_ntt_kernels_match_plain(dev, d, rows):
+    """Both kernels, both directions, each into an output filled with -1 (an
+    unwritten word fails): residues with rows of 0 and q-1, centered values
+    with 0, +-1 and +-(q-1)/2; row counts of 1, 4 and ones that are no
+    multiple of a block's rows."""
+    q, root = NTT_ROOTS[d]
+    plan = make_plan(q, d, root)
     g = torch.Generator(device=dev).manual_seed(rows + d)
-    u = torch.randint(0, Q, (rows, d), dtype=torch.int64, device=dev, generator=g)
-    u[0], u[1] = 0, Q - 1
-    c = (torch.randint(0, Q, (rows, d), dtype=torch.int64, device=dev, generator=g)
-         - Q // 2).to(torch.int32)
-    c[0, :5] = torch.tensor([0, 1, -1, Q // 2, -(Q // 2)], dtype=torch.int32)
-    c[1] = -(Q // 2)
+    u = torch.randint(0, q, (rows, d), dtype=torch.int64, device=dev, generator=g)
+    u[-1] = 0
+    u[0, :3] = torch.tensor([0, 1, q - 1])
+    u[1:2] = q - 1
+    c = (torch.randint(0, q, (rows, d), dtype=torch.int64, device=dev, generator=g)
+         - q // 2).to(torch.int32)
+    c[0, :5] = torch.tensor([0, 1, -1, q // 2, -(q // 2)], dtype=torch.int32)
+    c[1:2] = -(q // 2)
+
+    def launch(x, inverse):
+        return ntt._launch(plan, x, inverse, x.dtype == torch.int32, torch.full_like(x, -1))
+
     before = dict(kernels.LAUNCHES)
-    pairs = [(ntt.ntt_fwd_u(plan, u), ntt.ntt_fwd_u_plain(plan, u)),
-             (ntt.ntt_inv_u(plan, u), ntt.ntt_inv_u_plain(plan, u)),
-             (ntt.ntt_fwd(plan, c), ntt.ntt_fwd_plain(plan, c)),
-             (ntt.ntt_inv(plan, c), ntt.ntt_inv_plain(plan, c))]
+    pairs = [(launch(u, False), ntt.ntt_fwd_u_plain(plan, u)),
+             (launch(u, True), ntt.ntt_inv_u_plain(plan, u)),
+             (launch(c, False), ntt.ntt_fwd_plain(plan, c)),
+             (launch(c, True), ntt.ntt_inv_plain(plan, c))]
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["ntt_u"] == before.get("ntt_u", 0) + 2
     assert kernels.LAUNCHES["ntt_centered"] == before.get("ntt_centered", 0) + 2
     for got, want in pairs:
         assert got.dtype == want.dtype and torch.equal(got, want)
     assert torch.equal(ntt.ntt_inv_u(plan, pairs[0][0]), u)
-    lead = c[:15].reshape(3, 5, d)  # any leading shape
-    assert torch.equal(ntt.ntt_fwd(plan, lead), pairs[2][0][:15].reshape(3, 5, d))
+    assert torch.equal(ntt.ntt_inv(plan, pairs[2][0]), c)
+    lead = c[:15].reshape(-1, 1, d)  # any leading shape
+    assert torch.equal(ntt.ntt_fwd(plan, lead), pairs[2][0][:15].reshape(-1, 1, d))
+    flat = torch.empty(rows * d + 1, dtype=torch.int64, device=dev)
+    off = flat[1:].view(rows, d)  # rows not on a 16-byte boundary: copied first
+    off.copy_(u)
+    assert off.data_ptr() % 16 and torch.equal(ntt.ntt_fwd_u(plan, off), pairs[0][0])
 
 
 def test_wrappers_check_their_inputs(dev):
@@ -171,6 +196,14 @@ def test_wrappers_check_their_inputs(dev):
         ntt.ntt_fwd(plan, torch.zeros((4, 256), dtype=torch.int64, device=dev))
     with pytest.raises(ValueError):  # trailing axis is not the degree
         ntt.ntt_inv_u(plan, torch.zeros((4, 64), dtype=torch.int64, device=dev))
+    x = torch.zeros((4, 256), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):  # output of another type
+        ntt._launch(plan, x, False, False, torch.zeros((4, 256), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):  # output of another shape
+        ntt._launch(plan, x, False, False, torch.zeros((2, 512), dtype=torch.int64, device=dev))
+    with pytest.raises(ValueError):  # output not on a 16-byte boundary
+        ntt._launch(plan, x, False, False,
+                    torch.zeros(4 * 256 + 1, dtype=torch.int64, device=dev)[1:].view(4, 256))
     table = agg_table(plan.field, np.zeros((3, 256), np.int64), dev)
     with pytest.raises(ValueError):  # aggregates not contiguous
         agg_check(plan, table, torch.zeros((2, 3, 512), dtype=torch.int32, device=dev)[..., ::2])

@@ -9,8 +9,9 @@ rendering and word stream) in functions that also compile as plain C++: without 
 tests build them with the host C++ compiler, with a serial loop in place of
 the CUDA grid, and hold them against the plain torch versions and hashlib.
 Where a kernel's threads cooperate (the absorb's pairs, the signer folds'
-warp tiles), the loop runs them in lockstep and each shuffle or warp
-reduction reads the other threads' registers.  The launch geometry, cp.async
+warp tiles, the NTTs' and the aggregate check's warp per row), the loop
+runs them in lockstep and each shuffle or warp reduction reads the other
+threads' registers.  The launch geometry, cp.async
 and the ctypes binding run only on the card (tests/test_torch_cuda_kernels.py,
 marked ``cuda``)."""
 import ctypes
@@ -157,20 +158,20 @@ static void host_agg_check_d(const int32_t* aggs, int64_t groups, int rank,
       for (int l = 0; l < WARP; ++l) {
         lane_lift_accumulate<E>(aggs + row * D, a_u + (int64_t)r * D, a_sh + (int64_t)r * D, l,
                                 q, &x[l * E], &acc[l * E]);
-        blocked_stages<D, 0>(&x[l * E], l, s_w.data(), s_wsh.data(), q);
+        gs_blocked_stages<D>(&x[l * E], l, s_w.data(), s_wsh.data(), q);
       }
       for (int b = lE; b < 5; ++b) {
         prev = x;
         for (int l = 0; l < WARP; ++l)
-          exchange_stage<D>(&x[l * E], &prev[(l ^ (1 << (b - lE))) * E], l, b, s_w.data(),
-                            s_wsh.data(), q);
+          gs_exchange_stage<D>(&x[l * E], &prev[(l ^ (1 << (b - lE))) * E], l, b, s_w.data(),
+                               s_wsh.data(), q);
       }
       for (int l = 0; l < WARP; ++l)
         for (int e = 0; e < E; ++e) buf[pad_index(l * E + e)] = x[l * E + e];
       uint32_t m = 0, c = 0;
       for (int l = 0; l < WARP; ++l) {
         for (int e = 0; e < E; ++e) x[l * E + e] = buf[pad_index(l + WARP * e)];
-        strided_stages<D>(&x[l * E], s_w.data(), s_wsh.data(), n_inv, n_inv_sh, q);
+        gs_strided_stages<D>(&x[l * E], s_w.data(), s_wsh.data(), n_inv, n_inv_sh, q);
         uint32_t lm, lc;
         lane_norm_weight<E>(&x[l * E], q, &lm, &lc);
         m = lm > m ? lm : m;
@@ -201,25 +202,77 @@ extern "C" void host_agg_check(const int32_t* aggs, int64_t groups, int rank, in
   }
 }
 
-// the NTT kernels' row: load, log2(d) stages of d/2 butterflies, the n^-1
-// scale (inverse), store
+// The NTT kernels' rows, one warp of 32 lanes emulated serially around the
+// kernels' own per-lane functions: each exchange reads the partner lane's
+// registers from before the stage, the transpose goes through the same
+// padded buffer.  Inverse: blocked load, Gentleman-Sande network, strided
+// store; forward: strided load, Cooley-Tukey network, transpose back,
+// strided store.
+template <int D, typename T>
+static void host_ntt_rows_d(const T* x, T* y, int64_t rows, const uint32_t* tw,
+                            const uint32_t* tw_sh, int inverse, uint32_t n_inv,
+                            uint32_t n_inv_sh, uint32_t q) {
+  constexpr int E = D / WARP, lE = log2i(E);
+  std::vector<uint32_t> s_w(tw, tw + D), s_wsh(tw_sh, tw_sh + D);
+  if (inverse) fused_last_twiddle(tw, n_inv, n_inv_sh, q, &s_w[0], &s_wsh[0]);
+  const uint32_t *w = s_w.data(), *wsh = s_wsh.data();
+  std::vector<uint32_t> v(WARP * E), prev(WARP * E), buf(D + D / WARP);
+  for (int64_t row = 0; row < rows; ++row) {
+    const T* xr = x + row * D;
+    T* yr = y + row * D;
+    if (inverse) {
+      for (int l = 0; l < WARP; ++l) {
+        load_blocked<E>(xr, l, q, &v[l * E]);
+        gs_blocked_stages<D>(&v[l * E], l, w, wsh, q);
+      }
+      for (int b = lE; b < 5; ++b) {
+        prev = v;
+        for (int l = 0; l < WARP; ++l)
+          gs_exchange_stage<D>(&v[l * E], &prev[(l ^ (1 << (b - lE))) * E], l, b, w, wsh, q);
+      }
+      for (int l = 0; l < WARP; ++l)
+        for (int e = 0; e < E; ++e) buf[pad_index(l * E + e)] = v[l * E + e];
+      for (int l = 0; l < WARP; ++l) {
+        for (int e = 0; e < E; ++e) v[l * E + e] = buf[pad_index(l + WARP * e)];
+        gs_strided_stages<D>(&v[l * E], w, wsh, n_inv, n_inv_sh, q);
+        store_strided<E>(yr, l, q, &v[l * E]);
+      }
+    } else {
+      for (int l = 0; l < WARP; ++l) {
+        load_strided<E>(xr, l, q, &v[l * E]);
+        ct_strided_stages<D>(&v[l * E], w, wsh, q);
+      }
+      for (int l = 0; l < WARP; ++l)
+        for (int e = 0; e < E; ++e) buf[pad_index(l + WARP * e)] = v[l * E + e];
+      for (int l = 0; l < WARP; ++l)
+        for (int e = 0; e < E; ++e) v[l * E + e] = buf[pad_index(l * E + e)];
+      for (int b = 4; b >= lE; --b) {
+        prev = v;
+        for (int l = 0; l < WARP; ++l)
+          ct_exchange_stage<D>(&v[l * E], &prev[(l ^ (1 << (b - lE))) * E], l, b, w, wsh, q);
+      }
+      for (int l = 0; l < WARP; ++l) {
+        ct_blocked_stages<D>(&v[l * E], l, w, wsh, q);
+        for (int e = 0; e < E; ++e) buf[pad_index(l * E + e)] = v[l * E + e];
+      }
+      for (int l = 0; l < WARP; ++l) {
+        for (int e = 0; e < E; ++e) v[l * E + e] = buf[pad_index(l + WARP * e)];
+        store_strided<E>(yr, l, q, &v[l * E]);
+      }
+    }
+  }
+}
+
 template <typename T>
 static void host_ntt_rows(const T* x, T* y, int64_t rows, int d, const uint32_t* tw,
                           const uint32_t* tw_sh, int inverse, uint32_t n_inv,
                           uint32_t n_inv_sh, uint32_t q) {
-  uint32_t a[1024];
-  const int half = d / 2;
-  for (int64_t row = 0; row < rows; ++row) {
-    for (int k = 0; k < d; ++k) a[k] = load_coef(x[row * d + k], q);
-    if (inverse) {
-      for (int h = half; h >= 1; h >>= 1)
-        for (int i = 0; i < half; ++i) gs_butterfly(a, i, h, half, tw, tw_sh, q);
-    } else {
-      for (int m = 1; m < d; m <<= 1)
-        for (int i = 0; i < half; ++i) ct_butterfly(a, i, m, half, tw, tw_sh, q);
-    }
-    for (int k = 0; k < d; ++k)
-      store_coef(y + row * d + k, inverse ? mulmod_shoup(a[k], n_inv, n_inv_sh, q) : a[k], q);
+  switch (d) {
+    case 64: host_ntt_rows_d<64>(x, y, rows, tw, tw_sh, inverse, n_inv, n_inv_sh, q); break;
+    case 128: host_ntt_rows_d<128>(x, y, rows, tw, tw_sh, inverse, n_inv, n_inv_sh, q); break;
+    case 256: host_ntt_rows_d<256>(x, y, rows, tw, tw_sh, inverse, n_inv, n_inv_sh, q); break;
+    case 512: host_ntt_rows_d<512>(x, y, rows, tw, tw_sh, inverse, n_inv, n_inv_sh, q); break;
+    case 1024: host_ntt_rows_d<1024>(x, y, rows, tw, tw_sh, inverse, n_inv, n_inv_sh, q); break;
   }
 }
 
@@ -690,9 +743,11 @@ def agg_inputs(plan, G, rank, seed):
 
 # d up to 256 over the Fusion prime (2d divides q - 1 up to d = 256); 512 and
 # 1024 over 2013265921 = 15 * 2**27 + 1, also in (2**30, 2**31)
-@pytest.mark.parametrize("q,d,root", [(Q, 64, 23584283), (Q, 128, 128339038), (Q, 256, 3337519),
-                                      (2013265921, 512, 341742893),
-                                      (2013265921, 1024, 1340477990)])
+NTT_DEGREES = [(Q, 64, 23584283), (Q, 128, 128339038), (Q, 256, 3337519),
+               (2013265921, 512, 341742893), (2013265921, 1024, 1340477990)]
+
+
+@pytest.mark.parametrize("q,d,root", NTT_DEGREES)
 def test_intt_norm_weight_rows_match_plain(lib, q, d, root):
     plan = make_plan(q, d, root)
     G, rank = 3, 7
@@ -712,16 +767,17 @@ def test_intt_norm_weight_rows_match_plain(lib, q, d, root):
     assert int(wgt[0, 0]) == 0 and sorted(wgt[0, 1:5].tolist()) != [d] * 4
 
 
-@pytest.mark.parametrize("d,root", [(64, 23584283), (256, 3337519)])
-def test_ntt_rows_match_plain(lib, d, root):
-    """Both I/O forms, both directions, on residues with rows of 0 and q-1
-    and on centered values with 0, +-1 and +-(q-1)/2."""
-    plan = make_plan(Q, d, root)
+@pytest.mark.parametrize("q,d,root", NTT_DEGREES)
+def test_ntt_rows_match_plain(lib, q, d, root):
+    """Both I/O forms, both directions, through the warp network at every
+    degree, on residues with rows of 0 and q-1 and on centered values with
+    0, +-1 and +-(q-1)/2."""
+    plan = make_plan(q, d, root)
     rng = np.random.default_rng(d + 2)
-    u = rng.integers(0, Q, size=(37, d), dtype=np.int64)
-    u[0], u[1], u[2, :3] = 0, Q - 1, [0, 1, Q - 1]
-    c = rng.integers(-(Q // 2), Q // 2 + 1, size=(37, d), dtype=np.int64)
-    c[0], c[1, :5], c[2] = 0, [0, 1, -1, Q // 2, -(Q // 2)], -(Q // 2)
+    u = rng.integers(0, q, size=(37, d), dtype=np.int64)
+    u[0], u[1], u[2, :3] = 0, q - 1, [0, 1, q - 1]
+    c = rng.integers(-(q // 2), q // 2 + 1, size=(37, d), dtype=np.int64)
+    c[0], c[1, :5], c[2] = 0, [0, 1, -1, q // 2, -(q // 2)], -(q // 2)
     forms = [(lib.host_ntt_u, torch.from_numpy(u), tntt.ntt_fwd_u_plain, tntt.ntt_inv_u_plain),
              (lib.host_ntt_centered, torch.from_numpy(c.astype(np.int32)), tntt.ntt_fwd_plain,
               tntt.ntt_inv_plain)]
