@@ -67,9 +67,21 @@ Phases (each fails loudly; any failure exits non-zero):
      ``KATs/reference_frozen``, ``kat.run_all`` on them all true; one
      ``api`` lifecycle of 4 keys at secpar=256 whose aggregate prints as
      ``lifecycle.aggregate``'s
-  5. every kernel of each path (main, spec, lifecycle, object API) was
-     launched while that path was driven (counts cleared just before each,
-     read just after)
+  W. the rest of the package, phase 3's fleet alive at its start:
+     ``derive_alphas_grouped`` on that fleet's vk reprs and messages equals
+     ``derive_coeffs_device``'s coefficients through kernels 1, 2, 4-7; the
+     fleet freed, a fleet of G=32,768 groups x 4 verified in signer chunks of
+     8,192 and group windows of 16,384 (one call entirely under
+     ``set_sync_debug_mode("error")``, all verdicts true, verifies/s over 5
+     calls with one sync, the host's packing time per chunk, a tampered
+     group in the third chunk fails alone, ``derive_coeffs_device`` in
+     chunks of 2,048 equals one chunk on 8,192 groups); the segmented
+     absorb at 32,768 lanes equals its CPU plain version; the CLI at
+     secpar=256 with ``--device cuda`` exits 0 (a tampered message 1) and
+     writes the same bytes as ``--device cpu``
+  5. every kernel of each path (main, spec, lifecycle, object API, aux =
+     phase W) was launched while that path was driven (counts cleared just
+     before each, read just after)
 
 The last two lines of stdout are the kernel table {"kernels": [...]} and
 {"ok": true, "device": {...}}; the card's name and power limit come just
@@ -107,7 +119,11 @@ SPEC_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight", "agg
 LIFECYCLE_KERNELS = MAIN_PATH_KERNELS + ("ntt_centered",)
 # the object API: keygen and the challenge/coefficient NTTs, verify's pipeline
 OBJECT_API_KERNELS = LIFECYCLE_KERNELS
+# phase W: the windowed verify, derive_alphas_grouped, the segmented absorb
+# and the CLI (its keygen is kernel ntt_centered)
+AUX_KERNELS = LIFECYCLE_KERNELS
 ALL_KERNELS = LIFECYCLE_KERNELS + ("assemble_spec",)
+W_GROUPS, W_CHUNK, W_HASH_CHUNK = 32768, 8192, 16384  # four signer chunks, two windows
 LIFE_GROUPS = 64  # aggregate and verify calls of the lifecycle phase, one group each
 REPO = Path(__file__).resolve().parent
 FROZEN_KATS = REPO / "KATs" / "reference_frozen"
@@ -1327,6 +1343,222 @@ def check_lifecycle_cuda_vs_cpu(params, dev) -> None:
         f"({', '.join(str(len(m.encode('utf-8'))) for m in long_msgs)} B)")
 
 
+def check_derive_alphas_grouped(params, fleet) -> dict:
+    """``lifecycle.derive_alphas_grouped`` on phase 3's G x N inputs (its vk
+    reprs and messages): equal to ``derive_coeffs_device``'s challenge and
+    alpha coefficients, through kernels 1, 2, 4, 5, 6 and 7."""
+    from fusion_cryptography_tpu_torch import kernels
+    from fusion_cryptography_tpu_torch.interop import serial
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+
+    vks, msgs, aggs = fleet
+    G, N, d = vks.shape[0], vks.shape[1], params.degree
+    _, _, _, cc, al = dp.derive_coeffs_device(params, vks, msgs, aggs)
+    t0 = time.time()
+    reprs = [serial.vk_str(params, v) for v in vks.reshape(G * N, 2, d).cpu().numpy()]
+    t_reprs = time.time() - t0
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cc_g, al_g = lc.derive_alphas_grouped(params, reprs, msgs, G, N, device=vks.device)
+    t_derive = time.time() - t0
+    ran = {k: kernels.LAUNCHES[k] - before.get(k, 0) for k in kernels.LAUNCHES}
+    require(np.array_equal(cc_g, cc.cpu().numpy()) and np.array_equal(al_g, al.cpu().numpy()),
+            "derive_alphas_grouped != derive_coeffs_device's coefficients")
+    want = ("keccak_absorb", "keccak_squeeze", "ntt_u", "signer_fold_a", "signer_fold_b",
+            "agg_fold")
+    require(all(ran.get(k, 0) > 0 for k in want), f"derive_alphas_grouped launched {ran}")
+    log(f"derive_alphas_grouped on phase 3's {G} x {N} vk reprs and messages: {t_derive:.3f} s "
+        f"(reprs rendered in {t_reprs:.3f} s); equals derive_coeffs_device's challenge and "
+        f"alpha coefficients; kernel launches {ran}")
+    return {"derive_alphas_grouped_s": t_derive}
+
+
+def drive_windows(params, dev) -> dict:
+    """The windowed verify at G = W_GROUPS: signer chunks of W_CHUNK groups,
+    group windows of W_HASH_CHUNK (four chunks, two windows)."""
+    from fusion_cryptography_tpu_torch.ops.field import Q
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    G, N = W_GROUPS, N_SIGNERS
+    t0 = time.time()
+    vks, msgs, aggs = build_fleet(params, G, N, seed0=1 + 4 * N_GROUPS * N, device=dev)
+    torch.cuda.synchronize()
+    t_fleet = time.time() - t0
+    require(isinstance(msgs, list) and vks.device == dev and aggs.device == dev, "fleet inputs")
+
+    def verify(a=aggs):
+        return dp.verify_batch_device(params, vks, msgs, a, group_chunk=W_CHUNK,
+                                      group_hash_chunk=W_HASH_CHUNK)
+
+    verify()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eq, norm_ok, weight_ok = verify()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    require(bool(eq.all() & norm_ok.all() & weight_ok.all()),
+            f"windowed verify of {G} groups: every verdict must be true")
+    reps = 5
+    t0 = time.time()
+    outs = [verify() for _ in range(reps)]
+    torch.cuda.synchronize()
+    t_tp = time.time() - t0
+    require(all(bool(o[0].all() & o[1].all() & o[2].all()) for o in outs), "windowed reps")
+    del outs
+    # the host's packing of each chunk's messages, in one more call
+    packing, pack = [], dp._message_tensors
+
+    def timed_pack(*a, **kw):
+        t = time.perf_counter()
+        out = pack(*a, **kw)
+        packing.append(time.perf_counter() - t)
+        return out
+
+    dp._message_tensors = timed_pack
+    try:
+        verify()
+    finally:
+        dp._message_tensors = pack
+    torch.cuda.synchronize()
+    bad_g = 2 * W_CHUNK + W_CHUNK // 7  # in the third signer chunk, the second window
+    bad = aggs.clone()
+    bad[bad_g, 0, 0] = (bad[bad_g, 0, 0] + 1) % Q
+    rejected = torch.nonzero(~verify(bad)[0]).flatten().tolist()
+    require(rejected == [bad_g], f"windowed verify, tampered group {bad_g}: rejected {rejected}")
+    del bad
+    sub = (vks[:N_GROUPS], msgs[:N_GROUPS * N], aggs[:N_GROUPS])
+    one = dp.derive_coeffs_device(params, *sub)
+    four = dp.derive_coeffs_device(params, *sub, group_chunk=N_GROUPS // 4)
+    for name, a, b in zip(("eq", "norm_ok", "weight_ok", "cc", "alphas"), one, four):
+        require(torch.equal(a, b), f"derive_coeffs_device(group_chunk={N_GROUPS // 4}) {name} "
+                "!= one chunk")
+    vps = reps * G / t_tp
+    log(f"windowed verify: fleet of {G} groups x {N} in {t_fleet:.3f} s; group_chunk {W_CHUNK}, "
+        f"group_hash_chunk {W_HASH_CHUNK}: one call under set_sync_debug_mode('error') (no "
+        f"host sync), every verdict true; {reps} calls, one sync: {t_tp:.3f} s -> {vps:,.0f} "
+        f"verifies/s; host packing per chunk "
+        f"{', '.join(f'{t * 1e3:.2f}' for t in packing)} ms; a tampered aggregate in group "
+        f"{bad_g} fails alone; derive_coeffs_device on {N_GROUPS} groups in chunks of "
+        f"{N_GROUPS // 4} equals one chunk")
+    return {"window_groups": G, "window_group_chunk": W_CHUNK,
+            "window_group_hash_chunk": W_HASH_CHUNK, "window_fleet_s": t_fleet,
+            "window_verifies_per_s": vps, "window_verify_reps_s": t_tp,
+            "window_packing_ms": [t * 1e3 for t in packing]}
+
+
+def check_absorb_segments(dev) -> dict:
+    """``keccak.shake256_absorb_segments_words`` at B = 32,768 lanes of five
+    ragged segments (0-300 bytes each, across the rate): the card's states
+    equal the CPU plain version's."""
+    from fusion_cryptography_tpu_torch.ops import keccak
+
+    rng = np.random.default_rng(SEED)
+    B = N_GROUPS * N_SIGNERS
+    segs = []
+    for mn, mx in ((130, 150), (1, 300), (7, 7), (0, 140), (136, 136)):
+        lens = rng.integers(mn, mx + 1, B).astype(np.int32)
+        by = rng.integers(0, 256, size=(B, 4 * (-(-mx // 4))), dtype=np.uint8)
+        by[np.arange(by.shape[1])[None, :] >= lens[:, None]] = 0
+        segs.append((torch.from_numpy(by.view(np.int32).T.copy()), torch.from_numpy(lens), mn, mx))
+    t0 = time.time()
+    got = keccak.shake256_absorb_segments_words(
+        [(w.to(dev), ln.to(dev), mn, mx) for w, ln, mn, mx in segs])
+    torch.cuda.synchronize()
+    t_card = time.time() - t0
+    want = keccak.shake256_absorb_segments_words(segs)
+    require(torch.equal(got.cpu(), want), "shake256_absorb_segments_words: CUDA != CPU")
+    log(f"shake256_absorb_segments_words: {B} lanes of 5 ragged segments (7-733 bytes a lane) "
+        f"on the card ({t_card:.3f} s, first call) equal the CPU plain version")
+    return {"absorb_segments_s": t_card}
+
+
+def check_cli(dev) -> dict:
+    """``python -m fusion_cryptography_tpu_torch`` at secpar=256 (in process):
+    setup, two keygens, two signs, aggregate and verify exit 0 with
+    ``--device cuda``, a tampered message exits 1 with the reference's
+    reason, and every file equals the one ``--device cpu`` writes."""
+    import contextlib
+    import io
+
+    from fusion_cryptography_tpu_torch.__main__ import main as cli
+    from fusion_cryptography_tpu_torch.scheme.lifecycle import REASON_TARGET
+
+    build = REPO / "build"
+    build.mkdir(exist_ok=True)
+    names = ("params.fp", "sk1.fp", "vk1.fp", "sk2.fp", "vk2.fp", "s1.fp", "s2.fp", "agg.fp")
+    times = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        for label, where in (("card", dev.type), ("cpu", "cpu")):
+            d = Path(tmp) / label
+            d.mkdir()
+            msgs = ("h\u00e9llo", "world")
+
+            def p(name):
+                return str(d / name)
+
+            def run(*argv):
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc = cli([argv[0], "--device", where, *argv[1:]])
+                return rc, out.getvalue().strip()
+
+            def verify(first):
+                return run("verify", "--params", p("params.fp"), "--vk", p("vk1.fp"), "--message",
+                           first, "--vk", p("vk2.fp"), "--message", msgs[1], "--agg", p("agg.fp"))
+
+            t0 = time.time()
+            steps = [run("setup", "--secpar", str(SECPAR), "--seed", "42", "--out", p("params.fp"))]
+            for k, seed in ((1, 7), (2, 8)):
+                steps.append(run("keygen", "--params", p("params.fp"), "--seed", str(seed),
+                                 "--out-sk", p(f"sk{k}.fp"), "--out-vk", p(f"vk{k}.fp")))
+            for k in (1, 2):
+                steps.append(run("sign", "--params", p("params.fp"), "--sk", p(f"sk{k}.fp"),
+                                 "--message", msgs[k - 1], "--out", p(f"s{k}.fp")))
+            steps.append(run("aggregate", "--params", p("params.fp"),
+                             "--vk", p("vk1.fp"), "--message", msgs[0], "--sig", p("s1.fp"),
+                             "--vk", p("vk2.fp"), "--message", msgs[1], "--sig", p("s2.fp"),
+                             "--out", p("agg.fp")))
+            steps.append(verify(msgs[0]))
+            require(all(rc == 0 for rc, _ in steps), f"CLI --device {where}: {steps}")
+            require(steps[-1][1] == "OK", f"CLI verify --device {where}: {steps[-1]}")
+            bad = verify("HELLO")
+            require(bad == (1, f"FAIL: {REASON_TARGET}"), f"CLI tampered --device {where}: {bad}")
+            times[label] = time.time() - t0
+        differ = [n for n in names if not filecmp.cmp(Path(tmp) / "card" / n,
+                                                     Path(tmp) / "cpu" / n, shallow=False)]
+        require(not differ, f"CLI files --device {dev.type} != --device cpu: {differ}")
+    log(f"CLI at secpar={SECPAR}: setup, 2 keygens, 2 signs, aggregate, verify exit 0 "
+        f"(--device {dev.type} {times['card']:.3f} s, cpu {times['cpu']:.3f} s); a tampered "
+        "message exits 1 with the reference's reason; all 8 files byte-equal across the devices")
+    return {"cli_card_s": times["card"], "cli_cpu_s": times["cpu"]}
+
+
+def drive_aux(params, fleet, dev) -> tuple:
+    """Phase W: ``derive_alphas_grouped`` on phase 3's fleet, which is then
+    freed, the windowed verify at G = W_GROUPS, the segmented absorb and the
+    CLI -> (metrics, kernel launches while they ran)."""
+    from fusion_cryptography_tpu_torch import kernels
+
+    kernels.LAUNCHES.clear()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    metrics = check_derive_alphas_grouped(params, fleet)
+    fleet.clear()
+    torch.cuda.empty_cache()
+    metrics.update(drive_windows(params, dev))
+    torch.cuda.empty_cache()
+    metrics.update(check_absorb_segments(dev))
+    metrics.update(check_cli(dev))
+    launches = dict(kernels.LAUNCHES)
+    metrics["phase_w_s"] = time.time() - t0
+    log(f"phase W in {metrics['phase_w_s']:.3f} s; kernel launches: {launches}")
+    return metrics, launches
+
+
 def fold_times_only(dev, card: str) -> int:
     """``--fold-times``: the signer fold kernels' times on the five input
     sets of :func:`signer_fold_times` and nothing else, through the public
@@ -1396,8 +1628,6 @@ def main(argv) -> int:
     life_metrics, life_launches = drive_lifecycle(params, fleet, dev)
     metrics.update(life_metrics)
     check_lifecycle_cuda_vs_cpu(params, dev)
-    del fleet
-    torch.cuda.empty_cache()
 
     # -- 4. the secpar=128 lane ---------------------------------------------
     from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
@@ -1420,12 +1650,18 @@ def main(argv) -> int:
     obj_metrics, obj_launches = drive_object_api(dev)
     metrics.update(obj_metrics)
 
+    # -- W. windowed verify, derive_alphas_grouped, segments, CLI -------------
+    fleet = list(fleet)  # drive_aux frees it once derive_alphas_grouped has run
+    aux_metrics, aux_launches = drive_aux(params, fleet, dev)
+    metrics.update(aux_metrics)
+
     # -- 5. the paths went through every kernel --------------------------------
     require(sorted(r["name"] for r in kernel_rows) == sorted(ALL_KERNELS),
             "kernel table must list every kernel of the paths")
     paths = (("main", launches, MAIN_PATH_KERNELS), ("spec", spec_launches, SPEC_PATH_KERNELS),
              ("lifecycle", life_launches, LIFECYCLE_KERNELS),
-             ("object_api", obj_launches, OBJECT_API_KERNELS))
+             ("object_api", obj_launches, OBJECT_API_KERNELS),
+             ("aux", aux_launches, AUX_KERNELS))
     for row in kernel_rows:
         name = row["name"]
         for path, counts, path_kernels in paths:

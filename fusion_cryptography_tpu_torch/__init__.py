@@ -19,6 +19,10 @@ Entry points::
     vks, msgs, aggs = build_fleet(params, n_groups, n_signers)  # on the card
     eq, norm_ok, weight_ok = verify_batch_device(params, vks, msgs, aggs)
 
+``python -m fusion_cryptography_tpu_torch`` is the command line (setup,
+keygen, sign, aggregate, verify over files in the JAX package's format,
+``scheme/serde.py``).
+
 ``keygen`` and ``build_fleet`` run on the CUDA device unless given
 ``device="cpu"``; the other entry points run on the device of their tensors,
 and numpy inputs go to the card unless given ``device="cpu"``.  Without a
@@ -40,6 +44,8 @@ from .scheme.lifecycle import (
     verify_many,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "Params",
     "fusion_setup",
@@ -57,4 +63,5 @@ __all__ = [
     "build_fleet",
     "verify_batch_device",
     "derive_coeffs_device",
+    "__version__",
 ]

@@ -1,7 +1,7 @@
 """Seeded samplers with CPython-``random`` bit-parity.
 
-The samplers the port needs from the JAX package's ``hashing/sampler.py``
-(stdlib + numpy only), copied so the port never imports that package.
+A copy of the JAX package's ``hashing/sampler.py`` (stdlib + numpy only),
+so the port never imports that package.
 
 The reference draws all randomness from CPython's global Mersenne Twister via
 ``random.seed`` / ``random.randrange`` (algebra/polynomials.py:447-459, :478-480),
@@ -58,3 +58,25 @@ def sample_uniform_ntt_values(modulus: int, degree: int, seed: Optional[int]) ->
     half = modulus // 2
     vals = [random.randrange(modulus) - half for _ in range(degree)]
     return np.array(vals, dtype=np.int32)
+
+
+def sample_short_matrix_coeffs(
+    modulus: int,
+    degree: int,
+    norm_bound: int,
+    weight_bound: int,
+    num_rows: int,
+    num_cols: int,
+    seed: Optional[int],
+) -> np.ndarray:
+    """Matrix of short polynomials as int32[num_rows, num_cols, degree],
+    preserving the per-entry-reseed quirk for integer seeds (every entry equal)
+    and sequential-stream draws for ``seed=None``."""
+    if seed is not None:
+        one = sample_short_poly_coeffs(modulus, degree, norm_bound, weight_bound, seed)
+        return np.broadcast_to(one, (num_rows, num_cols, degree)).copy()
+    entries = [
+        sample_short_poly_coeffs(modulus, degree, norm_bound, weight_bound, None)
+        for _ in range(num_rows * num_cols)
+    ]
+    return np.stack(entries).reshape(num_rows, num_cols, degree)

@@ -21,6 +21,7 @@ import torch
 
 from ..ops import ragged_words as rw
 from ..ops.ragged_words import DEC_W
+from ..ops.upload import upload
 from .serial import NTT_CLASS
 
 _KIND_CONST, _KIND_NUMBER, _KIND_EXTRA = 0, 1, 2
@@ -396,8 +397,7 @@ class FoldTable:
         """(ops, pool) tensors on ``device``, made once per device."""
         key = str(device)
         if key not in self._device:
-            self._device[key] = (torch.as_tensor(self.ops, device=device),
-                                 torch.as_tensor(self.pool, device=device))
+            self._device[key] = (upload(self.ops, device), upload(self.pool, device))
         return self._device[key]
 
 

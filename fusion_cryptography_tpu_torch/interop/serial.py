@@ -21,6 +21,7 @@ Values may be numpy arrays, torch tensors (on any device) or int lists.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
@@ -108,6 +109,56 @@ def vk_str(params, vk) -> str:
     vk = _host(vk)
     left, right = (ntt_matrix_str(params, vk[k], 1, 1) for k in (0, 1))
     return f"OneTimeVerificationKey(left_vk_hat={left}, right_vk_hat={right})"
+
+
+def _canonical_lengths(vals: np.ndarray) -> np.ndarray:
+    """len(str(v)) of each int64 value below 10**18."""
+    p10 = 10 ** np.arange(1, 19, dtype=np.int64)
+    return 1 + (np.abs(vals)[..., None] >= p10).sum(-1) + (vals < 0)
+
+
+def vk_values(params, reprs: Sequence[str]) -> np.ndarray:
+    """The vks int32[B, 2, degree] whose :func:`vk_str` are ``reprs``;
+    raises ValueError on a repr that is not the ``str()`` of a vk of
+    ``params`` with int32 values.
+
+    The text around the two value lists must equal ``vk_str``'s; each list
+    must hold ``degree`` ASCII decimals joined by ", ", which numpy parses
+    in one pass.  A decimal that is not ``str()`` of its value (a sign,
+    a leading zero, a space) is longer than that, so the lists' lengths
+    equal the canonical ones only if every decimal is canonical."""
+    d, B = params.degree, len(reprs)
+    head, mid, tail = vk_str(params, np.zeros((2, d))).split("values=[")
+    mid, tail = mid[mid.index("]"):], tail[tail.index("]"):]
+    lists = []
+    for b, r in enumerate(reprs):
+        parts = r.split("values=[")
+        ok = len(parts) == 3 and parts[0] == head
+        if ok:
+            (left, rest_l), (right, rest_r) = ((p[:p.find("]")], p[p.find("]"):])
+                                               for p in parts[1:])
+            ok = (rest_l == mid and rest_r == tail and left.isascii() and right.isascii()
+                  and left.count(", ") == d - 1 and right.count(", ") == d - 1)
+        if not ok:
+            raise ValueError(f"vk repr {b} is not the str() of a verification key of these "
+                             f"parameters: {r[:80]!r}...")
+        lists += [left, right]
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", DeprecationWarning)  # text left unparsed
+            vals = np.fromstring(", ".join(lists), dtype=np.int64, sep=", ")
+    except (DeprecationWarning, ValueError):
+        vals = np.zeros(0, dtype=np.int64)
+    where = "a vk repr"
+    if vals.size == 2 * d * B:
+        vals = vals.reshape(B, 2, d)
+        lens = np.array([len(t) for t in lists], dtype=np.int64).reshape(B, 2)
+        good = ((_canonical_lengths(vals).sum(-1) + 2 * (d - 1) == lens).all(-1)
+                & (vals >= -2**31).all((1, 2)) & (vals < 2**31).all((1, 2)))
+        if good.all():
+            return vals.astype(np.int32)
+        where = f"vk repr {int(np.argmin(good))}"
+    raise ValueError(f"{where} is not the str() of a verification key of these parameters")
 
 
 def sk_str(params, seed: Optional[int], sk_hat) -> str:

@@ -24,6 +24,7 @@ import torch
 from .. import kernels
 from ..interop import device_serial as ds
 from . import ragged_words as rw
+from .upload import upload
 
 
 def assemble_spec(
@@ -87,9 +88,9 @@ def _assemble_spec_launch(spec: ds.PreimageSpec, values: Optional[torch.Tensor],
                 f"{el.dtype}{tuple(el.shape)} on {el.device}")
         rows.append([eb.data_ptr(), eb.stride(0), eb.stride(1), el.data_ptr(), el.stride(0),
                      want])
-    # from pageable memory the async copy stages the table before returning,
-    # without waiting for the stream (a blocking copy would sync the device)
-    table = torch.tensor(rows or [[0] * 6], dtype=torch.int64).to(dev, non_blocking=True)
+    # the pointer table goes over from pinned memory, asynchronously on the
+    # stream (a blocking copy would sync the device)
+    table = upload(rows or [[0] * 6], dev, torch.int64)
     prog = ds.spec_table(spec, pad_words)
     ops, pool = prog.on(dev)
     (width,) = prog.widths

@@ -25,6 +25,7 @@ import torch
 from .. import kernels
 from .field import Field
 from .ntt import NTTPlan, ntt_inv_u_plain
+from .upload import upload
 
 
 @dataclass(frozen=True)
@@ -50,9 +51,9 @@ def agg_table(field: Field, public_challenge, device: torch.device) -> AggTable:
     a_sh = (a << 32) // field.q
     a_mont = (a * field.r_mod_q) % field.q
     return AggTable(
-        a_mont=torch.from_numpy(a_mont).to(device),
-        a_u=torch.from_numpy(a.astype(np.uint32).view(np.int32)).to(device),
-        a_sh=torch.from_numpy(a_sh.astype(np.uint32).view(np.int32)).to(device),
+        a_mont=upload(a_mont, device),
+        a_u=upload(a.astype(np.uint32).view(np.int32), device),
+        a_sh=upload(a_sh.astype(np.uint32).view(np.int32), device),
     )
 
 

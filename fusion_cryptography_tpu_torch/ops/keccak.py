@@ -20,6 +20,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from .upload import upload
+
 RATE = 136  # SHAKE256 rate in bytes
 RATE_WORDS = RATE // 4  # 34 packed words per rate block
 RATE_LANES = RATE // 8  # 17 sponge lanes per rate block
@@ -68,16 +70,13 @@ def _consts(device: torch.device):
     hit = _CONSTS.get(key)
     if hit is None:
         r = ROT[PI_SRC]  # rotation applied to each destination lane
-        rs = torch.as_tensor(r, device=device).view(25, 1)
         hit = (
-            torch.as_tensor(RC, device=device),
-            rs,
-            torch.as_tensor(np.minimum(64 - r, 63), device=device).view(25, 1),
-            torch.as_tensor(
-                np.array([(1 << int(k)) - 1 for k in r], dtype=np.uint64).view(np.int64),
-                device=device,
-            ).view(25, 1),
-            torch.as_tensor(PI_SRC, device=device),
+            upload(RC, device),
+            upload(r, device).view(25, 1),
+            upload(np.minimum(64 - r, 63), device).view(25, 1),
+            upload(np.array([(1 << int(k)) - 1 for k in r], dtype=np.uint64).view(np.int64),
+                   device).view(25, 1),
+            upload(PI_SRC, device),
         )
         _CONSTS[key] = hit
     return hit
@@ -216,3 +215,30 @@ def sha3_256_words(words: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
     (the first 32 rate bytes after absorbing with domain byte 0x06)."""
     padded, nb = pad_words(words, lens, 0x06)
     return absorb_padded(padded, nb)[:8]
+
+
+def shake256_absorb_segments_words(segments, pad_head: int = 0x1F) -> torch.Tensor:
+    """Absorb the per-lane concatenation of ragged packed-word segments.
+
+    ``segments``: ``(words int32[Wk, B], lens int[B], min_len, max_len)``
+    each, in the ops/ragged_words normal form (bytes at or beyond ``lens``
+    zero) -> the post-absorb states int32[50, B], bit-exact with
+    :func:`shake256_absorb_words` on the concatenation: the ``str()``
+    concatenations the reference feeds SHAKE256 (fusion.py:417, :586-589).
+
+    The JAX package carries a partial rate block from segment to segment,
+    because a concatenation costs it barrel shifts on the TPU.  Here the
+    concatenation is one prefix-sum scatter (ragged_words.fold_chunks_w),
+    padded and absorbed in one pass: on a CUDA tensor one launch of kernel
+    ``keccak_absorb``, on the CPU the plain sponge."""
+    from . import keccak_sponge
+    from . import ragged_words as rw
+
+    joined = rw.fold_chunks_w([
+        rw.WChunk(buf=words, length=lens.to(torch.int32), max_len=mx, min_len=mn)
+        for words, lens, mn, mx in segments
+    ])
+    rows = (joined.max_len // RATE + 1) * RATE_WORDS  # room for the pad bytes
+    words = torch.nn.functional.pad(joined.buf, (0, 0, 0, rows - joined.buf.shape[0]))
+    padded, n_blocks = pad_words(words, joined.length, pad_head, assume_clean=True)
+    return keccak_sponge.absorb(padded, n_blocks)

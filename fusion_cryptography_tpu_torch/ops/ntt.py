@@ -31,6 +31,7 @@ import torch
 from .. import kernels
 from .field import Field, Q, get_field
 from .numtheory import bit_reverse_indices, is_odd_prime, is_primitive_root
+from .upload import upload
 
 
 @dataclass(frozen=True, eq=False)  # identity hash: plans are interned by make_plan
@@ -69,7 +70,7 @@ class NTTPlan:
     def tables(self, device: torch.device) -> tuple:
         """Per-device stage twiddles: (fwd [int64[m, 1]...], inv [...])."""
         return self.on_device("stages", device, lambda: tuple(
-            [torch.as_tensor(s, device=device).view(-1, 1) for _, _, s in stages]
+            [upload(s, device).view(-1, 1) for _, _, s in stages]
             for stages in (self.fwd_stages, self.inv_stages)
         ))
 
@@ -78,7 +79,7 @@ class NTTPlan:
         ``brp_inv``) on ``device``, as int32 bit patterns."""
         tables = (self.brp_inv, self.brp_inv_shoup) if inverse else (self.brp, self.brp_shoup)
         return self.on_device(f"twiddles_{int(inverse)}", device, lambda: tuple(
-            torch.as_tensor(t.view(np.int32), device=device) for t in tables
+            upload(t.view(np.int32), device) for t in tables
         ))
 
 

@@ -29,6 +29,7 @@ import torch
 from .. import kernels
 from ..interop import device_serial as ds
 from . import ragged_words as rw
+from .upload import upload
 
 PRE_ROWS = rw.words_for(ds.PREHASH_W)  # 20 words of prehash digits
 
@@ -185,10 +186,8 @@ def agg_fold(params, n_signers: int, tbs: Sequence[torch.Tensor],
                                  f"CUDA tensor on {dev} with one shared stride; got "
                                  f"{t.dtype}{tuple(t.shape)} strides {t.stride()} on {t.device}")
     # the pointer table goes over from pinned memory, asynchronously on the
-    # stream (a blocking copy would sync the device; the caching host
-    # allocator keeps the pinned block until the copy has run)
-    ptrs = torch.tensor([t.data_ptr() for t in (*tbs, *tls)], dtype=torch.int64,
-                        pin_memory=True).to(dev, non_blocking=True)
+    # stream (a blocking copy would sync the device)
+    ptrs = upload([t.data_ptr() for t in (*tbs, *tls)], dev, torch.int64)
     ops, pool = table.on(dev)
     (out_words,) = table.widths
     out = torch.empty((out_words, G), dtype=torch.int32, device=dev)

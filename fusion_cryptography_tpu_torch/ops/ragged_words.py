@@ -18,9 +18,13 @@ on batch-major bytes uint8[B, W], where each lane's string is contiguous.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
+
+from .upload import upload
 
 DEC_W = 11  # '-' + 10 digits covers |v| < 2**31
 PREHASH_DIGITS = 78  # str(int.from_bytes(sha3_256 digest, 'little')) <= 78 digits
@@ -54,7 +58,10 @@ class WChunk:
 
 def words_to_bytes(words: torch.Tensor) -> torch.Tensor:
     """int32[..., Ww, B] packed words -> batch-major bytes uint8[..., B, 4*Ww]."""
-    return words.transpose(-1, -2).contiguous().view(torch.uint8)
+    by = words.transpose(-1, -2).contiguous()
+    if by.stride(-1) != 1:  # contiguous() keeps any stride of a size-1 dim (Ww = 1)
+        by = by.clone(memory_format=torch.contiguous_format)
+    return by.view(torch.uint8)
 
 
 def bytes_to_words(by: torch.Tensor) -> torch.Tensor:
@@ -90,6 +97,24 @@ def unpack_words_to_bytes(words: torch.Tensor, nbytes: Optional[int] = None) -> 
 
 
 # ---------------------------------------------------------------------------
+# constant tables, one per device
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=32)
+def _powers_of_ten(n: int, descending: bool, device: str) -> torch.Tensor:
+    """int64[n]: 10**0 .. 10**(n-1), or the reverse, on ``device``."""
+    p = 10 ** np.arange(n, dtype=np.int64)
+    return upload(p[::-1].copy() if descending else p, device)
+
+
+@lru_cache(maxsize=64)
+def _const_bytes(data: bytes, device: str) -> torch.Tensor:
+    """``data`` as uint8[len(data)] on ``device``."""
+    return upload(np.frombuffer(data, dtype=np.uint8).copy(), device)
+
+
+# ---------------------------------------------------------------------------
 # decimal rendering
 # ---------------------------------------------------------------------------
 
@@ -101,7 +126,7 @@ def decimal_chars(values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = v.device
     neg = v < 0
     a = v.abs()
-    p10 = torch.tensor([10 ** k for k in range(9, -1, -1)], dtype=torch.int64, device=dev)
+    p10 = _powers_of_ten(10, True, str(dev))
     digs = torch.div(a.unsqueeze(-1), p10, rounding_mode="floor") % 10  # MSB first
     nd = 1 + (a.unsqueeze(-1) >= p10[:-1]).sum(-1)
     length = nd + neg
@@ -119,7 +144,7 @@ def _cells_bytes(values: torch.Tensor, sep: bytes) -> Tuple[torch.Tensor, torch.
     ch, length = decimal_chars(values.t())  # [B, K, 11], [B, K]
     s = len(sep)
     if s:
-        sep_t = torch.tensor(list(sep), dtype=torch.uint8, device=ch.device)
+        sep_t = _const_bytes(bytes(sep), str(ch.device))
         ch = torch.cat([sep_t.expand(*ch.shape[:-1], s), ch], dim=-1)
     return ch, length + s
 
@@ -155,7 +180,7 @@ def render_bigint_dec_w(digest_words: torch.Tensor) -> WChunk:
             r = cur - limbs[k] * base
         chunks.append(r)
     ch9 = torch.stack(chunks, dim=1)  # [B, 9] base-10**9 digits, LSB first
-    p10 = torch.tensor([10 ** j for j in range(9)], dtype=torch.int64, device=dev)
+    p10 = _powers_of_ten(9, False, str(dev))
     digits = (torch.div(ch9.unsqueeze(-1), p10, rounding_mode="floor") % 10).reshape(B, 81)
     digits = digits[:, :PREHASH_DIGITS]  # LSB first
     t = torch.arange(PREHASH_DIGITS, device=dev)
@@ -184,7 +209,7 @@ def _chunk_segment(c: WChunk) -> Segment:
 
 
 def _const_segment(data: bytes, B: int, device: torch.device) -> Segment:
-    t = torch.tensor(list(data), dtype=torch.uint8, device=device)
+    t = _const_bytes(data, str(device))
     return t.expand(B, len(data)), torch.ones(1, 1, dtype=torch.bool, device=device).expand(
         B, len(data)), len(data), len(data)
 

@@ -19,11 +19,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import lru_cache
 from math import ceil, log2
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from .ragged_words import bytes_to_words, words_to_bytes
+from .upload import upload
 
 
 @dataclass(frozen=True)
@@ -97,22 +99,34 @@ def split_streams_w(blob_w: torch.Tensor, n_streams: int, stream_bytes: int) -> 
 
 
 @lru_cache(maxsize=64)
-def _block_powers(off: int, count: int, bpb: int, mods: tuple, n_bytes: int) -> np.ndarray:
-    """P[t, k] = 256^(avail_t-1-k) mod m_t for k < avail_t, else 0, where
-    avail_t is how many of row t's bytes lie inside the ``n_bytes`` stream
-    (the reference slices the stream, so truncated rows read truncated
-    big-endian ints and empty rows read 0)."""
+def _block_tables(off: int, count: int, bpb: int, mods: tuple, n_bytes: int,
+                  device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_block_reduce`'s tables on ``device``, made once per (geometry,
+    device): P[t, k] = 256^(avail_t-1-k) mod m_t for k < avail_t, else 0,
+    where avail_t is how many of row t's bytes lie inside the ``n_bytes``
+    stream (the reference slices the stream, so truncated rows read
+    truncated big-endian ints and empty rows read 0), and the moduli m."""
     avail = np.clip(n_bytes - (off + np.arange(count) * bpb), 0, bpb)
     P = np.zeros((count, bpb), dtype=np.int64)
     for t in range(count):
         m = int(mods[t])
         for k in range(int(avail[t])):
             P[t, k] = pow(256, int(avail[t]) - 1 - k, m)
-    return P
+    return upload(P, device), upload(np.array(mods, dtype=np.int64), device)
+
+
+@lru_cache(maxsize=16)
+def _signum_tables(n_signum_bytes: int, weight_bound: int,
+                   device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(byte index, bit shift) of each of the ``weight_bound`` signum bits
+    on ``device``: bit i is bit i % 8 of byte ``n_signum_bytes - 1 - i // 8``
+    (LSB-first over the big-endian signum integer)."""
+    i_arr = np.arange(weight_bound)
+    return (upload(n_signum_bytes - 1 - i_arr // 8, device), upload(i_arr % 8, device))
 
 
 def _block_reduce(by: torch.Tensor, n_bytes: int, off: int, count: int, bpb: int,
-                  mods: np.ndarray) -> torch.Tensor:
+                  mods: tuple) -> torch.Tensor:
     """Big-endian ``bpb``-byte blocks starting at byte ``off`` of batch-major
     streams uint8[B, n], row t reduced mod ``mods[t]`` -> int64[B, count]."""
     B = by.shape[0]
@@ -120,9 +134,7 @@ def _block_reduce(by: torch.Tensor, n_bytes: int, off: int, count: int, bpb: int
     region = by[:, off:need]
     if region.shape[1] < count * bpb:
         region = torch.nn.functional.pad(region, (0, count * bpb - region.shape[1]))
-    P = torch.as_tensor(_block_powers(off, count, bpb, tuple(int(m) for m in mods), n_bytes),
-                        device=by.device)
-    m = torch.as_tensor(mods.astype(np.int64), device=by.device)
+    P, m = _block_tables(off, count, bpb, mods, n_bytes, str(by.device))
     acc = (region.reshape(B, count, bpb).to(torch.int64) * P).sum(dim=-1)
     return acc % m
 
@@ -143,22 +155,19 @@ def decode_coeffs_w(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int)
     by = words_to_bytes(xof_words)  # [B, 4W]
 
     nb = geom.bytes_for_signums
-    i_arr = np.arange(w)
-    src = torch.as_tensor(nb - 1 - i_arr // 8, device=dev)
-    shift = torch.as_tensor(i_arr % 8, device=dev)
+    src, shift = _signum_tables(nb, w, str(dev))
     bits = (by[:, src].to(torch.int64) >> shift) & 1
     vals = 2 * bits - 1  # [B, w]
     if geom.bound != 1:
-        mods = np.full(w, geom.bound, dtype=np.int64)
+        mods = (geom.bound,) * w
         vals = vals * (_block_reduce(by, n_bytes, nb, w, geom.bytes_per_coefficient, mods) + 1)
 
     S = geom.num_swaps
     if S == 0:
         out = torch.nn.functional.pad(vals, (0, d - w))
         return out.t().to(torch.int32).contiguous()
-    i_vals = np.arange(d - 1, w, -1)
-    j_all = _block_reduce(by, n_bytes, geom.index_stream_offset, S,
-                          geom.bytes_per_index, i_vals + 1)  # [B, S]
+    j_all = _block_reduce(by, n_bytes, geom.index_stream_offset, S, geom.bytes_per_index,
+                          tuple(range(d, w + 1, -1)))  # [B, S]: swap t takes mod d - t
     # first swap t whose target is live slot m (targets >= w go to a dump slot)
     first_t = torch.full((B, w + 1), S, dtype=torch.int64, device=dev)
     t_idx = torch.arange(S, device=dev).expand(B, S)

@@ -1,13 +1,14 @@
 """Where a grouped verify spends its time on the GPU.
 
     python -m fusion_cryptography_tpu_torch.profile_verify [--groups 8192]
-        [--assembly fold|spec] [--out DIR]
+        [--group-chunk 8192] [--assembly fold|spec] [--out DIR]
 
 Builds a secpar=256, N=4 fleet on the first CUDA device, then, for verify
 calls in the ``--assembly`` configuration ("fold", the default: the
 signer fold kernels; "spec": ``assemble_spec`` on the challenge and triple
 specs),
-  1. times each stage of one verify (prehash, signer hash, group hash,
+  1. times one verify call, the host's packing of each chunk's messages in
+     it, and each stage of one verify (prehash, signer hash, group hash,
      lattice) between device synchronisations;
   2. traces one verify with torch.profiler and prints the device time by
      kernel and the device's busy share of the call;
@@ -162,9 +163,23 @@ def main() -> None:
         return out
 
     verify()  # warm
-    t0 = time.perf_counter()
-    verify()
-    wall = time.perf_counter() - t0
+    # the call, with the host's packing of each chunk's messages timed
+    packing = []
+    pack = dp._message_tensors
+
+    def timed_pack(*a, **kw):
+        t = time.perf_counter()
+        out = pack(*a, **kw)
+        packing.append(time.perf_counter() - t)
+        return out
+
+    dp._message_tensors = timed_pack
+    try:
+        t0 = time.perf_counter()
+        verify()
+        wall = time.perf_counter() - t0
+    finally:
+        dp._message_tensors = pack
 
     # 1. stage breakdown: the call's own pipeline, its stages timed
     P = dp.get_pipeline(params, N, str(dev), args.assembly)
@@ -185,8 +200,11 @@ def main() -> None:
             setattr(P, attr, fn)
     if not acc:
         raise SystemExit("profile: the call did not run the timed pipeline")
-    print(f"verify G={G}, assembly {args.assembly!r}: {wall * 1e3:.2f} ms per call "
-          "(unsynchronised stages)")
+    print(f"verify G={G}, group_chunk {args.group_chunk}, group_hash_chunk "
+          f"{dp.DEFAULT_GROUP_HASH_CHUNK}, assembly {args.assembly!r}: {wall * 1e3:.2f} ms per "
+          "call (unsynchronised stages)")
+    print(f"  host packing of the messages, {len(packing)} chunks: "
+          + ", ".join(f"{t * 1e3:.2f}" for t in packing) + " ms")
     for k, v in acc.items():
         print(f"  {k:52s} {v * 1e3:9.2f} ms")
 
@@ -240,7 +258,9 @@ def main() -> None:
         out.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(out / "verify_trace.json"))
         (out / "verify_kernels.json").write_text(json.dumps(
-            {"card": card, "groups": G, "assembly": args.assembly, "wall_ms": wall * 1e3,
+            {"card": card, "groups": G, "group_chunk": args.group_chunk,
+             "group_hash_chunk": dp.DEFAULT_GROUP_HASH_CHUNK, "assembly": args.assembly,
+             "wall_ms": wall * 1e3, "packing_ms": [t * 1e3 for t in packing],
              "traced_ms": traced * 1e3,
              "busy_ms": busy, "launches": launches, "stages_ms": {k: v * 1e3 for k, v in acc.items()},
              "kernels": [{"name": k, "ms": us / 1e3, "count": n} for k, us, n in rows],

@@ -31,17 +31,22 @@ The group stage takes the ``agg_fold`` kernel in both.  On the CPU the
 kernels' plain versions assemble the same bytes by prefix sum + scatter
 (interop/device_serial, ops/ragged_words).
 
-Groups are processed in chunks of ``group_chunk`` complete groups (every
-chunk holds all N signers of its groups, so its aggregation preimages close
-over its own triples), which bounds the working set at any G.  Results are
-bool[G] tensors on the device the inputs live on: on a CUDA device the
-kernels run, on the CPU their plain versions.  Numpy inputs go to the card
-unless ``device="cpu"`` is given.
+A call runs the JAX package's window schedule (``_verify_windows``): the
+signer stage and the lattice in chunks of ``group_chunk`` complete groups
+(every chunk holds all N signers of its groups), which bounds the working
+set at any G, and the group stage over windows of whole chunks of about
+``group_hash_chunk`` groups.  The host packs each chunk's messages while
+the device runs the chunk before it: every constant table is built once
+per device (ops/upload.py), every upload goes from pinned memory, and the
+call does not wait for the device between its first launch and its
+return.  Results are bool[G] tensors on the device the inputs live on: on
+a CUDA device the kernels run, on the CPU their plain versions.  Numpy
+inputs go to the card unless ``device="cpu"`` is given.
 """
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,9 +61,11 @@ from ..ops.intt_norm_weight import agg_check, agg_table
 from ..ops.keccak import RATE
 from ..ops.keccak_sponge import sha3_256_words_w, shake256_words_w
 from ..ops.ntt import ntt_fwd_u
+from ..ops.upload import upload
 from ..params import Params
 
 DEFAULT_GROUP_CHUNK = 8192
+DEFAULT_GROUP_HASH_CHUNK = 16384
 ASSEMBLIES = ("fold", "spec")
 
 
@@ -222,28 +229,51 @@ class _Pipeline:
         pre_w, pre_len = self.prehash(mw.t(), ml)
         return self.signer(vk2d_t, pre_w, pre_len)
 
-    def hash_chunk(self, vkc: torch.Tensor, mwc: torch.Tensor, mlc: torch.Tensor):
-        """One chunk of complete groups: vkc int32[c, N, 2, d], message words
-        int32[c*N, Wt], lengths int32[c*N] -> (cc int32[c*N, d],
-        c_hat_u int64[c*N, d], alphas int32[c, N, d]).
+    def signer_chunk(self, vkc: torch.Tensor, mwc: torch.Tensor, mlc: torch.Tensor):
+        """The signer half of one chunk of complete groups: vkc int32[c, N,
+        2, d], message words int32[c*N, Wt], lengths int32[c*N] -> (cc
+        int32[c*N, d], c_hat_u int64[c*N, d], triple words int32[Lt, N*c],
+        triple lengths int32[N*c]).
 
-        The signer stage runs on lanes in signer-major order (lane k*c + g
-        is signer k of group g), so each signer's triples are contiguous
+        The stage runs on lanes in signer-major order (lane k*c + g is
+        signer k of group g), so each signer's triples are contiguous
         columns of the triple buffer and agg_fold reads a row of a tile's
-        groups as one 128-B segment; the per-lane stages do not care, and cc
-        and c_hat_u go back to group-major order."""
+        groups as one 128-B segment; the per-lane stages do not care.  cc
+        and c_hat_u go back to group-major order; the triples stay
+        signer-major, as :meth:`group_window` takes them."""
         c, N = vkc.shape[0], self.N
         vk2d_t = vkc.reshape(c, N, -1).permute(2, 1, 0).reshape(-1, N * c).contiguous()
         mw = mwc.reshape(c, N, -1).transpose(0, 1).reshape(N * c, -1)
         ml = mlc.reshape(c, N).t().reshape(-1)
         cc, c_hat_u, tbuf, tlen = self._signer_hash(vk2d_t, mw, ml)
-        al = self.group([tbuf[:, k * c:(k + 1) * c] for k in range(N)],
-                        [tlen[k * c:(k + 1) * c] for k in range(N)])
 
         def group_major(x):
             return x.reshape(N, c, -1).transpose(0, 1).reshape(c * N, -1)
 
-        return group_major(cc), group_major(c_hat_u), al
+        return group_major(cc), group_major(c_hat_u), tbuf, tlen
+
+    def group_window(self, triples: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> torch.Tensor:
+        """The group half over a window of consecutive chunks: ``triples``
+        holds each chunk's signer-major (triple words int32[Lt, N*c],
+        lengths int32[N*c]) from :meth:`signer_chunk`, in order -> alphas
+        int32[Σc, N, d].  One chunk is read in place; several are joined
+        signer by signer first."""
+        N = self.N
+        parts = [(tb, tl, tl.shape[0] // N) for tb, tl in triples]
+        tbs, tls = [], []
+        for k in range(N):
+            bufs = [tb[:, k * c:(k + 1) * c] for tb, _, c in parts]
+            lens = [tl[k * c:(k + 1) * c] for _, tl, c in parts]
+            tbs.append(bufs[0] if len(parts) == 1 else torch.cat(bufs, dim=1))
+            tls.append(lens[0] if len(parts) == 1 else torch.cat(lens))
+        return self.group(tbs, tls)
+
+    def hash_chunk(self, vkc: torch.Tensor, mwc: torch.Tensor, mlc: torch.Tensor):
+        """Both hash halves of one chunk of complete groups (arguments as
+        :meth:`signer_chunk`'s) -> (cc int32[c*N, d], c_hat_u int64[c*N, d],
+        alphas int32[c, N, d])."""
+        cc, c_hat_u, tbuf, tlen = self.signer_chunk(vkc, mwc, mlc)
+        return cc, c_hat_u, self.group_window([(tbuf, tlen)])
 
     def lattice(self, vks, c_hat_u, al, aggs):
         """Lattice verification (reference fusion.py:680-728 semantics) ->
@@ -278,29 +308,69 @@ def _cached_pipeline(params: Params, n_signers: int, device: str, assembly: str)
 
 
 def _message_tensors(params: Params, messages: Sequence[str], device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed message preimages (int32[B, Wt] words, int32[B] lengths) on
+    ``device``; to a CUDA device they go from pinned memory without waiting
+    for the device.  They are packed in pageable memory and copied into
+    pinned memory in one pass: written straight into pinned memory, the
+    packing's scattered byte writes were slower."""
     mw, ml = msg_preimage_words(params, messages)
-    return (torch.from_numpy(mw.view(np.int32)).to(device),
-            torch.from_numpy(ml).to(device))
+    return upload(mw.view(np.int32), device), upload(ml, device)
 
 
-def _verify_chunks(params: Params, vks, messages: Sequence[str], aggs,
-                   group_chunk: int, want_coeffs: bool, device, assembly: str):
+def windows(G: int, group_chunk: int, group_hash_chunk: int) -> List[Tuple[int, int, list]]:
+    """The schedule of a call over G groups, the JAX package's
+    ``_verify_windows``: [(wlo, whi, [(lo, hi) signer chunks])].  Signer
+    chunks hold ``group_chunk`` complete groups (the last fewer); a window
+    is ``max(group_chunk, (group_hash_chunk // group_chunk) * group_chunk)``
+    groups, so it holds whole chunks."""
+    gc = max(1, group_chunk)
+    window = max(gc, (group_hash_chunk // gc) * gc)
+    return [(wlo, min(G, wlo + window),
+             [(lo, min(G, lo + gc, wlo + window)) for lo in range(wlo, min(G, wlo + window), gc)])
+            for wlo in range(0, G, window)]
+
+
+def _hash_windows(params: Params, P: _Pipeline, vks: torch.Tensor, msgs: List[str],
+                  group_chunk: int, group_hash_chunk: int):
+    """The hash half of a call, window by window: yields (wlo, [(lo, hi, cc
+    int32[(hi-lo)*N, d], c_hat_u int64[(hi-lo)*N, d]) per signer chunk],
+    alphas int32[whi-wlo, N, d]).
+
+    The host packs chunk k's messages after chunk k-1's launches are queued,
+    so the packing overlaps the device's work: nothing here waits for the
+    device, and the uploads go from pinned memory."""
+    N = P.N
+    for wlo, _, chunks in windows(vks.shape[0], group_chunk, group_hash_chunk):
+        signed, triples = [], []
+        for lo, hi in chunks:
+            mw, ml = _message_tensors(params, msgs[lo * N:hi * N], vks.device)
+            cc, c_hat_u, tbuf, tlen = P.signer_chunk(vks[lo:hi], mw, ml)
+            signed.append((lo, hi, cc, c_hat_u))
+            triples.append((tbuf, tlen))
+        al = P.group_window(triples)
+        del triples
+        yield wlo, signed, al
+
+
+def _verify_windows(params: Params, vks, messages: Sequence[str], aggs, group_chunk: int,
+                    group_hash_chunk: int, want_coeffs: bool, device, assembly: str):
     dev = input_device(device, vks)
     vks = torch.as_tensor(vks, device=dev)
     aggs = torch.as_tensor(aggs, device=dev)
     G, N = vks.shape[0], vks.shape[1]
-    msgs = list(messages)
+    msgs = messages if isinstance(messages, list) else list(messages)
     if len(msgs) != G * N:
         raise ValueError(f"need {G * N} messages, got {len(msgs)}")
+    if G == 0:
+        raise ValueError("need at least one group")
     P = get_pipeline(params, N, str(vks.device), assembly)
-    mw, ml = _message_tensors(params, msgs, vks.device)
     outs, ccs, als = [], [], []
-    for lo in range(0, G, max(1, group_chunk)):
-        hi = min(G, lo + group_chunk)
-        cc, c_hat_u, al = P.hash_chunk(vks[lo:hi], mw[lo * N : hi * N], ml[lo * N : hi * N])
-        outs.append(P.lattice(vks[lo:hi], c_hat_u, al, aggs[lo:hi]))
+    for wlo, signed, al in _hash_windows(params, P, vks, msgs, group_chunk, group_hash_chunk):
+        for lo, hi, cc, c_hat_u in signed:
+            outs.append(P.lattice(vks[lo:hi], c_hat_u, al[lo - wlo:hi - wlo], aggs[lo:hi]))
+            if want_coeffs:
+                ccs.append(cc.reshape(hi - lo, N, -1))
         if want_coeffs:
-            ccs.append(cc.reshape(hi - lo, N, -1))
             als.append(al)
     eq, norm_ok, weight_ok = (torch.cat([o[k] for o in outs]) for k in range(3))
     if not want_coeffs:
@@ -309,7 +379,8 @@ def _verify_chunks(params: Params, vks, messages: Sequence[str], aggs,
 
 
 def verify_batch_device(params: Params, vks, messages: Sequence[str], aggs, *,
-                        group_chunk: int = DEFAULT_GROUP_CHUNK, device=None,
+                        group_chunk: int = DEFAULT_GROUP_CHUNK,
+                        group_hash_chunk: int = DEFAULT_GROUP_HASH_CHUNK, device=None,
                         assembly: str = "fold"):
     """Grouped verify with the full hash pipeline on one device.
 
@@ -320,8 +391,15 @@ def verify_batch_device(params: Params, vks, messages: Sequence[str], aggs, *,
     inputs; raises without a card).  ``assembly`` ("fold" or "spec") picks
     the signer preimages' kernels; both give the same bits.  Returns (eq,
     norm_ok, weight_ok) bool[G] tensors on that device.
+
+    The signer stage and the lattice run in launches of ``group_chunk``
+    complete groups, the group hash over windows of whole chunks of about
+    ``group_hash_chunk`` groups (:func:`windows`); the host packs chunk
+    k+1's messages while the device runs chunk k, and between its first
+    launch and its return the call does not wait for the device.
     """
-    return _verify_chunks(params, vks, messages, aggs, group_chunk, False, device, assembly)
+    return _verify_windows(params, vks, messages, aggs, group_chunk, group_hash_chunk, False,
+                           device, assembly)
 
 
 def derive_coeffs_device(params: Params, vks, messages: Sequence[str], aggs, *,
@@ -329,5 +407,7 @@ def derive_coeffs_device(params: Params, vks, messages: Sequence[str], aggs, *,
                          assembly: str = "fold"):
     """Debug/test entry: (eq, norm_ok, weight_ok, challenge coefficients
     int32[G, N, d], alpha coefficients int32[G, N, d]); arguments as
-    :func:`verify_batch_device`."""
-    return _verify_chunks(params, vks, messages, aggs, group_chunk, True, device, assembly)
+    :func:`verify_batch_device`, the group hash over windows of one chunk
+    (``group_hash_chunk = group_chunk``, as in the JAX package)."""
+    return _verify_windows(params, vks, messages, aggs, group_chunk, group_chunk, True, device,
+                           assembly)

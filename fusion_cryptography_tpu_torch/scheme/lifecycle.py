@@ -14,6 +14,8 @@ plain versions.
   alphas from the group stage, agg = Σ α̂ ⊙ sig (fusion.py:632-677);
 * verify, verify_many, verify_batch: the pipeline's hash stages and lattice
   check, with the reference's reasons (fusion.py:680-728);
+* derive_alphas_grouped: G groups' challenge and alpha coefficients from
+  vk reprs and messages, through the grouped verify's device stages;
 * for the object API (interop/api.py): the NTT-domain products
   ``sign_from_c_hat`` and ``aggregate_from_alpha_hat``, and ``derive_alphas``,
   the host hash route from repr strings (hashlib + the host decoder, the
@@ -42,6 +44,7 @@ from ..hashing.sampler import sample_short_poly_coeffs
 from ..hashing.xof import agg_block_len, challenge_xof_len, hash_message_to_int, shake_digest
 from ..interop import serial
 from ..ops.ntt import ntt_fwd, ntt_fwd_u
+from ..ops.upload import upload
 from ..params import Params
 from . import device_pipeline as dp
 from . import device_setup as ds
@@ -303,6 +306,36 @@ def _decode(params: Params, b: bytes, norm_bound: int, weight_bound: int) -> np.
     return decode_bytes_to_coefficients(b, log2_bias=params.secpar, modulus=params.modulus,
                                         degree=params.degree, norm_bound=norm_bound,
                                         weight_bound=weight_bound)
+
+
+def derive_alphas_grouped(params: Params, vk_reprs_flat: Sequence[str],
+                          messages_flat: Sequence[str], n_groups: int, group_size: int, *,
+                          device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """The hash pipeline for G independent aggregation groups of N signers
+    each, inputs already sorted within each group (the JAX package's
+    ``derive_alphas_grouped``): (challenge coefficients int32[G, N, d], alpha
+    coefficients int32[G, N, d]) as numpy arrays.
+
+    The reprs are turned back into vk values (``serial.vk_values``: a repr
+    that is not the ``str()`` of a vk raises ValueError) and go, with the
+    messages, through the grouped verify's signer and group stages on
+    ``device`` (the card unless ``device="cpu"``), in its chunks and
+    windows (``device_pipeline.windows``)."""
+    G, N, d = n_groups, group_size, params.degree
+    reprs, msgs = list(vk_reprs_flat), list(messages_flat)
+    if not len(reprs) == G * N == len(msgs):
+        raise ValueError(f"need {G * N} vk reprs and messages, got {len(reprs)} and {len(msgs)}")
+    dev = dp.resolve_device(device)
+    if G * N == 0:
+        return np.zeros((G, N, d), np.int32), np.zeros((G, N, d), np.int32)
+    vks = upload(serial.vk_values(params, reprs).reshape(G, N, 2, d), dev)
+    P = dp.get_pipeline(params, N, str(dev))
+    ccs, als = [], []
+    for _, signed, al in dp._hash_windows(params, P, vks, msgs, dp.DEFAULT_GROUP_CHUNK,
+                                          dp.DEFAULT_GROUP_HASH_CHUNK):
+        ccs += [cc for _, _, cc, _ in signed]
+        als.append(al)
+    return (torch.cat(ccs).reshape(G, N, d).cpu().numpy(), torch.cat(als).cpu().numpy())
 
 
 def derive_alphas(params: Params, vk_reprs: Sequence[str], messages: Sequence[str],

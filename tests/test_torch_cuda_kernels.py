@@ -484,3 +484,33 @@ def test_card_paths_run_no_plain_ntt(dev, monkeypatch):
     agg = lc.aggregate(params, keys.vk, m, sigs.sig)
     assert lc.verify(params, keys.vk, m, agg) == (True, "")
     assert lc.verify_many(params, [(keys.vk, m, agg)]) == [(True, "")]
+
+
+@pytest.mark.parametrize("assembly", ["fold", "spec"])
+def test_windowed_verify_makes_no_host_sync(dev, assembly):
+    """A windowed verify call (signer chunks of 2 groups, group windows of
+    4) with its inputs on the card and the messages a list waits for the
+    device nowhere between its entry and its return, and gives the
+    one-chunk call's verdicts; its coefficients equal the one-chunk ones."""
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    params = fusion_setup(128, 5)
+    vks, msgs, aggs = build_fleet(params, 7, 2, seed0=21, device=dev)
+    bad = aggs.clone()
+    bad[6, 0, 0] = (bad[6, 0, 0] + 1) % Q
+    want = dp.verify_batch_device(params, vks, msgs, bad, assembly=assembly)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dp.verify_batch_device(params, vks, msgs, bad, group_chunk=2, group_hash_chunk=4,
+                                     assembly=assembly)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[0].tolist() == [True] * 6 + [False]
+    one = dp.derive_coeffs_device(params, vks, msgs, bad, assembly=assembly)
+    two = dp.derive_coeffs_device(params, vks, msgs, bad, group_chunk=3, assembly=assembly)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)

@@ -25,6 +25,13 @@ def test_port_import_leaves_jax_out():
         "import fusion_cryptography_tpu_torch.algebra.polynomials\n"
         "import fusion_cryptography_tpu_torch.algebra.matrices\n"
         "import fusion_cryptography_tpu_torch.fusion.fusion\n"
+        "import fusion_cryptography_tpu_torch.__main__\n"
+        "import fusion_cryptography_tpu_torch.scheme.serde\n"
+        "import fusion_cryptography_tpu_torch.utils\n"
+        "import fusion_cryptography_tpu_torch.utils.log\n"
+        "import fusion_cryptography_tpu_torch.utils.profiling\n"
+        "import fusion_cryptography_tpu_torch.ops.upload\n"
+        "import fusion_cryptography_tpu_torch.hashing.sampler\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'fusion_cryptography_tpu' or m.startswith('fusion_cryptography_tpu.'))\n"
