@@ -79,9 +79,31 @@ Phases (each fails loudly; any failure exits non-zero):
      absorb at 32,768 lanes equals its CPU plain version; the CLI at
      secpar=256 with ``--device cuda`` exits 0 (a tampered message 1) and
      writes the same bytes as ``--device cpu``
+  D. ``parallel/`` (the sharding) after ``python -m
+     fusion_cryptography_tpu_torch.demo`` on the card: a one-rank NCCL world
+     on the card (file rendezvous); ``sharded_verify_device`` on phase 3's
+     fleet (rebuilt from its seeds) equals ``verify_batch_device`` in both
+     assemblies, a tampered group fails alone, a warm call runs under
+     ``set_sync_debug_mode("error")``, and ``pod_scale.verify_throughput``
+     times it; ``pod_scale.lifecycle_throughput`` at 16,384 keys (one
+     card's share of config 4's 65,536) from ``device_inputs``: keys/s,
+     peak memory, vk and agg equal to the unsharded port's on the card,
+     every verdict true, and one step traced (port kernels, NCCL, torch
+     glue); ``prepare_real`` at B=64 and the step on it equal on the card
+     and on the CPU (a gloo world of one, run beside the untimed checks
+     and collected before the first timed call); both distributed NTTs at
+     S=1 on 8,192 rows equal ``ntt_fwd`` / ``ntt_inv``.  With two cards or
+     more, a world of min(4, cards) NCCL ranks (``parallel/_launch``) runs
+     the same ``pod_scale`` calls: config 4 at 16,384 keys a card (one step
+     traced on rank 0), config 5 cut to 8,192 groups a card (each rank
+     building its own; then once more with one group tampered) and both
+     NTTs at S = world; each result must equal the one-rank run's, and the
+     scaling efficiencies against the one-rank rates are printed; with one
+     card a line says that it did not run
   5. every kernel of each path (main, spec, lifecycle, object API, aux =
-     phase W) was launched while that path was driven (counts cleared just
-     before each, read just after)
+     phase W, sharded = phase D's one-rank world) was launched while that
+     path was driven (counts cleared just before each, read just after),
+     and kernels ``intt_norm_weight`` and ``ntt_u`` by the step itself
 
 The last two lines of stdout are the kernel table {"kernels": [...]} and
 {"ok": true, "device": {...}}; the card's name and power limit come just
@@ -98,6 +120,9 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
 from statistics import median
 
@@ -123,6 +148,13 @@ OBJECT_API_KERNELS = LIFECYCLE_KERNELS
 # and the CLI (its keygen is kernel ntt_centered)
 AUX_KERNELS = LIFECYCLE_KERNELS
 ALL_KERNELS = LIFECYCLE_KERNELS + ("assemble_spec",)
+# phase D: the sharded verify in both assemblies (kernels 1-8), the step
+# (kernels 3 and 4) and prepare_real's keygen (kernel 9)
+SHARDED_KERNELS = ALL_KERNELS
+STEP_KERNELS = ("intt_norm_weight", "ntt_u")
+D_KEYS = 16384  # one card's share of config 4 (65,536 keys over four cards)
+D_REAL_KEYS = 64  # prepare_real on the card and on the CPU
+D_NTT_ROWS = 8192
 W_GROUPS, W_CHUNK, W_HASH_CHUNK = 32768, 8192, 16384  # four signer chunks, two windows
 LIFE_GROUPS = 64  # aggregate and verify calls of the lifecycle phase, one group each
 REPO = Path(__file__).resolve().parent
@@ -1559,6 +1591,386 @@ def drive_aux(params, fleet, dev) -> tuple:
     return metrics, launches
 
 
+@contextmanager
+def uncounted():
+    """Kernel launches inside are not counted: references and comparisons."""
+    from fusion_cryptography_tpu_torch import kernels
+
+    saved = Counter(kernels.LAUNCHES)
+    try:
+        yield
+    finally:
+        kernels.LAUNCHES.clear()
+        kernels.LAUNCHES.update(saved)
+
+
+def unsharded_step(params, sk, c, al) -> tuple:
+    """The unsharded port's lifecycle on the step's global inputs, on their
+    device, in chunks of 4,096 keys: sk_hat = ntt_fwd(sk) (kernel
+    ``ntt_centered``), vk = Σ_r A_r ⊙ sk_hat, ``lifecycle.sign_from_c_hat``
+    and ``lifecycle.aggregate_from_alpha_hat`` -> (vk int32[B, 2, d], agg
+    int32[rank_p, d])."""
+    from fusion_cryptography_tpu_torch.ops.ntt import ntt_fwd
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+
+    plan = params.plan
+    F = plan.field
+    B, rank_p, d = sk.shape[0], sk.shape[2], params.degree
+    a = np.zeros((rank_p, d), np.int32)
+    a[:params.rank] = params.public_challenge
+    a_mont = F.to_mont(F.to_unsigned(torch.from_numpy(a).to(sk.device)))
+    c_hat, al_hat = ntt_fwd(plan, c), ntt_fwd(plan, al)
+    vk = torch.empty((B, 2, d), dtype=torch.int32, device=sk.device)
+    agg_u = torch.zeros((rank_p, d), dtype=torch.int64, device=sk.device)
+    for lo in range(0, B, 4096):
+        hi = min(B, lo + 4096)
+        sk_hat = ntt_fwd(plan, sk[lo:hi])
+        vk[lo:hi] = F.to_centered(F.dot_mod(a_mont, F.to_unsigned(sk_hat), axis=-2))
+        sig = lc.sign_from_c_hat(params, sk_hat, c_hat[lo:hi])
+        part = lc.aggregate_from_alpha_hat(params, sig, al_hat[lo:hi])
+        agg_u = F.add_mod(agg_u, F.to_unsigned(part))
+    return vk, F.to_centered(agg_u)
+
+
+def real_step_rank(secpar: int, seed: int, seeds: list, msgs: list) -> dict:
+    """On a CPU rank of a world of one (parallel/_launch): prepare_real and
+    the step at mesh (1, 1) on the CPU."""
+    from fusion_cryptography_tpu_torch.params import fusion_setup
+    from fusion_cryptography_tpu_torch.parallel import make_mesh
+    from fusion_cryptography_tpu_torch.parallel.sharded import prepare_real, sharded_lifecycle_step
+
+    params = fusion_setup(secpar, seed)
+    step, _, rank_p = sharded_lifecycle_step(params, make_mesh((1, 1), device="cpu"))
+    sk, cc, al, keys, order = prepare_real(params, rank_p, seeds, msgs, device="cpu")
+    return {"inputs": (sk, cc, al), "reprs": keys.vk_strs(), "order": order,
+            "outputs": [o.numpy() for o in step(sk, cc, al)]}
+
+
+def call_trace(fn) -> dict:
+    """One warm call of ``fn`` under torch.profiler
+    (``profile_verify.trace``) -> its wall ms and device busy ms, split into
+    the port's kernels, NCCL and the rest (torch glue), and the eight
+    largest device rows."""
+    from fusion_cryptography_tpu_torch import profile_verify as pv
+
+    fn()
+    wall, rows, _ = pv.trace(fn)
+    split = {"port_ms": 0.0, "nccl_ms": 0.0, "glue_ms": 0.0}
+    for name, us, _ in rows:
+        key = "port_ms" if pv.port_kernel(name) else "nccl_ms" if "nccl" in name.lower() \
+            else "glue_ms"
+        split[key] += us / 1e3
+    return {"wall_ms": wall * 1e3, "busy_ms": sum(split.values()), **split,
+            "top": [[name[:70], us / 1e3, n] for name, us, n in rows[:8]]}
+
+
+def log_trace(what: str, t: dict) -> None:
+    log(f"{what}: {t['wall_ms']:.2f} ms wall, device busy {t['busy_ms']:.2f} ms: port kernels "
+        f"{t['port_ms']:.2f}, NCCL {t['nccl_ms']:.2f}, the rest (torch glue) {t['glue_ms']:.2f}")
+    for name, ms, n in t["top"]:
+        log(f"  {ms:9.3f} ms  x{n:<4d} {name}")
+
+
+def multi_card_rank(secpar: int, seed: int, keys: int, groups: int, bad_g: int,
+                    ntt_rows: int, device: str = "cuda") -> dict:
+    """One rank of the multi-card phase (parallel/_launch, one process a
+    card): config 4 (``pod_scale.lifecycle_throughput`` on ``keys`` keys of
+    ``device_inputs``, mesh ``make_mesh()``, one step traced), config 5
+    (``pod_scale.verify_throughput`` of ``groups`` groups x N_SIGNERS on
+    mesh (world, 1), each rank building its own, then once more with group
+    ``bad_g`` tampered) and both NTTs at S = world -> this rank's shards,
+    rates, trace and launches."""
+    import torch.distributed as dist
+
+    from fusion_cryptography_tpu_torch import kernels, pod_scale
+    from fusion_cryptography_tpu_torch.ops.field import Q
+    from fusion_cryptography_tpu_torch.params import fusion_setup
+    from fusion_cryptography_tpu_torch.parallel import distributed_ntt as dn
+    from fusion_cryptography_tpu_torch.parallel import make_mesh
+    from fusion_cryptography_tpu_torch.parallel.mesh import mesh_device
+    from fusion_cryptography_tpu_torch.parallel.sharded import (
+        device_inputs, shard, sharded_lifecycle_step, sharded_verify_local)
+
+    params = fusion_setup(secpar, seed)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    mesh, vmesh = make_mesh(device=device), make_mesh((world, 1), device=device)
+    dev = mesh_device(mesh)
+    kernels.LAUNCHES.clear()
+    inputs = device_inputs(params, mesh, keys)
+    life, (vk, agg, eq, norm_ok, w_ok) = pod_scale.lifecycle_throughput(params, mesh, inputs)
+    step = sharded_lifecycle_step(params, mesh)[0]
+    trace = call_trace(lambda: step(*inputs)) if dev.type == "cuda" else None
+    del inputs
+    vks, msgs, aggs = pod_scale.local_fleet(params, vmesh, groups)
+    ver, _ = pod_scale.verify_throughput(params, vmesh, (vks, msgs, aggs))
+    lo = rank * (groups // world)
+    if lo <= bad_g < lo + groups // world:
+        aggs[bad_g - lo, 0, 0] = (aggs[bad_g - lo, 0, 0] + 1) % Q
+    verdicts = sharded_verify_local(params, vmesh, vks, msgs, aggs)
+    del vks, msgs, aggs
+    smesh = make_mesh((world, 1), ("sp", "rep"), device=device)
+    x = torch.from_numpy(np.random.default_rng(seed).integers(
+        -(Q // 2), Q // 2 + 1, size=(ntt_rows, params.degree)).astype(np.int32))
+    fwd, inv = dn.make_distributed_ntt(params.plan, smesh)
+    y = fwd(shard(smesh, x, (None, "sp")).to(dev))
+    fwd4, inv4, layout, unlayout = dn.make_fourstep_ntt(params.plan, smesh)
+    y4 = fwd4(shard(smesh, layout(x), (None, "sp")).to(dev))
+    peak = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+    return {"vk": vk.cpu().numpy(), "agg": agg.cpu().numpy(),
+            "flags": [bool(eq), bool(norm_ok), bool(w_ok)], "life": life, "verify": ver,
+            "verdicts": [v.cpu().numpy() for v in verdicts],
+            "ntt": [y.cpu().numpy(), inv(y).cpu().numpy()],
+            "fourstep": [y4.cpu().numpy(), inv4(y4).cpu().numpy()],
+            "trace": trace, "peak_gb": peak,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+            "launches": dict(kernels.LAUNCHES)}
+
+
+def multi_card_refs(params, mesh, world: int, dev) -> dict:
+    """The one-rank run the multi-card phase is held against, on this
+    process's one-rank world: the step on D_KEYS x world keys, the verify of
+    N_GROUPS x world groups with one tampered, and ntt_fwd of the NTT rows."""
+    from fusion_cryptography_tpu_torch.ops.field import Q
+    from fusion_cryptography_tpu_torch.ops.ntt import ntt_fwd
+    from fusion_cryptography_tpu_torch.parallel.sharded import (
+        device_inputs, sharded_lifecycle_step, sharded_verify_device)
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    keys, groups = D_KEYS * world, N_GROUPS * world
+    bad_g = (world - 1) * N_GROUPS + N_GROUPS // 7
+    step, _, _ = sharded_lifecycle_step(params, mesh)
+    inputs = device_inputs(params, mesh, keys)
+    vk, agg, eq, norm_ok, w_ok = step(*inputs)
+    require(bool(eq & norm_ok & w_ok), f"one-rank step at {keys} keys: verdicts")
+    ref = {"keys": keys, "groups": groups, "bad_g": bad_g, "vk": vk.cpu(), "agg": agg.cpu()}
+    del inputs, vk, agg
+    vks, msgs, aggs = build_fleet(params, groups, N_SIGNERS, seed0=1, device=dev)
+    aggs[bad_g, 0, 0] = (aggs[bad_g, 0, 0] + 1) % Q
+    ref["verdicts"] = [v.cpu() for v in sharded_verify_device(params, mesh, vks, msgs, aggs)]
+    del vks, msgs, aggs
+    x = np.random.default_rng(SEED).integers(-(Q // 2), Q // 2 + 1,
+                                             size=(D_NTT_ROWS, params.degree)).astype(np.int32)
+    ref["x"], ref["ntt"] = x, ntt_fwd(params.plan, torch.from_numpy(x).to(dev)).cpu()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def drive_multi_card(params, ref: dict, world: int, one_card: dict) -> dict:
+    """The multi-card phase: a world of ``world`` NCCL ranks (one process a
+    card) runs config 4, config 5 and both NTTs; each result must equal the
+    one-rank run's (``ref``); prints the scaling efficiencies against the
+    one-rank rates ``one_card`` (the same ``pod_scale`` calls at the same
+    per-card batch)."""
+    from fusion_cryptography_tpu_torch import pod_scale
+    from fusion_cryptography_tpu_torch.parallel import _launch
+
+    t0 = time.time()
+    ranks = _launch.launch(world, f"{Path(__file__).resolve()}:multi_card_rank", SECPAR, SEED,
+                           ref["keys"], ref["groups"], ref["bad_g"], D_NTT_ROWS,
+                           device="cuda", timeout_s=600)
+    t_world = time.time() - t0
+    dp, tp = ranks[0]["mesh"]["dp"], ranks[0]["mesh"]["tp"]
+    at = lambda i, j: ranks[i * tp + j]  # noqa: E731
+    vk = np.concatenate([at(i, 0)["vk"] for i in range(dp)])
+    agg = np.concatenate([at(0, j)["agg"] for j in range(tp)])
+    rank = params.rank
+    require(all(np.array_equal(at(i, j)["vk"], at(i, 0)["vk"]) and
+                np.array_equal(at(i, j)["agg"], at(0, j)["agg"])
+                for i in range(dp) for j in range(tp)), "multi-card step: replicas differ")
+    require(np.array_equal(vk, ref["vk"].numpy()), "multi-card vk != the one-rank run's")
+    require(np.array_equal(agg[:rank], ref["agg"].numpy()[:rank]) and not agg[rank:].any(),
+            "multi-card agg != the one-rank run's")
+    require(all(r["flags"] == [True] * 3 and r["life"]["verified"] for r in ranks),
+            "multi-card step verdicts")
+    require(all(r["verify"]["verified"] for r in ranks), "multi-card verify: a verdict false")
+    for r in ranks:
+        require(all(np.array_equal(a, b.numpy()) for a, b in zip(r["verdicts"], ref["verdicts"])),
+                "multi-card verify verdicts (tampered) != the one-rank run's")
+    rejected = np.nonzero(~ref["verdicts"][0].numpy())[0].tolist()
+    require(rejected == [ref["bad_g"]], f"multi-card tampered group: rejected {rejected}")
+    for key in ("ntt", "fourstep"):
+        y = np.concatenate([r[key][0] for r in ranks], axis=1)
+        require(np.array_equal(y, ref["ntt"].numpy()), f"multi-card {key} forward != ntt_fwd")
+    back = np.concatenate([r["ntt"][1] for r in ranks], axis=1)
+    require(np.array_equal(back, ref["x"]), "multi-card matrix NTT round trip")
+    back4 = np.concatenate([r["fourstep"][1] for r in ranks], axis=1)
+    S, d = world, params.degree
+    back4 = back4.reshape(-1, S, d // S).transpose(0, 2, 1).reshape(-1, d)  # unlayout
+    require(np.array_equal(back4, ref["x"]), "multi-card four-step round trip")
+    life, ver = ranks[0]["life"], ranks[0]["verify"]  # the slowest rank's, on every rank
+    kps, vps = life["keys_per_s"], ver["verifies_per_s"]
+    eff_step = pod_scale.scaling_efficiency(kps, one_card["keys_per_s"], world)
+    eff_verify = pod_scale.scaling_efficiency(vps, one_card["verifies_per_s"], world)
+    log(f"multi-card phase: {world} NCCL ranks, step mesh (dp={dp}, tp={tp}): config 4 at "
+        f"{ref['keys']} keys in {life['seconds'] * 1e3:.1f} ms -> {kps:,.0f} keys/s; config 5 "
+        f"cut to {ref['groups']} groups ({N_GROUPS} a card, each card building its own) in "
+        f"{ver['seconds'] * 1e3:.1f} ms -> {vps:,.0f} verifies/s; both NTTs at S={world} on "
+        f"{D_NTT_ROWS} rows; every result equals the one-rank run's (world of {world} in "
+        f"{t_world:.1f} s, peak {max(r['peak_gb'] for r in ranks):.2f} GB a card)")
+    log(f"scaling efficiency at a constant per-card batch (pod_scale, best of "
+        f"{pod_scale.REPS} at the slowest rank): lifecycle {eff_step:.4f} ({kps:,.0f} / "
+        f"({world} x {one_card['keys_per_s']:,.0f})), verify {eff_verify:.4f} ({vps:,.0f} / "
+        f"({world} x {one_card['verifies_per_s']:,.0f}))")
+    log_trace(f"multi-card phase, rank 0: one traced step at {ref['keys']} keys",
+              ranks[0]["trace"])
+    log(f"kernel launches by rank: {[r['launches'] for r in ranks]}")
+    return {"multi_cards": world, "multi_keys_per_s": kps, "multi_verifies_per_s": vps,
+            "scaling_efficiency_lifecycle": eff_step, "scaling_efficiency_verify": eff_verify,
+            "multi_peak_gb": max(r["peak_gb"] for r in ranks),
+            "multi_step_trace": ranks[0]["trace"], "multi_world_s": t_world}
+
+
+def drive_sharded(params, dev) -> tuple:
+    """Phase D: ``parallel/`` on a one-rank NCCL world on the card (file
+    rendezvous), then, with two cards or more, a world of min(4, cards)
+    NCCL ranks -> (metrics, kernel launches while the one-rank path ran,
+    the step's own launches)."""
+    import torch.distributed as dist
+
+    from fusion_cryptography_tpu_torch import demo, kernels, pod_scale
+    from fusion_cryptography_tpu_torch.ops.field import Q
+    from fusion_cryptography_tpu_torch.ops.ntt import ntt_fwd, ntt_inv
+    from fusion_cryptography_tpu_torch.parallel import _launch, distributed, make_mesh
+    from fusion_cryptography_tpu_torch.parallel import distributed_ntt as dn
+    from fusion_cryptography_tpu_torch.parallel.sharded import (
+        device_inputs, prepare_real, sharded_lifecycle_step, sharded_verify_device)
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    t_phase = time.time()
+    # the CPU half of the prepare_real check (a gloo world of one) runs
+    # beside the untimed checks below and is collected before any timed call
+    seeds, msgs_r = [SEED * 1000 + i for i in range(D_REAL_KEYS)], \
+        [f"phase-d:{i}" for i in range(D_REAL_KEYS)]
+    pool = ThreadPoolExecutor(1)
+    cpu_real = pool.submit(_launch.launch, 1, f"{Path(__file__).resolve()}:real_step_rank",
+                           SECPAR, SEED, seeds, msgs_r, device="cpu", timeout_s=600)
+    require(demo.main(["--device", "cuda"]) == 0, "demo on the card")
+    G, N = N_GROUPS, N_SIGNERS
+    metrics, multi_ref, cards = {}, None, torch.cuda.device_count()
+    with distributed.single_process_world(dev) as rdev:
+        require(rdev == dev and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                f"one-rank world: {rdev}, {dist.get_backend()}")
+        mesh = make_mesh((1, 1))
+        vks, msgs, aggs = build_fleet(params, G, N, seed0=1, device=dev)  # phase 3's fleet
+        bad_g = G // 3
+        bad = aggs.clone()
+        bad[bad_g, 0, 0] = (bad[bad_g, 0, 0] + 1) % Q
+        with uncounted():
+            want = {a: dp.verify_batch_device(params, vks, msgs, aggs, assembly=a)
+                    for a in ("fold", "spec")}
+        kernels.LAUNCHES.clear()
+        torch.cuda.synchronize()
+        for a in ("fold", "spec"):
+            got = sharded_verify_device(params, mesh, vks, msgs, aggs, assembly=a)
+            require(all(torch.equal(g, w) for g, w in zip(got, want[a])),
+                    f"sharded_verify_device ({a}) != verify_batch_device")
+            require(bool(got[0].all() & got[1].all() & got[2].all()), f"sharded verify ({a})")
+            rejected = torch.nonzero(
+                ~sharded_verify_device(params, mesh, vks, msgs, bad, assembly=a)[0])
+            rejected = rejected.flatten().tolist()
+            require(rejected == [bad_g], f"sharded verify ({a}), tampered: rejected {rejected}")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eq, norm_ok, w_ok = sharded_verify_device(params, mesh, vks, msgs, aggs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        require(bool(eq.all() & norm_ok.all() & w_ok.all()), "sharded verify under sync check")
+        cpu = cpu_real.result()[0]
+        pool.shutdown()
+        ver, _ = pod_scale.verify_throughput(params, mesh, (vks, msgs, aggs))
+        require(ver["verified"], "sharded verify (pod_scale): a verdict false")
+        vtrace = call_trace(lambda: sharded_verify_device(params, mesh, vks, msgs, aggs))
+        metrics.update(sharded_verifies_per_s=ver["verifies_per_s"],
+                       sharded_verify_s=ver["seconds"], sharded_verify_trace=vtrace)
+        log(f"phase D, one-rank NCCL world on {dev}: sharded_verify_device on phase 3's "
+            f"{G} x {N} fleet equals verify_batch_device in both assemblies, the tampered "
+            f"group {bad_g} fails alone; a warm call runs under set_sync_debug_mode('error'); "
+            f"pod_scale.verify_throughput: {ver['seconds'] * 1e3:.2f} ms, "
+            f"{ver['verifies_per_s']:,.0f} verifies/s (best of {pod_scale.REPS} synced calls)")
+        log_trace("phase D: one traced sharded verify", vtrace)
+        del vks, msgs, aggs, bad, want
+
+        inputs = device_inputs(params, mesh, D_KEYS)
+        before = Counter(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        life, outs = pod_scale.lifecycle_throughput(params, mesh, inputs)
+        step_launches = dict(Counter(kernels.LAUNCHES) - before)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        vk, agg, eq, norm_ok, w_ok = outs
+        require(life["verified"], "sharded_lifecycle_step verdicts")
+        with uncounted():
+            ref_vk, ref_agg = unsharded_step(params, *inputs)
+        require(torch.equal(vk, ref_vk) and torch.equal(agg, ref_agg),
+                "sharded_lifecycle_step != the unsharded port")
+        step = sharded_lifecycle_step(params, mesh)[0]
+        trace = call_trace(lambda: step(*inputs))
+        metrics.update(sharded_step_keys=D_KEYS, sharded_step_keys_per_s=life["keys_per_s"],
+                       sharded_step_s=life["seconds"], sharded_step_peak_gb=peak_gb,
+                       sharded_step_trace=trace)
+        log(f"phase D: sharded_lifecycle_step at {D_KEYS} keys (one card's share of config 4's "
+            f"65,536), secpar={SECPAR}, rank {life['rank_p']}: pod_scale.lifecycle_throughput "
+            f"{life['seconds'] * 1e3:.2f} ms -> {life['keys_per_s']:,.0f} keys/s (best of "
+            f"{pod_scale.REPS}); peak device memory {peak_gb:.2f} GB; vk and agg equal the "
+            f"unsharded port's on the card, every verdict true; the step's launches "
+            f"{step_launches} in {pod_scale.REPS + 1} calls")
+        log_trace(f"phase D: one traced step at {D_KEYS} keys", trace)
+        del inputs, outs, vk, agg, ref_vk, ref_agg
+
+        sk, cc, al, keys, order = prepare_real(params, life["rank_p"], seeds, msgs_r, device=dev)
+        out_card = [o.cpu().numpy() for o in
+                    sharded_lifecycle_step(params, mesh)[0](sk, cc, al)]
+        require(order == cpu["order"] and keys.vk_strs() == cpu["reprs"],
+                "prepare_real: order or reprs differ between the card and the CPU")
+        require(all(np.array_equal(a, b) for a, b in zip((sk, cc, al), cpu["inputs"])),
+                "prepare_real: inputs differ between the card and the CPU")
+        require(all(np.array_equal(a, b) for a, b in zip(out_card, cpu["outputs"])),
+                "prepare_real: step outputs differ between the card and the CPU")
+        require(all(bool(x) for x in out_card[2:]), "prepare_real step verdicts")
+        log(f"phase D: prepare_real at B={D_REAL_KEYS} and the step on it give the same arrays, "
+            "reprs, order and outputs on the card as on the CPU (a gloo world of one)")
+
+        smesh = make_mesh((1, 1), ("sp", "rep"))
+        x = torch.from_numpy(np.random.default_rng(SEED).integers(
+            -(Q // 2), Q // 2 + 1, size=(D_NTT_ROWS, params.degree)).astype(np.int32)).to(dev)
+        with uncounted():
+            want_f, want_i = ntt_fwd(params.plan, x), ntt_inv(params.plan, x)
+        fwd, inv = dn.make_distributed_ntt(params.plan, smesh)
+        fwd4, inv4, layout, unlayout = dn.make_fourstep_ntt(params.plan, smesh)
+        t0 = time.time()
+        y = fwd(x)
+        torch.cuda.synchronize()
+        t_matrix = time.time() - t0
+        t0 = time.time()
+        y4 = fwd4(layout(x))
+        torch.cuda.synchronize()
+        t_four = time.time() - t0
+        require(torch.equal(y, want_f) and torch.equal(inv(x), want_i) and torch.equal(inv(y), x),
+                "make_distributed_ntt at S=1 != ntt_fwd / ntt_inv")
+        require(torch.equal(y4, want_f) and torch.equal(unlayout(inv4(y4)), x),
+                "make_fourstep_ntt at S=1 != ntt_fwd")
+        metrics.update(matrix_ntt_s=t_matrix, fourstep_ntt_s=t_four)
+        log(f"phase D: both distributed NTTs at S=1 on {D_NTT_ROWS} rows equal ntt_fwd / ntt_inv "
+            f"(forward: matrix form {t_matrix * 1e3:.1f} ms, four-step {t_four * 1e3:.1f} ms, "
+            "first calls)")
+        launches = dict(kernels.LAUNCHES)
+        if cards >= 2:
+            with uncounted():
+                multi_ref = multi_card_refs(params, mesh, min(4, cards), dev)
+    if multi_ref is None:
+        log(f"phase D: the multi-card phase did not run: {cards} CUDA card visible, and NCCL "
+            "needs a card a rank")
+    else:
+        one_card = {"keys_per_s": life["keys_per_s"], "verifies_per_s": ver["verifies_per_s"]}
+        metrics.update(drive_multi_card(params, multi_ref, min(4, cards), one_card))
+    metrics["phase_d_s"] = time.time() - t_phase
+    log(f"phase D in {metrics['phase_d_s']:.3f} s; kernel launches on the one-rank path: "
+        f"{launches}")
+    return metrics, launches, step_launches
+
+
 def fold_times_only(dev, card: str) -> int:
     """``--fold-times``: the signer fold kernels' times on the five input
     sets of :func:`signer_fold_times` and nothing else, through the public
@@ -1655,13 +2067,20 @@ def main(argv) -> int:
     aux_metrics, aux_launches = drive_aux(params, fleet, dev)
     metrics.update(aux_metrics)
 
+    # -- D. parallel/ on a one-rank NCCL world (and on every card, if more) ---
+    torch.cuda.empty_cache()
+    d_metrics, d_launches, step_launches = drive_sharded(params, dev)
+    metrics.update(d_metrics)
+    for name in STEP_KERNELS:
+        require(step_launches.get(name, 0) > 0, f"kernel {name} never launched by the step")
+
     # -- 5. the paths went through every kernel --------------------------------
     require(sorted(r["name"] for r in kernel_rows) == sorted(ALL_KERNELS),
             "kernel table must list every kernel of the paths")
     paths = (("main", launches, MAIN_PATH_KERNELS), ("spec", spec_launches, SPEC_PATH_KERNELS),
              ("lifecycle", life_launches, LIFECYCLE_KERNELS),
              ("object_api", obj_launches, OBJECT_API_KERNELS),
-             ("aux", aux_launches, AUX_KERNELS))
+             ("aux", aux_launches, AUX_KERNELS), ("sharded", d_launches, SHARDED_KERNELS))
     for row in kernel_rows:
         name = row["name"]
         for path, counts, path_kernels in paths:

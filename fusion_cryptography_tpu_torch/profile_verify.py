@@ -62,6 +62,27 @@ def port_kernel(function: str):
     return next((k for fn, k in KERNEL_FUNCTIONS.items() if fn in head), None)
 
 
+def trace(fn) -> tuple:
+    """One call of ``fn`` under torch.profiler, ended by a device sync ->
+    (wall seconds, [(function, device us, launches)] by device time, the
+    profile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        events = list(prof.key_averages())
+
+    def dev_us(e) -> float:
+        return getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
+
+    return wall, sorted(((e.key, dev_us(e), e.count) for e in events), key=lambda r: -r[1]), prof
+
+
 def launch_times(prof) -> dict:
     """{port kernel: [device ms of each launch, in launch order]} from a trace."""
     out: dict = {}
@@ -209,20 +230,7 @@ def main() -> None:
         print(f"  {k:52s} {v * 1e3:9.2f} ms")
 
     # 2. profiler trace
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        verify()
-        traced = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        events = list(prof.key_averages())
-
-    def dev_us(e) -> float:
-        return getattr(e, "self_device_time_total", 0.0) or getattr(e, "self_cuda_time_total", 0.0)
-
-    rows = sorted(((e.key, dev_us(e), e.count) for e in events), key=lambda r: -r[1])
+    traced, rows, prof = trace(verify)
     busy = sum(r[1] for r in rows) / 1e3
     launches = sum(r[2] for r in rows)
     print(f"traced call {traced * 1e3:.2f} ms, device busy {busy:.2f} ms "
