@@ -44,7 +44,11 @@ Phases (each fails loudly; any failure exits non-zero):
      -1-filled outputs, and both timed beside their bounds on those inputs,
      the synthetic ones of phase 2, the same without edge values, without
      edge values or extreme lanes, and those at one group (back to back and
-     alone)
+     alone); the glue kernels at the inputs of one verify call (captured):
+     ``xof_decode`` (the challenge decode and the alphas' decode read in
+     place from the group stage's blob), ``render_prehash`` and
+     ``lattice_target``, each equal to its plain version and timed beside
+     its bound, with its launches in one verify call and one fleet build
   S. the "spec" assembly, with phase 3's fleet alive: build_fleet gives the
      same fleet, verify (the same measurements) gives all verdicts true and
      rejects a tampered aggregate in exactly its group, derive_coeffs_device
@@ -135,11 +139,14 @@ SEED = 42
 SECPAR, N_GROUPS, N_SIGNERS = 256, 8192, 4
 LANE128_GROUPS = 1024
 
+# the verify path's glue stages: the XOF decode (challenges and alphas), the
+# prehash render and the lattice target
+GLUE_KERNELS = ("xof_decode", "render_prehash", "lattice_target")
 MAIN_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight",
-                     "signer_fold_a", "signer_fold_b", "agg_fold", "ntt_u")
+                     "signer_fold_a", "signer_fold_b", "agg_fold", "ntt_u") + GLUE_KERNELS
 # the "spec" assembly: assemble_spec in place of the signer folds
 SPEC_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight", "agg_fold",
-                     "ntt_u", "assemble_spec")
+                     "ntt_u", "assemble_spec") + GLUE_KERNELS
 # the lifecycle: the main path's kernels and keygen's sk_hat = NTT(sk)
 LIFECYCLE_KERNELS = MAIN_PATH_KERNELS + ("ntt_centered",)
 # the object API: keygen and the challenge/coefficient NTTs, verify's pipeline
@@ -148,8 +155,9 @@ OBJECT_API_KERNELS = LIFECYCLE_KERNELS
 # and the CLI (its keygen is kernel ntt_centered)
 AUX_KERNELS = LIFECYCLE_KERNELS
 ALL_KERNELS = LIFECYCLE_KERNELS + ("assemble_spec",)
-# phase D: the sharded verify in both assemblies (kernels 1-8), the step
-# (kernels 3 and 4) and prepare_real's keygen (kernel 9)
+# phase D: the sharded verify in both assemblies (kernels 1-8 and the glue
+# kernels), the step (kernels 3 and 4: no hash stage, no lattice target)
+# and prepare_real's keygen (kernel 9)
 SHARDED_KERNELS = ALL_KERNELS
 STEP_KERNELS = ("intt_norm_weight", "ntt_u")
 D_KEYS = 16384  # one card's share of config 4 (65,536 keys over four cards)
@@ -290,34 +298,44 @@ SPONGE_LAUNCHES = ("prehash", "challenge", "aggregation")
 SPONGE_TEAMS = (1, 2)  # threads per sponge
 
 
+def clone_args(x):
+    """``x`` with every tensor in it (also inside lists and tuples) cloned."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, list) or type(x) is tuple:
+        return type(x)(clone_args(y) for y in x)
+    return x
+
+
+def capture_calls(params, fleet, wraps, **verify_kw) -> dict:
+    """{name: [arguments of each call, tensors cloned, in call order]} of the
+    functions ``(module, attribute, name)`` of ``wraps`` over one
+    ``verify_batch_device(params, *fleet, **verify_kw)`` call on the fleet
+    (``profile_verify.record_calls``: every argument positional)."""
+    from fusion_cryptography_tpu_torch.profile_verify import record_calls
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    calls = {name: [] for _, _, name in wraps}
+
+    def run():
+        dp.verify_batch_device(params, *fleet, **verify_kw)
+        torch.cuda.synchronize()
+
+    record_calls(wraps, run, lambda name, args: calls[name].append(clone_args(args)))
+    return calls
+
+
 def capture_sponges(params, fleet) -> tuple:
     """The arguments of the sponge calls of one ``verify_batch_device`` call
     on the fleet: ([(padded words, block counts)] of its absorb calls,
     [(state, n_words)] of its squeeze calls), each in call order."""
     from fusion_cryptography_tpu_torch.ops import keccak_sponge as ks
-    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
 
-    absorbs, squeezes = [], []
-    absorb, squeeze = ks.absorb, ks.squeeze
-
-    def record_absorb(words, n_blocks):
-        absorbs.append((words.clone(), n_blocks.clone()))
-        return absorb(words, n_blocks)
-
-    def record_squeeze(state, n_words):
-        squeezes.append((state.clone(), n_words))
-        return squeeze(state, n_words)
-
-    ks.absorb, ks.squeeze = record_absorb, record_squeeze
-    try:
-        dp.verify_batch_device(params, *fleet)
-        torch.cuda.synchronize()
-    finally:
-        ks.absorb, ks.squeeze = absorb, squeeze
-    for name, calls in (("absorb", absorbs), ("squeeze", squeezes)):
-        require(len(calls) == len(SPONGE_LAUNCHES),
-                f"a verify call made {len(calls)} {name} launches, not {len(SPONGE_LAUNCHES)}")
-    return absorbs, squeezes
+    calls = capture_calls(params, fleet, [(ks, "absorb", "absorb"), (ks, "squeeze", "squeeze")])
+    for name, got in calls.items():
+        require(len(got) == len(SPONGE_LAUNCHES),
+                f"a verify call made {len(got)} {name} launches, not {len(SPONGE_LAUNCHES)}")
+    return calls["absorb"], calls["squeeze"]
 
 
 def sum_launches(row: dict, shapes: list, errs: list) -> None:
@@ -328,7 +346,7 @@ def sum_launches(row: dict, shapes: list, errs: list) -> None:
     bound_by = max(("bytes", "operations"),
                    key=lambda k: sum(sh["bound_ms"] for sh in shapes if sh["bound_by"] == k))
     row.update(max_abs_err=max(errs), bound_by=bound_by, shapes=shapes, **total)
-    log(f"{row['name']} over the verify call's three launches: {total['ms']:.4f} ms, bound "
+    log(f"{row['name']} over the verify call's {len(shapes)} launches: {total['ms']:.4f} ms, bound "
         f"{total['bound_ms']:.4f} ms ({total['ms'] / total['bound_ms']:.2f}x)")
 
 
@@ -703,28 +721,12 @@ def capture_signer_folds(params, fleet) -> dict:
     call on the fleet: {"signer_fold_a": (vk2d_t, pre_w, pre_len),
     "signer_fold_b": (vk_buf, vk_len, pre_w, pre_len, c_hat_t)}."""
     from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
-    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
 
-    captured: dict = {}
-    saved = {name: getattr(pf, name) for name in ("signer_fold_a", "signer_fold_b")}
-
-    def recorder(name):
-        def record(p, *args):
-            captured.setdefault(name, []).append(tuple(a.clone() for a in args))
-            return saved[name](p, *args)
-        return record
-
-    for name in saved:
-        setattr(pf, name, recorder(name))
-    try:
-        dp.verify_batch_device(params, *fleet)
-        torch.cuda.synchronize()
-    finally:
-        for name, fn in saved.items():
-            setattr(pf, name, fn)
-    require(sorted(captured) == sorted(saved) and all(len(v) == 1 for v in captured.values()),
-            f"a verify call made signer fold calls {[(k, len(v)) for k, v in captured.items()]}")
-    return {name: calls[0] for name, calls in captured.items()}
+    names = ("signer_fold_a", "signer_fold_b")
+    calls = capture_calls(params, fleet, [(pf, name, name) for name in names])
+    require(all(len(v) == 1 for v in calls.values()),
+            f"a verify call made signer fold calls {[(k, len(v)) for k, v in calls.items()]}")
+    return {name: got[0][1:] for name, got in calls.items()}  # the params dropped
 
 
 def signer_fold_times(params, fleet, dev) -> dict:
@@ -972,21 +974,8 @@ def capture_assemble(params, fleet) -> list:
     assembly="spec")`` call on the fleet, in call order."""
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
 
-    captured = []
-    saved = dp.assemble_spec
-
-    def record(spec, values=None, extras=(), extra_bounds=None, pad_words=None):
-        captured.append((spec, None if values is None else values.clone(),
-                         [(eb.clone(), el.clone()) for eb, el in extras], extra_bounds,
-                         pad_words))
-        return saved(spec, values, extras, extra_bounds, pad_words)
-
-    dp.assemble_spec = record
-    try:
-        dp.verify_batch_device(params, *fleet, assembly="spec")
-        torch.cuda.synchronize()
-    finally:
-        dp.assemble_spec = saved
+    captured = capture_calls(params, fleet, [(dp, "assemble_spec", "assemble_spec")],
+                             assembly="spec")["assemble_spec"]
     require(len(captured) == 2, f'a "spec" verify call made {len(captured)} assemble_spec '
             "calls, not 2")
     return captured
@@ -1012,6 +1001,138 @@ def phase_assemble_shapes(params, fleet, kernel_rows: list) -> None:
         row.update({f"{key}ms": t["ms"], f"{key}plain_ms": t["plain_ms"],
                     f"{key}bound_ms": t["bound_ms"], f"{key}bound_by": t["bound_by"]})
     row["max_abs_err"] = max(errs)
+    torch.cuda.empty_cache()
+
+
+GLUE_ROWS = {  # kernel -> (source, the JAX function it replaces)
+    "xof_decode": ("fusion_cryptography_tpu_torch/csrc/xof_decode.cu",
+                   "fusion_cryptography_tpu/ops/xof_decode.py:392"),
+    "render_prehash": ("fusion_cryptography_tpu_torch/csrc/render_prehash.cu",
+                       "fusion_cryptography_tpu/ops/ragged_words.py:397"),
+    "lattice_target": ("fusion_cryptography_tpu_torch/csrc/lattice_target.cu",
+                       "fusion_cryptography_tpu/scheme/device_pipeline.py:545"),
+}
+
+
+def capture_glue(params, fleet) -> tuple:
+    """The arguments of the glue kernels' calls in one ``verify_batch_device``
+    call on the fleet ({kernel: [args, ...]} in call order), and every
+    kernel's launches in that call and in one ``build_fleet`` of the same
+    size (fresh seeds)."""
+    from fusion_cryptography_tpu_torch import kernels
+    from fusion_cryptography_tpu_torch.ops import ragged_words as rw
+    from fusion_cryptography_tpu_torch.ops import xof_decode as xd
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    before = Counter(kernels.LAUNCHES)
+    calls = capture_calls(params, fleet, [(xd, "decode_coeffs_rows", "xof_decode"),
+                                          (rw, "render_bigint_dec_w", "render_prehash"),
+                                          (dp, "lattice_target", "lattice_target")])
+    per_call = dict(Counter(kernels.LAUNCHES) - before)
+    G, N = fleet[0].shape[:2]
+    before = Counter(kernels.LAUNCHES)
+    other = build_fleet(params, G, N, seed0=1 + 4 * G * N, device=fleet[0].device)
+    torch.cuda.synchronize()
+    per_fleet = dict(Counter(kernels.LAUNCHES) - before)
+    del other
+    require([len(calls[k]) for k in GLUE_KERNELS] == [2, 1, 1],
+            f"a verify call's glue calls: { {k: len(v) for k, v in calls.items()} }")
+    return calls, per_call, per_fleet
+
+
+def lattice_breaches(args) -> int:
+    """Kernel ``lattice_target`` and its plain version on the verify call's
+    captured arguments with one group's observed sum off by one, a norm
+    breach and a weight breach in two other groups, and a norm and a weight
+    exactly at their limits in two more: both must give the same verdicts,
+    false in exactly those three groups -> max abs error (0)."""
+    from fusion_cryptography_tpu_torch.ops import lattice_target as lt
+
+    field, vks, c_hat, alpha, observed, nrm, wgt, beta, omega = clone_args(args)
+    G, d, q = vks.shape[0], vks.shape[3], field.q
+    require(G >= 5 and beta < 2**31 - 1, "lattice breaches need 5 groups and beta < 2**31 - 1")
+    g_obs, g_nrm, g_wgt = 1, G // 2, G - 1
+    observed[g_obs, d // 3] = (observed[g_obs, d // 3] + 1) % q
+    nrm[g_nrm, -1], wgt[g_wgt, 0] = beta + 1, omega + 1
+    nrm[2, 0], wgt[G - 2, -1] = beta, omega  # at the limits: still accepted
+    breached = (field, vks, c_hat, alpha, observed, nrm, wgt, beta, omega)
+    got, want = lt.lattice_target(*breached), lt.lattice_target_plain(*breached)
+    err = max(max_abs_err(x, y) for x, y in zip(got, want))
+    falses = [torch.nonzero(~x).flatten().tolist() for x in got]
+    require(err == 0 and falses == [[g_obs], [g_nrm], [g_wgt]],
+            f"lattice_target on breached groups: verdicts false at {falses}, "
+            f"expected {[[g_obs], [g_nrm], [g_wgt]]}; max abs err {err}")
+    log(f"lattice_target, the verify call's arguments with a tampered group, a norm breach, a "
+        f"weight breach and both limits met exactly: equals the plain version, false in "
+        f"exactly groups {g_obs}, {g_nrm}, {g_wgt}")
+    return err
+
+
+def phase_glue_shapes(params, fleet, kernel_rows: list) -> None:
+    """Kernels ``xof_decode`` (the challenge decode and the alphas' decode
+    of the group stage's blob), ``render_prehash`` and ``lattice_target`` at
+    the verify call's own launches (arguments captured from one call on the
+    fleet): each equal to its plain version exactly, timed beside its bound
+    and its plain version on those inputs; the lattice target also on those
+    inputs with breaches (:func:`lattice_breaches`).  Each row's ms, plain_ms and
+    bound_ms are sums over the call's launches; it also carries the
+    launches of one verify call and of one fleet build."""
+    from fusion_cryptography_tpu_torch.ops import lattice_target as lt
+    from fusion_cryptography_tpu_torch.ops import ragged_words as rw
+    from fusion_cryptography_tpu_torch.ops import xof_decode as xd
+
+    calls, per_call, per_fleet = capture_glue(params, fleet)
+
+    def decode(args):
+        words, geom, n, ns = args
+        return (lambda: xd.decode_coeffs_rows(*args), lambda: xd.decode_rows_plain(*args),
+                bounds.xof_decode(geom, n, words.shape[1] * ns),
+                dict(lanes=words.shape[1], streams=ns, words=words.shape[0], n_bytes=n))
+
+    def render(args):
+        (digest,) = args
+        return (lambda: rw.render_bigint_dec_w(digest),
+                lambda: rw.render_bigint_dec_plain(digest),
+                bounds.render_prehash(digest.shape[1]), dict(lanes=digest.shape[1]))
+
+    def target(args):
+        _, vks, _, _, _, nrm, _, _, _ = args
+        G, N, _, d = vks.shape
+        return (lambda: lt.lattice_target(*args), lambda: lt.lattice_target_plain(*args),
+                bounds.lattice_target(G, N, d, nrm.shape[-1]), dict(groups=G, signers=N))
+
+    def as_ints(out):  # coefficients, a word chunk, or the three verdicts
+        parts = (out,) if isinstance(out, torch.Tensor) else (
+            (out.buf, out.length) if isinstance(out, rw.WChunk) else out)
+        return torch.cat([x.reshape(-1).to(torch.int64) for x in parts])
+
+    labels = {"xof_decode": ("challenge", "alphas"), "render_prehash": ("prehash",),
+              "lattice_target": ("lattice",)}
+    for name, setup in (("xof_decode", decode), ("render_prehash", render),
+                        ("lattice_target", target)):
+        shapes, errs = [], []
+        for label, args in zip(labels[name], calls[name]):
+            kernel, plain, b, shape = setup(args)
+            errs.append(max_abs_err(as_ints(kernel()), as_ints(plain())))
+            require(errs[-1] == 0, f"{name} ({label}) != its plain version at the verify call's "
+                    "inputs")
+            t_k = cuda_ms(kernel, 10)
+            t_p = cuda_ms(plain, 1)
+            shapes.append(dict(launch=label, ms=t_k, plain_ms=t_p, **b, **shape))
+            log(f"{name}, the verify call's {label} launch {shape}: equals the plain version; "
+                f"{t_k:.4f} ms, plain {t_p:.3f} ms, bound {b['bound_ms']:.4f} ms by "
+                f"{b['bound_by']} ({t_k / b['bound_ms']:.2f}x)")
+        if name == "lattice_target":
+            errs.append(lattice_breaches(calls[name][0]))
+        source, replaces = GLUE_ROWS[name]
+        row = dict(name=name, route="cuda", source=source, replaces=replaces, library_ms=None,
+                   launches_per_verify_call=per_call.get(name, 0),
+                   launches_per_fleet_build=per_fleet.get(name, 0))
+        sum_launches(row, shapes, errs)
+        kernel_rows.append(row)
+    log(f"launches of one verify call: {per_call}; of one fleet build: {per_fleet}")
+    del calls
     torch.cuda.empty_cache()
 
 
@@ -2030,6 +2151,7 @@ def main(argv) -> int:
     check_lattice_no_sync(params, fleet)
     phase_sponge_shapes(params, fleet, kernel_rows)
     phase_fold_shapes(params, fleet, kernel_rows)
+    phase_glue_shapes(params, fleet, kernel_rows)
 
     # -- S. the "spec" assembly ---------------------------------------------
     spec_metrics, spec_launches = drive_spec_path(params, fleet, metrics, dev)

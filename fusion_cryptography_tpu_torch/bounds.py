@@ -31,6 +31,14 @@ KECCAK_OPS = 24 * (20 + 10 + 50 + 48 + 50 + 2)
 # The fold kernels' bounds are set by their bytes, several times above
 # these operations at the main path's shapes.
 RENDER_OPS, WORD_OPS, AGG_WORD_OPS = 70, 4, 20
+# Estimates of the glue kernels' instructions: the prehash render of one
+# digest (72 limb steps of a 64-bit multiply-high by 10^-9, ~12 each; nine
+# chunks rendered, ~40 each; the 20-word stream), one (coefficient, signer)
+# term of the lattice target (two lifts, two Barrett products of ~12, two
+# modular adds), and the XOF decode's per byte read (extract, table load,
+# multiply-add), per row (one 32-bit `%`, ~20), per swap placed.
+PREHASH_RENDER_OPS, LATTICE_TERM_OPS = 1500, 36
+DECODE_BYTE_OPS, DECODE_ROW_OPS, DECODE_SWAP_OPS = 3, 20, 8
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -128,3 +136,33 @@ def assemble_spec(n_values: int, lanes: int, extra_lens: Sequence[torch.Tensor],
     return bound(4 * n_values * lanes + sum(live_bytes(el) + 4 * lanes for el in extra_lens)
                  + 4 * (width + 1) * lanes,
                  lanes * (n_values * RENDER_OPS + width * WORD_OPS))
+
+
+def xof_decode(geom, n_bytes: int, streams: int) -> dict:
+    """Kernel ``xof_decode`` over ``streams`` streams of ``n_bytes`` (an
+    ``ops/xof_decode.DecodeGeometry``): the bytes a stream's decode needs
+    (the signum bytes, the magnitude blocks when the bound is not 1, the
+    index rows up to the stream's end) and its power table in, int32 [d]
+    a stream out."""
+    nmag = geom.weight_bound if geom.bound != 1 else 0
+    off, S = geom.index_stream_offset, geom.num_swaps
+    index_bytes = max(0, min(n_bytes, off + S * geom.bytes_per_index) - off)
+    read = geom.bytes_for_signums + nmag * geom.bytes_per_coefficient + index_bytes
+    table = 4 * (nmag * geom.bytes_per_coefficient + S * geom.bytes_per_index)
+    return bound(streams * (read + 4 * geom.degree) + table,
+                 streams * (DECODE_BYTE_OPS * read + DECODE_ROW_OPS * (nmag + S)
+                            + DECODE_SWAP_OPS * S + 2 * geom.degree))
+
+
+def render_prehash(lanes: int) -> dict:
+    """Kernel ``render_prehash``: 8 digest words in, 20 words and a length
+    out, per lane."""
+    return bound(lanes * (32 + 80 + 4), lanes * PREHASH_RENDER_OPS)
+
+
+def lattice_target(groups: int, n: int, d: int, rank: int) -> dict:
+    """Kernel ``lattice_target``: vks int32 [G, N, 2, d], c_hat and
+    alpha_hat int64 [G, N, d], observed int64 [G, d], norms and weights
+    int32 [G, rank] in, three bytes a group out."""
+    return bound(groups * (8 * n * d + 16 * n * d + 8 * d + 8 * rank + 3),
+                 groups * (d * (n * LATTICE_TERM_OPS + 3) + 2 * rank))

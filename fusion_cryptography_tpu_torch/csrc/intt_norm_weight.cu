@@ -51,14 +51,6 @@
 
 namespace {
 
-// The canonical residue x mod q of any int32, for q in (2^30, 2^31).
-FCT_HD uint32_t lift_residue(int32_t x, uint32_t q) {
-  int32_t y = x < 0 ? x + (int32_t)q : x;  // [-(2^31 - q), 2^31)
-  if (y < 0) y += (int32_t)q;
-  const uint32_t u = (uint32_t)y;
-  return u >= q ? u - q : u;
-}
-
 // |centered(c)| = min(c, q - c) for a residue c.
 FCT_HD uint32_t centered_abs(uint32_t c, uint32_t q) {
   const uint32_t n = q - c;

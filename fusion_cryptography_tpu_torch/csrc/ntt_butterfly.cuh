@@ -1,5 +1,6 @@
 // The negacyclic NTT's butterfly network on one warp per row, shared by the
-// port's NTT kernels (ntt.cu) and the aggregate check (intt_norm_weight.cu).
+// port's NTT kernels (ntt.cu) and the aggregate check (intt_norm_weight.cu);
+// its modular helpers also serve the lattice target (lattice_target.cu).
 //
 // Residues are uint32 in [0, q), q < 2^31 an odd prime.  A twiddle table
 // is the flat bit-reversed layout of the reference (algebra/ntt.py:281): the
@@ -67,6 +68,14 @@ FCT_HD uint32_t add_mod(uint32_t a, uint32_t b, uint32_t q) {
 
 FCT_HD uint32_t sub_mod(uint32_t a, uint32_t b, uint32_t q) {
   return a >= b ? a - b : a + (q - b);
+}
+
+// The canonical residue x mod q of any int32, for q in (2^30, 2^31).
+FCT_HD uint32_t lift_residue(int32_t x, uint32_t q) {
+  int32_t y = x < 0 ? x + (int32_t)q : x;  // [-(2^31 - q), 2^31)
+  if (y < 0) y += (int32_t)q;
+  const uint32_t u = (uint32_t)y;
+  return u >= q ? u - q : u;
 }
 
 // The inverse's last stage's second twiddle times n^-1, and its Shoup word:

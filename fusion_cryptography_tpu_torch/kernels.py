@@ -5,9 +5,11 @@ use, all of them at once, into ``build/kernels_<source>/<hash>/`` (the hash
 covers the source and the shared ``csrc/*.cuh`` headers), and loaded with
 ctypes through a plain C interface (no PyTorch headers, so a build takes
 seconds).  Only the wrappers in ``ops/keccak_sponge.py``, ``ops/ntt.py``,
-``ops/intt_norm_weight.py``, ``ops/preimage_fold.py`` and
-``ops/assemble_spec.py`` call into the library; each adds one to ``LAUNCHES[name]`` where it launches its kernel,
-so a run can show that its main path went through the kernels.
+``ops/intt_norm_weight.py``, ``ops/preimage_fold.py``, ``ops/assemble_spec.py``,
+``ops/xof_decode.py``, ``ops/ragged_words.py`` (``render_bigint_dec_w``) and
+``ops/lattice_target.py`` call into the library; each adds one to
+``LAUNCHES[name]`` where it launches its kernel, so a run can show that its
+main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from ._build import build_log, build_shared_library
 CSRC = Path(__file__).resolve().parent / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
-_P, _I32, _I64, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
+_P, _I32, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32,
+                               ctypes.c_uint64)
 # source -> its C entry points and their argtypes; every entry point returns
 # cudaGetLastError()
 SOURCES = {
@@ -53,6 +56,17 @@ SOURCES = {
     },
     "assemble_spec.cu": {
         "fct_assemble_spec": [_P, _I32, _P, _P, _I64, _P, _I64, _P, _I32, _P, _P],
+    },
+    "xof_decode.cu": {
+        "fct_xof_decode": [_P, _I64, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _U32, _P,
+                           _P, _P],
+    },
+    "render_prehash.cu": {
+        "fct_render_prehash": [_P, _I64, _P, _P, _P],
+    },
+    "lattice_target.cu": {
+        "fct_lattice_target": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _U32, _U64, _I64,
+                               _I64, _P, _P, _P, _P],
     },
 }
 

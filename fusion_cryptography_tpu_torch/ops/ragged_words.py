@@ -24,6 +24,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .. import kernels
 from .upload import upload
 
 DEC_W = 11  # '-' + 10 digits covers |v| < 2**31
@@ -162,11 +163,31 @@ def render_decimal_cells_w(values: torch.Tensor, sep: bytes) -> WChunk:
 def render_bigint_dec_w(digest_words: torch.Tensor) -> WChunk:
     """256-bit little-endian integers int32[8, B] (the SHA3-256 digest words)
     -> ``str(int)`` as a left-aligned word chunk buf int32[20, B] (max 78
-    digits, no sign): the prehash rendering of fusion.py:405-409.
+    digits, no sign): the prehash rendering of fusion.py:405-409.  CUDA
+    tensors: one launch of kernel ``render_prehash``
+    (``csrc/render_prehash.cu``); CPU tensors: :func:`render_bigint_dec_plain`."""
+    if digest_words.device.type == "cpu":
+        return render_bigint_dec_plain(digest_words)
+    if digest_words.dim() != 2 or digest_words.shape[0] != 8:
+        raise ValueError(f"render_prehash: expected digest words [8, B], got "
+                         f"{tuple(digest_words.shape)}")
+    digest_words = digest_words.contiguous()
+    kernels.require_cuda_tensor(digest_words, "digest_words", torch.int32, 2)
+    B = digest_words.shape[1]
+    buf = torch.empty((words_for(PREHASH_DIGITS), B), dtype=torch.int32,
+                      device=digest_words.device)
+    length = torch.empty(B, dtype=torch.int32, device=digest_words.device)
+    rc = kernels.library().fct_render_prehash(digest_words.data_ptr(), B, buf.data_ptr(),
+                                              length.data_ptr(), kernels.cuda_stream())
+    kernels.LAUNCHES["render_prehash"] += 1
+    kernels.check_launch(rc, "render_prehash")
+    return WChunk(buf=buf, length=length, max_len=PREHASH_DIGITS, min_len=1)
 
-    Nine divmod-by-10**9 sweeps over the 32-bit limbs (each step's dividend
-    r * 2**32 + limb < 10**9 * 2**32 fits int64) give 81 digits, LSB first.
-    """
+
+def render_bigint_dec_plain(digest_words: torch.Tensor) -> WChunk:
+    """:func:`render_bigint_dec_w` in torch.  Nine divmod-by-10**9 sweeps
+    over the 32-bit limbs (each step's dividend r * 2**32 + limb < 10**9 *
+    2**32 fits int64) give 81 digits, LSB first."""
     dev = digest_words.device
     B = digest_words.shape[-1]
     limbs = [digest_words[k].to(torch.int64) & 0xFFFFFFFF for k in range(8)]

@@ -11,8 +11,13 @@ twin of the reference decoder, fusion/fusion.py:422-481):
   in the closed form of the JAX package's ``_fy_place_lm``: each live value m
   moves at most once, to d-1-t at the FIRST swap t whose target is m.
 
-Streams are int32[W, B] packed words (batch minor); the decoder reads them as
-batch-major bytes.  Geometry is static per parameter set.
+Streams are int32[W, B] packed words (batch minor), a lane may carry
+``n_streams`` consecutive streams (the group stage's per-signer alpha
+blocks).  On a CUDA tensor :func:`decode_coeffs_rows` is one launch of
+kernel ``xof_decode`` (``csrc/xof_decode.cu``), which reads every stream in
+place at its byte offset; on a CPU tensor it runs :func:`decode_rows_plain`
+(the streams split by :func:`split_streams_w`, then read as batch-major
+bytes).  Geometry is static per parameter set.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from .ragged_words import bytes_to_words, words_to_bytes
 from .upload import upload
 
@@ -98,21 +104,27 @@ def split_streams_w(blob_w: torch.Tensor, n_streams: int, stream_bytes: int) -> 
     )
 
 
-@lru_cache(maxsize=64)
-def _block_tables(off: int, count: int, bpb: int, mods: tuple, n_bytes: int,
-                  device: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """:func:`_block_reduce`'s tables on ``device``, made once per (geometry,
-    device): P[t, k] = 256^(avail_t-1-k) mod m_t for k < avail_t, else 0,
-    where avail_t is how many of row t's bytes lie inside the ``n_bytes``
-    stream (the reference slices the stream, so truncated rows read
-    truncated big-endian ints and empty rows read 0), and the moduli m."""
+def _powers(off: int, count: int, bpb: int, mods: tuple, n_bytes: int) -> np.ndarray:
+    """P[t, k] = 256^(avail_t-1-k) mod m_t for k < avail_t, else 0 (int64
+    [count, bpb]), where avail_t is how many of row t's bytes lie inside the
+    ``n_bytes`` stream (the reference slices the stream, so truncated rows
+    read truncated big-endian ints and empty rows read 0)."""
     avail = np.clip(n_bytes - (off + np.arange(count) * bpb), 0, bpb)
     P = np.zeros((count, bpb), dtype=np.int64)
     for t in range(count):
         m = int(mods[t])
         for k in range(int(avail[t])):
             P[t, k] = pow(256, int(avail[t]) - 1 - k, m)
-    return upload(P, device), upload(np.array(mods, dtype=np.int64), device)
+    return P
+
+
+@lru_cache(maxsize=64)
+def _block_tables(off: int, count: int, bpb: int, mods: tuple, n_bytes: int,
+                  device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_block_reduce`'s tables on ``device``, made once per (geometry,
+    device): the powers of :func:`_powers` and the moduli m."""
+    return (upload(_powers(off, count, bpb, mods, n_bytes), device),
+            upload(np.array(mods, dtype=np.int64), device))
 
 
 @lru_cache(maxsize=16)
@@ -139,18 +151,67 @@ def _block_reduce(by: torch.Tensor, n_bytes: int, off: int, count: int, bpb: int
     return acc % m
 
 
-def decode_coeffs_w(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int) -> torch.Tensor:
-    """Packed-word XOF streams int32[W, B] of logical length ``n_bytes`` ->
-    coefficients int32[degree, B]."""
-    d, w = geom.degree, geom.weight_bound
-    W, B = xof_words.shape
+@lru_cache(maxsize=16)
+def _kernel_table(geom: DecodeGeometry, n_bytes: int, device: str) -> torch.Tensor:
+    """Kernel ``xof_decode``'s power table on ``device``, made once per
+    (geometry, length, device): the magnitude rows' P (when the bound is not
+    1), then the index rows', flat as uint32 bit patterns (each entry below
+    its modulus)."""
+    w, S = geom.weight_bound, geom.num_swaps
+    parts = []
+    if geom.bound != 1:
+        parts.append(_powers(geom.bytes_for_signums, w, geom.bytes_per_coefficient,
+                             (geom.bound,) * w, n_bytes))
+    parts.append(_powers(geom.index_stream_offset, S, geom.bytes_per_index,
+                         tuple(range(geom.degree, geom.weight_bound + 1, -1)), n_bytes))
+    flat = np.concatenate([p.reshape(-1) for p in parts]).astype(np.uint32)
+    return upload(flat.view(np.int32), device)
+
+
+def _check_streams(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int,
+                   n_streams: int) -> None:
     if n_bytes < geom.min_bytes:
         raise ValueError(
             f"Too few bytes to decode polynomial. Expected {geom.min_bytes} "
             f"but got {n_bytes}"
         )
-    if 4 * W < n_bytes:
-        raise ValueError(f"{W} words carry fewer than {n_bytes} bytes")
+    W = xof_words.shape[0]
+    if n_streams < 1 or 4 * W < n_streams * n_bytes:
+        raise ValueError(f"{W} words carry fewer than {n_streams} streams of {n_bytes} bytes")
+
+
+def _decode_launch(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int,
+                   n_streams: int) -> torch.Tensor:
+    """One launch of kernel ``xof_decode`` -> int32[L * n_streams, d]."""
+    d, w = geom.degree, geom.weight_bound
+    if w > 64:
+        raise ValueError(f"xof_decode kernel needs a weight bound <= 64, got {w}")
+    if geom.bytes_per_index * 255 * (d - 1) >= 1 << 32:
+        raise ValueError("xof_decode kernel needs bytes_per_index * 255 * (d - 1) < 2**32")
+    kernels.require_cuda_tensor(xof_words, "xof_words", torch.int32, 2)
+    W, L = xof_words.shape
+    table = _kernel_table(geom, n_bytes, str(xof_words.device))
+    out = torch.empty((L * n_streams, d), dtype=torch.int32, device=xof_words.device)
+    rc = kernels.library().fct_xof_decode(
+        xof_words.data_ptr(), W, L, n_streams, d, w, geom.bytes_for_signums,
+        geom.bytes_per_coefficient, geom.bytes_per_index, n_bytes, geom.bound,
+        table.data_ptr(), out.data_ptr(), kernels.cuda_stream())
+    kernels.LAUNCHES["xof_decode"] += 1
+    kernels.check_launch(rc, "xof_decode")
+    return out
+
+
+def decode_rows_plain(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int,
+                      n_streams: int = 1) -> torch.Tensor:
+    """:func:`decode_coeffs_rows` in torch: the streams split by
+    :func:`split_streams_w`, the signums gathered, the blocks reduced by
+    :func:`_block_reduce`, the first hits found by a scatter-min."""
+    _check_streams(xof_words, geom, n_bytes, n_streams)
+    if n_streams > 1:
+        per = split_streams_w(xof_words, n_streams, n_bytes)  # [bw, L, n_streams]
+        xof_words = per.reshape(per.shape[0], -1)
+    d, w = geom.degree, geom.weight_bound
+    B = xof_words.shape[1]
     dev = xof_words.device
     by = words_to_bytes(xof_words)  # [B, 4W]
 
@@ -164,8 +225,7 @@ def decode_coeffs_w(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int)
 
     S = geom.num_swaps
     if S == 0:
-        out = torch.nn.functional.pad(vals, (0, d - w))
-        return out.t().to(torch.int32).contiguous()
+        return torch.nn.functional.pad(vals, (0, d - w)).to(torch.int32)
     j_all = _block_reduce(by, n_bytes, geom.index_stream_offset, S, geom.bytes_per_index,
                           tuple(range(d, w + 1, -1)))  # [B, S]: swap t takes mod d - t
     # first swap t whose target is live slot m (targets >= w go to a dump slot)
@@ -177,4 +237,23 @@ def decode_coeffs_w(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int)
     pos = torch.where(first_t < S, d - 1 - first_t, m_idx)
     out = torch.zeros((B, d), dtype=torch.int64, device=dev)
     out.scatter_(1, pos, vals)
-    return out.t().to(torch.int32).contiguous()
+    return out.to(torch.int32)
+
+
+def decode_coeffs_rows(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int,
+                       n_streams: int = 1) -> torch.Tensor:
+    """Packed-word XOF streams int32[W, L], each lane carrying ``n_streams``
+    streams of logical length ``n_bytes`` (stream k of a lane from byte
+    k * n_bytes) -> coefficients int32[L * n_streams, degree], row
+    g * n_streams + k: the layout the NTT takes.  CUDA tensors: kernel
+    ``xof_decode``; CPU tensors: :func:`decode_rows_plain`."""
+    if xof_words.device.type == "cpu":
+        return decode_rows_plain(xof_words, geom, n_bytes, n_streams)
+    _check_streams(xof_words, geom, n_bytes, n_streams)
+    return _decode_launch(xof_words, geom, n_bytes, n_streams)
+
+
+def decode_coeffs_w(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int) -> torch.Tensor:
+    """The JAX package's layout of :func:`decode_coeffs_rows` at one stream
+    a lane: coefficients int32[degree, L]."""
+    return decode_coeffs_rows(xof_words, geom, n_bytes).t().contiguous()

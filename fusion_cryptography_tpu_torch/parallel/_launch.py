@@ -34,6 +34,7 @@ from .distributed import initialize
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 DEFAULT_TIMEOUT_S = 300.0
+FAILURE_GRACE_S = 5.0
 
 
 def _tail(path: Path, n: int = 6000) -> str:
@@ -73,6 +74,13 @@ def launch(n: int, target: str, *args, device="cpu",
             codes = [p.poll() for p in procs]
             failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
             if failed:
+                # the rank at fault may still be exiting when a peer it broke
+                # has gone: give the others a moment, then report all failures
+                grace = time.monotonic() + FAILURE_GRACE_S
+                while any(p.poll() is None for p in procs) and time.monotonic() < grace:
+                    time.sleep(0.05)
+                codes = [p.poll() for p in procs]
+                failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
                 logs = "\n".join(f"--- rank {r} (exit {codes[r]})\n{_tail(tmp / f'rank{r}.log')}"
                                   for r in failed)
                 raise RuntimeError(f"ranks {failed} of {n} failed:\n{logs}")
@@ -117,10 +125,14 @@ def _rank_main(tmp: Path) -> None:
     if device_type == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
     initialize(f"file://{tmp}/rendezvous", n, rank, device=device_type, timeout_s=timeout_s)
-    try:
-        result = _resolve(target)(*args)
-    finally:
-        dist.destroy_process_group()
+    if n > 1:
+        # init_process_group does not wait for the other ranks: without this
+        # barrier a rank could finish and exit while a peer still connects to it
+        dist.barrier()
+    result = _resolve(target)(*args)
+    # only after success: a failed rank exits without it, since with its peers
+    # waiting in a collective the teardown of its communicator can hang
+    dist.destroy_process_group()
     if "jax" in sys.modules:
         raise RuntimeError(f"rank {rank} imported jax")
     with open(tmp / f"result{rank}.pkl.tmp", "wb") as f:

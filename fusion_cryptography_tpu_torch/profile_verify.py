@@ -24,6 +24,7 @@ are written there.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import time
@@ -50,7 +51,8 @@ KERNEL_FUNCTIONS = {
     "keccak_absorb_kernel": "keccak_absorb", "keccak_squeeze_kernel": "keccak_squeeze",
     "agg_check_kernel": "intt_norm_weight", "signer_fold_a_kernel": "signer_fold_a",
     "signer_fold_b_kernel": "signer_fold_b", "agg_fold_kernel": "agg_fold",
-    "assemble_spec_kernel": "assemble_spec",
+    "assemble_spec_kernel": "assemble_spec", "xof_decode_kernel": "xof_decode",
+    "render_prehash_kernel": "render_prehash", "lattice_target_kernel": "lattice_target",
 }
 
 
@@ -93,6 +95,32 @@ def launch_times(prof) -> dict:
     return out
 
 
+def record_calls(wraps, run, on_call) -> None:
+    """Run ``run()`` with each function ``(module, attribute, name)`` of
+    ``wraps`` patched to hand ``on_call(name, args)`` the arguments of each
+    of its calls before it runs, all positional in the function's own order
+    (defaults filled in); the functions are restored afterwards."""
+    saved = [getattr(module, attr) for module, attr, _ in wraps]
+
+    def recorder(fn, name):
+        sig = inspect.signature(fn)
+
+        def wrapped(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            on_call(name, tuple(bound.arguments.values()))
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for (module, attr, name), fn in zip(wraps, saved):
+        setattr(module, attr, recorder(fn, name))
+    try:
+        run()
+    finally:
+        for (module, attr, _), fn in zip(wraps, saved):
+            setattr(module, attr, fn)
+
+
 def call_bounds(params, run) -> dict:
     """{kernel: [launches, bound ms, [bound ms of each launch]]} over one
     ``run()``: each kernel wrapper the call reaches is wrapped to add its
@@ -103,54 +131,53 @@ def call_bounds(params, run) -> dict:
     from .ops import keccak_sponge as ks
     from .ops import preimage_fold as pf
     from .ops import ragged_words as rw
+    from .ops import xof_decode as xd
     from .scheme import device_pipeline as dp
 
     d = params.degree
     (tri_w,) = ds.signer_fold_b_table(params).widths
-    per = {}
-
-    def record(module, attr, kernel, bound_of):
-        fn = getattr(module, attr)
-
-        def wrapped(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            entry = per.setdefault(kernel, [0, 0.0, []])
-            b_ms = bound_of(*args, **kwargs)["bound_ms"]
-            entry[0] += 1
-            entry[1] += b_ms
-            entry[2].append(b_ms)
-            return out
-        return module, attr, fn, wrapped
-
-    patches = [
-        record(ks, "absorb", "keccak_absorb", lambda words, nb: bounds.keccak_absorb(nb)),
-        record(ks, "squeeze", "keccak_squeeze",
-               lambda st, n_words: bounds.keccak_squeeze(st.shape[1], n_words)),
-        record(dp, "ntt_fwd_u", "ntt_u", lambda plan, x: bounds.ntt(x.numel() // d, d, 16)),
-        record(dp, "agg_check", "intt_norm_weight",
-               lambda plan, table, aggs: bounds.agg_check(*aggs.shape)),
-        record(pf, "signer_fold_a", "signer_fold_a",
-               lambda p, vk2d_t, pre_w, pre_len: bounds.signer_fold_a(
-                   d, pre_len, *ds.signer_fold_a_table(p).widths)),
-        record(pf, "signer_fold_b", "signer_fold_b",
-               lambda p, vk_buf, vk_len, pre_w, pre_len, c_hat_t: bounds.signer_fold_b(
-                   d, vk_len, pre_len, tri_w)),
-        record(pf, "agg_fold", "agg_fold", lambda p, n, tbs, tls: bounds.agg_fold(
+    bound_of = {  # kernel -> (module, wrapper, bound from the wrapper's arguments)
+        "keccak_absorb": (ks, "absorb", lambda words, nb: bounds.keccak_absorb(nb)),
+        "keccak_squeeze": (ks, "squeeze",
+                           lambda st, n_words: bounds.keccak_squeeze(st.shape[1], n_words)),
+        "ntt_u": (dp, "ntt_fwd_u", lambda plan, x: bounds.ntt(x.numel() // d, d, 16)),
+        "intt_norm_weight": (dp, "agg_check",
+                             lambda plan, table, aggs: bounds.agg_check(*aggs.shape)),
+        "signer_fold_a": (pf, "signer_fold_a",
+                          lambda p, vk2d_t, pre_w, pre_len: bounds.signer_fold_a(
+                              d, pre_len, *ds.signer_fold_a_table(p).widths)),
+        "signer_fold_b": (pf, "signer_fold_b",
+                          lambda p, vk_buf, vk_len, pre_w, pre_len, c_hat_t:
+                          bounds.signer_fold_b(d, vk_len, pre_len, tri_w)),
+        "agg_fold": (pf, "agg_fold", lambda p, n, tbs, tls: bounds.agg_fold(
             tls, ds.agg_fold_table(p, n).widths[0])),
-        record(dp, "assemble_spec", "assemble_spec",
-               lambda spec, values=None, extras=(), extra_bounds=None, pad_words=None:
-               bounds.assemble_spec(0 if values is None else values.shape[0],
-                                    (extras[0][0] if values is None else values).shape[-1],
-                                    [el for _, el in extras],
-                                    pad_words or rw.words_for(spec.out_max))),
-    ]
-    for module, attr, _, wrapped in patches:
-        setattr(module, attr, wrapped)
-    try:
-        run()
-    finally:
-        for module, attr, fn, _ in patches:
-            setattr(module, attr, fn)
+        "assemble_spec": (dp, "assemble_spec",
+                          lambda spec, values, extras, extra_bounds, pad_words:
+                          bounds.assemble_spec(
+                              0 if values is None else values.shape[0],
+                              (extras[0][0] if values is None else values).shape[-1],
+                              [el for _, el in extras],
+                              pad_words or rw.words_for(spec.out_max))),
+        "xof_decode": (xd, "decode_coeffs_rows",
+                       lambda words, geom, n_bytes, n_streams: bounds.xof_decode(
+                           geom, n_bytes, words.shape[1] * n_streams)),
+        "render_prehash": (rw, "render_bigint_dec_w",
+                           lambda digest: bounds.render_prehash(digest.shape[1])),
+        "lattice_target": (dp, "lattice_target",
+                           lambda F, vks, c, a, obs, nrm, wgt, beta, omega:
+                           bounds.lattice_target(vks.shape[0], vks.shape[1], vks.shape[3],
+                                                 nrm.shape[-1])),
+    }
+    per: dict = {}
+
+    def add(kernel, args):
+        b_ms = bound_of[kernel][2](*args)["bound_ms"]
+        entry = per.setdefault(kernel, [0, 0.0, []])
+        entry[0] += 1
+        entry[1] += b_ms
+        entry[2].append(b_ms)
+
+    record_calls([(m, a, k) for k, (m, a, _) in bound_of.items()], run, add)
     return per
 
 
@@ -208,7 +235,7 @@ def main() -> None:
         "prehash": "prehash (SHA3 + decimal)",
         "signer": "signer hash (vk, challenge, decode, NTT, triple)",
         "group": "group hash (agg preimage, SHAKE, decode)",
-        "lattice": "lattice (sums, INTT kernel)",
+        "lattice": "lattice (alpha NTT, aggregate check, target)",
     }
     acc: dict = {}
     saved = {attr: getattr(P, attr) for attr in stages}

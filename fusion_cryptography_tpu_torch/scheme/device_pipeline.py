@@ -6,15 +6,18 @@ observed sum + INTT + norm/weight):
 
   vks int32[G, N, 2, d], ``dst + "," + message`` bytes, aggs int32[G, rank, d]
     -> prehash:     SHA3-256 (sponge kernels) + 78-digit decimal render
+                    (render_prehash kernel)
     -> signer hash: str(vk) chunk + challenge preimage (signer_fold_a
-                    kernel), SHAKE256 (sponge kernels), challenge decode,
-                    challenge NTT (ntt_u kernel), triple preimage
-                    (signer_fold_b kernel)
+                    kernel), SHAKE256 (sponge kernels), challenge decode
+                    (xof_decode kernel), challenge NTT (ntt_u kernel),
+                    triple preimage (signer_fold_b kernel)
     -> group hash:  aggregation preimage (agg_fold kernel), SHAKE256,
-                    per-signer alpha decode
-    -> lattice:     alpha NTT (ntt_u kernel), target sum (ops/field),
-                    observed sum + INTT + norm/weight in one pass over the
-                    int32 aggregates (intt_norm_weight kernel)
+                    per-signer alpha decode read in place from the blob
+                    (xof_decode kernel)
+    -> lattice:     alpha NTT (ntt_u kernel), observed sum + INTT +
+                    norm/weight in one pass over the int32 aggregates
+                    (intt_norm_weight kernel), then the target sum and the
+                    verdicts (lattice_target kernel)
 
 Two assemblies of the two signer preimages give the same bytes, chosen by
 the ``assembly`` argument:
@@ -58,6 +61,7 @@ from ..ops import ragged_words as rw
 from ..ops import xof_decode
 from ..ops.assemble_spec import assemble_spec
 from ..ops.intt_norm_weight import agg_check, agg_table
+from ..ops.lattice_target import lattice_target
 from ..ops.keccak import RATE
 from ..ops.keccak_sponge import sha3_256_words_w, shake256_words_w
 from ..ops.ntt import ntt_fwd_u
@@ -165,7 +169,7 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
         else:
             wbuf, total, vk_buf, vk_len = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
         xw = shake256_words_w(wbuf, total, n_ch_words)
-        cc = xof_decode.decode_coeffs_w(xw, g["geom_ch"], g["n_xof_ch_used"]).t()  # [B, d]
+        cc = xof_decode.decode_coeffs_rows(xw, g["geom_ch"], g["n_xof_ch_used"])  # [B, d]
         c_hat_u = ntt_fwd_u(plan, F.to_unsigned(cc))  # [B, d]
         c_hat_t = F.to_centered(c_hat_u).t().contiguous()
         if assembly == "spec":
@@ -180,11 +184,9 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
         G = tbs[0].shape[1]
         wbuf, total = pf.agg_fold(params, N, tbs, tls)
         blob_w = shake256_words_w(wbuf, total, n_ag_words)  # [ceil(N*block/4), G]
-        per_w = xof_decode.split_streams_w(blob_w, N, g["block_ag"])  # [bw, G, N]
-        al_t = xof_decode.decode_coeffs_w(
-            per_w.reshape(per_w.shape[0], G * N), g["geom_ag"], g["block_ag"]
-        )  # [d, G*N]
-        return al_t.t().reshape(G, N, d)
+        # signer k's stream starts at byte k * block_ag of the group's blob
+        al = xof_decode.decode_coeffs_rows(blob_w, g["geom_ag"], g["block_ag"], N)
+        return al.reshape(G, N, d)
 
     return prehash_stage, signer_stage, group_stage
 
@@ -281,18 +283,13 @@ class _Pipeline:
         params = self.params
         F = self.plan.field
         G, N, d = vks.shape[0], self.N, params.degree
-        vk_u = F.to_unsigned(vks)  # [G, N, 2, d]
-        c_u = c_hat_u.reshape(G, N, d)
         alpha_u = ntt_fwd_u(self.plan, F.to_unsigned(al))  # [G, N, d]
-        t = F.add_mod(F.mont_mul(F.to_mont(c_u), vk_u[..., 0, :]), vk_u[..., 1, :])
-        target = F.sum_mod(F.mont_mul(F.to_mont(alpha_u), t), axis=-2)  # [G, d]
         # observed [G, d] and the rows' norms and weights [G, rank]: one
         # kernel launch over the int32 aggregates on the card
         observed, nrm, wgt = agg_check(self.plan, self.a_tab, aggs.contiguous())
-        eq = torch.all(target == observed, dim=-1)
-        norm_ok = nrm.amax(dim=-1) <= min(params.beta_vf, 2**31 - 1)
-        weight_ok = wgt.amax(dim=-1) <= params.omega_vf
-        return eq, norm_ok, weight_ok
+        # the target sum against observed, and the limits: one more launch
+        return lattice_target(F, vks, c_hat_u.reshape(G, N, d), alpha_u, observed, nrm, wgt,
+                              min(params.beta_vf, 2**31 - 1), params.omega_vf)
 
 
 def get_pipeline(params: Params, n_signers: int, device: str,

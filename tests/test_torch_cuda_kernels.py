@@ -3,6 +3,7 @@
 Marked ``cuda``: they need an NVIDIA GPU with nvcc (sm_90a) and skip
 without one.  Run on the GPU machine (which has no JAX, hence no conftest) with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py``."""
+from collections import Counter
 from hashlib import shake_256
 
 import numpy as np
@@ -514,3 +515,152 @@ def test_windowed_verify_makes_no_host_sync(dev, assembly):
     two = dp.derive_coeffs_device(params, vks, msgs, bad, group_chunk=3, assembly=assembly)
     for a, b in zip(one, two):
         assert torch.equal(a, b)
+
+
+def _random_words(dev, W, L, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(-(2**31), 2**31, (W, L), dtype=torch.int64, device=dev,
+                         generator=g).to(torch.int32)
+
+
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_xof_decode_kernel_matches_plain(dev, secpar):
+    """Kernel ``xof_decode`` == ``decode_rows_plain`` exactly (the plain
+    version on the same card tensors, and on the CPU): challenge streams at
+    the pipeline's length, cut inside an index row and at min_bytes; alpha
+    streams alone and as the group stage's blob of 3 and 4 streams a lane
+    (1,195 bytes apart at secpar=128: unaligned); 1, 37 and 4,100 lanes."""
+    from fusion_cryptography_tpu_torch.ops import xof_decode as xd
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    g = dp._geometries(fusion_setup(secpar, 1))
+    gc, ga = g["geom_ch"], g["geom_ag"]
+    n_ch, n_ag = g["n_xof_ch_used"], g["block_ag"]
+    cases = [(gc, n_ch, 1), (gc, n_ch - 13, 1), (gc, gc.min_bytes, 1), (ga, n_ag, 1),
+             (ga, n_ag, 3), (ga, n_ag, 4)]
+    before = kernels.LAUNCHES["xof_decode"]
+    for i, (geom, n, ns) in enumerate(cases):
+        for L in (1, 37, 4100):
+            words = _random_words(dev, -(-ns * n // 4) + 1, L, 100 * i + L)
+            got = xd.decode_coeffs_rows(words, geom, n, ns)
+            want = xd.decode_rows_plain(words, geom, n, ns)
+            assert got.dtype == torch.int32 and torch.equal(got, want), (i, L)
+            if L == 37:
+                assert torch.equal(got.cpu(), xd.decode_coeffs_rows(words.cpu(), geom, n, ns))
+                if ns == 1:
+                    assert torch.equal(xd.decode_coeffs_w(words, geom, n), want.t())
+    assert kernels.LAUNCHES["xof_decode"] == before + 3 * len(cases) + sum(c[2] == 1 for c in cases)
+    magnitudes = xd.geometry(128, Q, 64, 5, 27)  # bound 5: the int32 tile
+    n = magnitudes.min_bytes + 41
+    for ns in (1, 2):
+        words = _random_words(dev, -(-ns * n // 4), 333, ns)
+        got = xd.decode_coeffs_rows(words, magnitudes, n, ns)
+        assert torch.equal(got, xd.decode_rows_plain(words, magnitudes, n, ns))
+        assert int(got.abs().max()) > 1
+
+
+def test_render_prehash_kernel_matches_plain(dev):
+    """Kernel ``render_prehash`` == ``render_bigint_dec_plain`` exactly
+    (words and lengths), on random digests and the edges 0, 10^9 - 1,
+    10^9, 10^72, 10^77 - 1, 10^77, 2^256 - 1, at 1, 300 and 70,001 lanes;
+    its words on memory never zeroed first."""
+    edges = [0, 7, 10**9 - 1, 10**9, 10**72, 10**77 - 1, 10**77, 2**256 - 1]
+    ew = torch.tensor([[(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)] for v in edges],
+                      dtype=torch.int64).t().to(torch.int32)
+    before = kernels.LAUNCHES["render_prehash"]
+    for B in (1, 300, 70001):
+        d = _random_words(dev, 8, B, B)
+        d[:, : min(B, len(edges))] = ew[:, : min(B, len(edges))].to(dev)
+        got = rw.render_bigint_dec_w(d)
+        want = rw.render_bigint_dec_plain(d)
+        assert torch.equal(got.buf, want.buf) and torch.equal(got.length, want.length)
+        assert (got.max_len, got.min_len) == (want.max_len, want.min_len)
+        if B == 300:
+            cpu = rw.render_bigint_dec_w(d.cpu())
+            assert torch.equal(got.buf.cpu(), cpu.buf) and torch.equal(got.length.cpu(), cpu.length)
+    assert kernels.LAUNCHES["render_prehash"] == before + 3
+
+
+@pytest.mark.parametrize("secpar,N", [(128, 3), (256, 4)])
+def test_lattice_target_kernel_matches_plain(dev, secpar, N):
+    """Kernel ``lattice_target`` == ``lattice_target_plain`` exactly: observed
+    equal to the target but in one group, a norm breach and a weight breach
+    in two others, limits met exactly in two more, vk edge values; 1, 37 and
+    9,000 groups."""
+    from fusion_cryptography_tpu_torch.ops.field import get_field
+    from fusion_cryptography_tpu_torch.ops.lattice_target import (
+        lattice_target, lattice_target_plain)
+
+    params = fusion_setup(secpar, 1)
+    q, d, rank = params.modulus, params.degree, params.rank
+    beta, omega = min(params.beta_vf, 2**31 - 1), params.omega_vf
+    F = get_field(q)
+    before = kernels.LAUNCHES["lattice_target"]
+    for G in (1, 37, 9000):
+        gen = torch.Generator(device=dev).manual_seed(G)
+
+        def rnd(lo, hi, shape, dtype=torch.int64):
+            return torch.randint(lo, hi, shape, dtype=torch.int64, device=dev,
+                                 generator=gen).to(dtype)
+
+        vks = rnd(-(q // 2), q // 2 + 1, (G, N, 2, d), torch.int32)
+        vks[0, 0, 0, :5] = torch.tensor([0, 1, -1, q // 2, -(q // 2)], dtype=torch.int32)
+        c, a = rnd(0, q, (G, N, d)), rnd(0, q, (G, N, d))
+        nrm, wgt = rnd(0, beta + 1, (G, rank), torch.int32), rnd(0, omega + 1, (G, rank),
+                                                                  torch.int32)
+        vk_u = F.to_unsigned(vks)
+        t = F.add_mod(F.mont_mul(F.to_mont(c), vk_u[..., 0, :]), vk_u[..., 1, :])
+        observed = F.sum_mod(F.mont_mul(F.to_mont(a), t), axis=-2)
+        if G > 5:
+            observed[1, d // 2] = (observed[1, d // 2] + 1) % q
+            nrm[2, -1], wgt[3, 0] = beta + 1, omega + 1
+            nrm[4, 0], wgt[5, -1] = beta, omega
+        got = lattice_target(F, vks, c, a, observed, nrm, wgt, beta, omega)
+        want = lattice_target_plain(F, vks, c, a, observed, nrm, wgt, beta, omega)
+        for x, y in zip(got, want):
+            assert x.dtype == torch.bool and torch.equal(x, y)
+        if G > 5:
+            assert [torch.nonzero(~x).flatten().tolist() for x in got] == [[1], [2], [3]]
+        else:
+            assert all(bool(x.all()) for x in got)
+    assert kernels.LAUNCHES["lattice_target"] == before + 3
+
+
+def test_card_paths_run_no_plain_glue(dev, monkeypatch):
+    """With the plain XOF decode, prehash render and lattice target made to
+    fail, the fleet build, the grouped verify (both assemblies), the
+    windowed verify and the lifecycle still run on the card: each of those
+    stages there is its kernel, and each path launched all three."""
+    from fusion_cryptography_tpu_torch.ops import lattice_target as lt
+    from fusion_cryptography_tpu_torch.ops import xof_decode as xd
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain glue stage ran on a card path")
+
+    for mod, name in ((xd, "decode_rows_plain"), (xd, "split_streams_w"),
+                      (rw, "render_bigint_dec_plain"), (lt, "lattice_target_plain")):
+        monkeypatch.setattr(mod, name, plain)
+    names = ("xof_decode", "render_prehash", "lattice_target")
+    params = fusion_setup(128, 3)
+    before = Counter(kernels.LAUNCHES)
+    vks, msgs, aggs = build_fleet(params, 5, 4, seed0=9, device=dev)
+    fleet = Counter(kernels.LAUNCHES) - before
+    assert fleet["xof_decode"] == 2 and fleet["render_prehash"] == 1 and not fleet["lattice_target"]
+    for assembly in ("fold", "spec"):
+        before = Counter(kernels.LAUNCHES)
+        assert all(bool(t.all()) for t in dp.verify_batch_device(params, vks, msgs, aggs,
+                                                                  assembly=assembly))
+        call = Counter(kernels.LAUNCHES) - before
+        assert [call[k] for k in names] == [2, 1, 1], (assembly, call)
+    out = dp.verify_batch_device(params, vks, msgs, aggs, group_chunk=2, group_hash_chunk=2)
+    assert all(bool(t.all()) for t in out)
+    keys = lc.keygen(params, [9, 10, 11], device=dev)
+    m = ["x", "y", "z"]
+    sigs = lc.sign(params, keys, m)
+    before = Counter(kernels.LAUNCHES)
+    agg = lc.aggregate(params, keys.vk, m, sigs.sig)
+    assert lc.verify(params, keys.vk, m, agg) == (True, "")
+    assert all((Counter(kernels.LAUNCHES) - before)[k] > 0 for k in names)
