@@ -48,7 +48,11 @@ Phases (each fails loudly; any failure exits non-zero):
      ``xof_decode`` (the challenge decode and the alphas' decode read in
      place from the group stage's blob), ``render_prehash`` and
      ``lattice_target``, each equal to its plain version and timed beside
-     its bound, with its launches in one verify call and one fleet build
+     its bound, with its launches in one verify call and one fleet build;
+     ``xof_decode`` also on crafted streams at both launches' shapes (first
+     hits on share edges, every slot or none hit, slot 0 before the rows
+     past the end or not), and the launches' registers, shared memory,
+     blocks an SM and waves of ``xof_decode`` and ``render_prehash``
   S. the "spec" assembly, with phase 3's fleet alive: build_fleet gives the
      same fleet, verify (the same measurements) gives all verdicts true and
      rejects a tampered aggregate in exactly its group, derive_coeffs_device
@@ -1069,6 +1073,47 @@ def lattice_breaches(args) -> int:
     return err
 
 
+# the glue kernels redesigned for Hopper after their first version: each row's
+# status, and its launches' registers, shared memory, blocks an SM and waves
+REDESIGNED_GLUE = {
+    "xof_decode": "redesigned: placement over every warp, rows past the stream's end skipped",
+    "render_prehash": "redesigned: branch-free digit render",
+}
+
+
+def launch_shape(name: str, args) -> dict:
+    """The launch kernel ``name`` makes for a captured call's arguments
+    (blocks, threads, shared memory, registers, blocks an SM, waves)."""
+    from fusion_cryptography_tpu_torch import kernels
+    from fusion_cryptography_tpu_torch.ops import xof_decode as xd
+
+    if name == "xof_decode":
+        words, geom, n, ns = args
+        return xd.launch_shape(geom, n, words.shape[1], ns)
+    (digest,) = args
+    return kernels.launch_shape("fct_render_prehash_shape", digest.shape[1])
+
+
+def decode_crafted(args) -> int:
+    """Kernel ``xof_decode`` against its plain version on crafted streams
+    (``xof_decode.crafted_streams``: first hits on the share edges of 1, 3,
+    4 and 8 warps, one slot hit in every share, every slot or none hit,
+    slot 0 hit or not before the rows past the end) at a captured call's
+    geometry, length, lanes and streams a lane -> max abs error (0)."""
+    from fusion_cryptography_tpu_torch.ops import xof_decode as xd
+
+    words, geom, n, ns = args
+    L = words.shape[1]
+    crafted = torch.from_numpy(xd.crafted_streams(geom, n, ns, L, seed=SEED + n).view(
+        np.int32)).to(words.device)
+    err = max_abs_err(xd.decode_coeffs_rows(crafted, geom, n, ns),
+                      xd.decode_rows_plain(crafted, geom, n, ns))
+    require(err == 0, f"xof_decode != its plain version on crafted streams ({L} lanes x {ns})")
+    log(f"xof_decode on crafted streams, {L} lanes x {ns} stream(s) of {n} bytes: equals the "
+        "plain version")
+    return err
+
+
 def phase_glue_shapes(params, fleet, kernel_rows: list) -> None:
     """Kernels ``xof_decode`` (the challenge decode and the alphas' decode
     of the group stage's blob), ``render_prehash`` and ``lattice_target`` at
@@ -1125,13 +1170,20 @@ def phase_glue_shapes(params, fleet, kernel_rows: list) -> None:
                 f"{b['bound_by']} ({t_k / b['bound_ms']:.2f}x)")
         if name == "lattice_target":
             errs.append(lattice_breaches(calls[name][0]))
+        if name == "xof_decode":
+            errs += [decode_crafted(args) for args in calls[name]]
         source, replaces = GLUE_ROWS[name]
         row = dict(name=name, route="cuda", source=source, replaces=replaces, library_ms=None,
                    launches_per_verify_call=per_call.get(name, 0),
                    launches_per_fleet_build=per_fleet.get(name, 0))
+        if name in REDESIGNED_GLUE:
+            row["status"] = REDESIGNED_GLUE[name]
+            row["launch_shapes"] = [launch_shape(name, args) for args in calls[name]]
         sum_launches(row, shapes, errs)
         kernel_rows.append(row)
     log(f"launches of one verify call: {per_call}; of one fleet build: {per_fleet}")
+    log(json.dumps({"launch_shapes": {r["name"]: r["launch_shapes"] for r in kernel_rows
+                                      if "launch_shapes" in r}}))
     del calls
     torch.cuda.empty_cache()
 

@@ -59,10 +59,12 @@ SOURCES = {
     },
     "xof_decode.cu": {
         "fct_xof_decode": [_P, _I64, _I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _U32, _P,
-                           _P, _P],
+                           _I32, _P, _P],
+        "fct_xof_decode_shape": [_I64, _I32, _I32, _I32, _I32, _I32, _I32, _I32, _U32, _I32, _P],
     },
     "render_prehash.cu": {
         "fct_render_prehash": [_P, _I64, _P, _P, _P],
+        "fct_render_prehash_shape": [_I64, _P],
     },
     "lattice_target.cu": {
         "fct_lattice_target": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _U32, _U64, _I64,
@@ -131,6 +133,22 @@ def build_report() -> str:
 
 def cuda_stream() -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+SHAPE_KEYS = ("blocks", "threads", "smem_bytes", "registers", "blocks_per_sm")
+
+
+def launch_shape(entry: str, *args) -> dict:
+    """The launch a ``*_shape`` entry point describes (it launches nothing):
+    blocks, threads a block, dynamic shared memory bytes, registers a
+    thread, blocks an SM can hold, and waves = blocks / (blocks an SM x
+    the card's SMs)."""
+    info = (ctypes.c_int32 * len(SHAPE_KEYS))()
+    check_launch(getattr(library(), entry)(*args, info), entry)
+    shape = dict(zip(SHAPE_KEYS, info))
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    shape["waves"] = shape["blocks"] / max(1, shape["blocks_per_sm"] * sms)
+    return shape
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -151,21 +151,39 @@ def _block_reduce(by: torch.Tensor, n_bytes: int, off: int, count: int, bpb: int
     return acc % m
 
 
+def _planes(geom: DecodeGeometry) -> int:
+    """Byte planes of kernel ``xof_decode``'s power table: 1 while every
+    modulus (d - t of the index rows, the bound of the magnitude rows) is
+    at most 256, so each power is a byte; else 3 (moduli below 2**24)."""
+    top = max(geom.degree, geom.bound if geom.bound != 1 else 0)
+    return 1 if top <= 256 else 3
+
+
 @lru_cache(maxsize=16)
-def _kernel_table(geom: DecodeGeometry, n_bytes: int, device: str) -> torch.Tensor:
-    """Kernel ``xof_decode``'s power table on ``device``, made once per
-    (geometry, length, device): the magnitude rows' P (when the bound is not
-    1), then the index rows', flat as uint32 bit patterns (each entry below
-    its modulus)."""
+def _kernel_table(geom: DecodeGeometry, n_bytes: int, device: str) -> Tuple[torch.Tensor, int]:
+    """Kernel ``xof_decode``'s power table on ``device`` and its byte
+    planes, made once per (geometry, length, device): the magnitude rows'
+    P (when the bound is not 1), then the index rows', each row's powers
+    packed four to a uint32 word (byte i of word k is plane p of P[4k + i],
+    the row padded with zero powers to whole words), words [row, word,
+    plane] flat as int32 bit patterns."""
     w, S = geom.weight_bound, geom.num_swaps
+    planes = _planes(geom)
     parts = []
     if geom.bound != 1:
         parts.append(_powers(geom.bytes_for_signums, w, geom.bytes_per_coefficient,
                              (geom.bound,) * w, n_bytes))
     parts.append(_powers(geom.index_stream_offset, S, geom.bytes_per_index,
                          tuple(range(geom.degree, geom.weight_bound + 1, -1)), n_bytes))
-    flat = np.concatenate([p.reshape(-1) for p in parts]).astype(np.uint32)
-    return upload(flat.view(np.int32), device)
+    packed = []
+    for P in parts:
+        rows, width = P.shape
+        words = -(-width // 4)
+        P = np.pad(P, ((0, 0), (0, 4 * words - width))).reshape(rows, words, 1, 4)
+        by = (P >> (8 * np.arange(planes).reshape(1, 1, planes, 1))) & 0xFF
+        packed.append((by << (8 * np.arange(4))).sum(axis=-1).reshape(-1))
+    flat = np.concatenate(packed).astype(np.uint32)
+    return upload(flat.view(np.int32), device), planes
 
 
 def _check_streams(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int,
@@ -190,15 +208,24 @@ def _decode_launch(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int,
         raise ValueError("xof_decode kernel needs bytes_per_index * 255 * (d - 1) < 2**32")
     kernels.require_cuda_tensor(xof_words, "xof_words", torch.int32, 2)
     W, L = xof_words.shape
-    table = _kernel_table(geom, n_bytes, str(xof_words.device))
+    table, planes = _kernel_table(geom, n_bytes, str(xof_words.device))
     out = torch.empty((L * n_streams, d), dtype=torch.int32, device=xof_words.device)
     rc = kernels.library().fct_xof_decode(
         xof_words.data_ptr(), W, L, n_streams, d, w, geom.bytes_for_signums,
         geom.bytes_per_coefficient, geom.bytes_per_index, n_bytes, geom.bound,
-        table.data_ptr(), out.data_ptr(), kernels.cuda_stream())
+        table.data_ptr(), planes, out.data_ptr(), kernels.cuda_stream())
     kernels.LAUNCHES["xof_decode"] += 1
     kernels.check_launch(rc, "xof_decode")
     return out
+
+
+def launch_shape(geom: DecodeGeometry, n_bytes: int, lanes: int, n_streams: int = 1) -> dict:
+    """The launch :func:`decode_coeffs_rows` makes on the card for ``lanes``
+    lanes of ``n_streams`` streams (``kernels.launch_shape``)."""
+    return kernels.launch_shape(
+        "fct_xof_decode_shape", lanes, n_streams, geom.degree, geom.weight_bound,
+        geom.bytes_for_signums, geom.bytes_per_coefficient, geom.bytes_per_index, n_bytes,
+        geom.bound, _planes(geom))
 
 
 def decode_rows_plain(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int,
@@ -238,6 +265,80 @@ def decode_rows_plain(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: in
     out = torch.zeros((B, d), dtype=torch.int64, device=dev)
     out.scatter_(1, pos, vals)
     return out.to(torch.int32)
+
+
+DECODE_WARPS = 4  # csrc/xof_decode.cu kDecodeWarps: the shares a stream's rows split into
+# share counts whose edges the crafted streams put first hits on: the
+# kernel's, one, an odd count and twice the kernel's
+CRAFTED_SHARES = (DECODE_WARPS, 1, 3, 2 * DECODE_WARPS)
+PLACEMENT_PLANS = ("one slot in every share", "first hits on share edges", "every slot hit",
+                   "no slot hit", "slot 0 on the last live row", "slot 0 never hit",
+                   "random bytes", "slot 0 in every share")
+
+
+def crafted_streams(geom: DecodeGeometry, n_bytes: int, n_streams: int, lanes: int,
+                    seed: int) -> np.ndarray:
+    """Streams whose index rows read chosen indices, to hold a decoder's
+    placement at its edges: words uint32[W + 1, lanes] (a spare word past
+    the streams), stream k of lane g following plan (g * n_streams + k) %
+    8 of :data:`PLACEMENT_PLANS`.  Index row t reads j < d - t when its
+    last byte inside the stream is j and the bytes before it are 0.  Rows
+    not named by a plan read a random index >= w (no hit), except in plans
+    2, 5 and 6.  The share edges are those of the live rows split into each
+    count of :data:`CRAFTED_SHARES` (first hits on the last and the first
+    row of a share, later repeats that must read 0); the signum bytes and
+    magnitude blocks are random."""
+    rng = np.random.default_rng(seed)
+    d, w, bpi = geom.degree, geom.weight_bound, geom.bytes_per_index
+    off, S = geom.index_stream_offset, geom.num_swaps
+    nmag = w if geom.bound != 1 else 0
+    T = sum(1 for t in range(S) if off + t * bpi < n_bytes)  # live index rows
+    if d > 256 or T == 0:
+        raise ValueError("crafted streams need degree <= 256 and a live index row")
+    t_idx = np.arange(T)
+    last = np.minimum(off + (t_idx + 1) * bpi, n_bytes) - 1  # the byte that carries j
+    edges = sorted({(nmag + T) * c // k - nmag for k in CRAFTED_SHARES for c in range(k + 1)}
+                   & set(range(T + 1)))
+    B = lanes * n_streams
+    plan = np.arange(B) % len(PLACEMENT_PLANS)
+    span = d - t_idx - w  # indices w .. d-t-1 are no hit
+    j = w + (rng.random((B, T)) * span).astype(np.int64)  # no hit anywhere
+    for b in range(B):
+        p = plan[b]
+        if p == 0:
+            for t in set(edges[:-1]) | set(range(0, T, 5)):
+                j[b, t] = 1
+        elif p == 1:
+            for i, e in enumerate(edges[1:-1]):
+                for t, m in ((e - 1, (2 * i) % w), (e, (2 * i + 1) % w)):
+                    j[b, t] = m
+                    if t + 2 < T:
+                        j[b, t + 2] = m  # a repeat: no first hit
+        elif p == 2:
+            n = min(w, T)
+            j[b, :n] = w - 1 - np.arange(n)
+            j[b, n:] = (rng.random(T - n) * (d - t_idx[n:])).astype(np.int64)
+        elif p == 4:
+            j[b, T - 1] = 0
+            hits = rng.choice(T - 1, size=min(T - 1, w // 2), replace=False)
+            j[b, hits] = 1 + rng.integers(0, w - 1, size=hits.size)
+        elif p == 5:
+            j[b] = 1 + (rng.random(T) * (d - t_idx - 1)).astype(np.int64)
+        elif p == 7:
+            for t in edges[:-1]:
+                j[b, t] = 0
+    by = rng.integers(0, 256, size=(lanes, n_streams, n_bytes), dtype=np.uint8)
+    crafted = plan.reshape(lanes, n_streams) != 6
+    region = by[:, :, off:]
+    region[crafted] = 0
+    sel = by[crafted]
+    sel[:, last] = j[plan != 6].astype(np.uint8)
+    by[crafted] = sel
+    flat = by.reshape(lanes, n_streams * n_bytes)
+    W = -(-flat.shape[1] // 4) + 1
+    flat = np.concatenate(
+        [flat, rng.integers(0, 256, size=(lanes, 4 * W - flat.shape[1]), dtype=np.uint8)], axis=1)
+    return np.ascontiguousarray(flat.view("<u4").T)
 
 
 def decode_coeffs_rows(xof_words: torch.Tensor, geom: DecodeGeometry, n_bytes: int,

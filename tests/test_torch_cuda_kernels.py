@@ -559,6 +559,66 @@ def test_xof_decode_kernel_matches_plain(dev, secpar):
         assert int(got.abs().max()) > 1
 
 
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_xof_decode_kernel_crafted_placement(dev, secpar):
+    """Kernel ``xof_decode`` == ``decode_rows_plain`` exactly on crafted
+    streams (``xof_decode.crafted_streams``: first hits on the first and last
+    rows of the warps' shares, one slot hit in every share, every slot or
+    none hit, slot 0 hit or not before the rows past the end), at the
+    challenge and alpha geometries, alone and as the blob of 3 and 4
+    streams a lane; 333 and 4,100 lanes."""
+    from fusion_cryptography_tpu_torch.ops import xof_decode as xd
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    g = dp._geometries(fusion_setup(secpar, 1))
+    gc, ga = g["geom_ch"], g["geom_ag"]
+    cases = [(gc, g["n_xof_ch_used"], 1), (gc, gc.min_bytes, 1), (ga, g["block_ag"], 1),
+             (ga, g["block_ag"], 3 if secpar == 128 else 4)]
+    for geom, n, ns in cases:
+        for L in (333, 4100):
+            words = torch.from_numpy(xd.crafted_streams(geom, n, ns, L, seed=L + n).view(
+                np.int32)).to(dev)
+            got = xd.decode_coeffs_rows(words, geom, n, ns)
+            assert torch.equal(got, xd.decode_rows_plain(words, geom, n, ns)), (n, ns, L)
+
+
+def test_xof_decode_kernel_wide_moduli(dev):
+    """Kernel ``xof_decode`` == ``decode_rows_plain`` exactly where a
+    modulus is above 256 (a bound of 70,000: the power table in three byte
+    planes), one and two streams a lane (unaligned), 1 and 333 lanes."""
+    from fusion_cryptography_tpu_torch.ops import xof_decode as xd
+
+    geom = xd.geometry(128, Q, 64, 70000, 27)
+    assert xd._planes(geom) == 3
+    n = geom.min_bytes + 23
+    for ns in (1, 2):
+        for L in (1, 333):
+            words = _random_words(dev, -(-ns * n // 4) + 1, L, 7 * ns + L)
+            got = xd.decode_coeffs_rows(words, geom, n, ns)
+            assert torch.equal(got, xd.decode_rows_plain(words, geom, n, ns)), (ns, L)
+            assert int(got.abs().max()) > 256
+
+
+def test_render_prehash_kernel_chunk_edges(dev):
+    """Kernel ``render_prehash`` == ``render_bigint_dec_plain`` and str()
+    on digests whose base-10^9 chunks are zero in the middle (10^72 + 1,
+    10^36, 10^45 + 10^9 - 1) or all nines (2^256 - 1, 10^77 - 1, 10^72 -
+    1), and each power of ten and its predecessor up to 10^77."""
+    edges = [10**72 + 1, 10**36, 10**45 + 10**9 - 1, 2**256 - 1, 10**77 - 1, 10**72 - 1]
+    edges += [10**e + o for e in range(78) for o in (-1, 0)]
+    B = len(edges)
+    d = torch.tensor([[(v >> (32 * k)) & 0xFFFFFFFF for k in range(8)] for v in edges],
+                     dtype=torch.int64).t().to(torch.int32).contiguous().to(dev)
+    got = rw.render_bigint_dec_w(d)
+    want = rw.render_bigint_dec_plain(d)
+    assert torch.equal(got.buf, want.buf) and torch.equal(got.length, want.length)
+    by = got.buf.t().contiguous().view(torch.uint8).cpu().numpy()
+    lens = got.length.cpu().numpy()
+    for b, v in enumerate(edges):
+        s = str(v).encode()
+        assert lens[b] == len(s) and by[b, :len(s)].tobytes() == s and not by[b, len(s):].any()
+
+
 def test_render_prehash_kernel_matches_plain(dev):
     """Kernel ``render_prehash`` == ``render_bigint_dec_plain`` exactly
     (words and lengths), on random digests and the edges 0, 10^9 - 1,

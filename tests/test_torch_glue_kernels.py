@@ -4,15 +4,21 @@ the JAX package's functions.
 
 ``csrc/xof_decode.cu``, ``csrc/render_prehash.cu`` and
 ``csrc/lattice_target.cu`` keep their per-lane work in functions that also
-compile as plain C++ (``FCT_HD`` is ``static inline`` without nvcc).  These
-tests build them with the host compiler, with a serial loop in place of the
-grid: the decode's rows split over the kernel's warps as the kernel splits
-them (and in one piece), the lattice check's 32 lanes of a group in turn,
-their votes and maxima reduced as the warp reduces them.  The same inputs,
-made from a numpy seed, go through the plain version and the JAX function.
-The launches themselves run only on the card
-(tests/test_torch_cuda_kernels.py, marked ``cuda``)."""
+compile as plain C++ (``FCT_HD`` is ``static inline`` without nvcc; the
+decode's dp4a is a byte loop there).  These tests build them with the host
+compiler, with a serial loop in place of the grid: the decode's live rows
+split into the shares of the kernel's 4 warps, of 1 and of 3 (and 8 on the
+crafted streams), each share reduced and walked with its own hit mask,
+then each share's part of the row filled from the masks of the shares
+before it and of all, as the block does after its barrier; the render's
+branch-free lane; the lattice check's 32 lanes of a group in turn, their
+votes and maxima reduced as the warp reduces them.  The same inputs, made
+from a numpy seed (or crafted so that first hits fall on share edges),
+go through the plain version and the JAX function.  The launches
+themselves run only on the card (tests/test_torch_cuda_kernels.py, marked
+``cuda``)."""
 import ctypes
+import functools
 import shutil
 import subprocess
 from pathlib import Path
@@ -36,7 +42,8 @@ from fusion_cryptography_tpu_torch.ops.lattice_target import lattice_target, lat
 
 CSRC = Path(__file__).resolve().parents[1] / "fusion_cryptography_tpu_torch" / "csrc"
 Q = 2147465729
-KERNEL_CHUNKS = 8  # csrc/xof_decode.cu kDecodeChunks
+# warps a block the host model runs: the kernel's, one, an odd count
+SHARES = txd.CRAFTED_SHARES[:3]
 
 HOST_LOOPS = r"""
 #include <algorithm>
@@ -46,34 +53,54 @@ HOST_LOOPS = r"""
 #include "render_prehash.cu"
 #include "lattice_target.cu"
 
-// Every stream of every lane: its rows reduced in `chunks` shares as the
-// kernel's warps take them, then the signums and the placement; every row's
-// residue must be written (red starts at all ones).
+// Every stream of every lane as a block of `warps` warps runs it: each
+// warp's share of the live rows reduced and walked (its hit mask), then each
+// share's part of the row filled from the masks of the shares before it and
+// of all; every magnitude, first-hit entry and tile byte read must have
+// been written (they start as marks no decode writes).
 extern "C" void host_xof_decode(const uint32_t* words, int64_t n_words, int64_t lanes,
                                 int n_streams, int d, int w, int nb, int bpc, int bpi,
-                                int n_bytes, uint32_t bound, const uint32_t* table,
-                                int32_t* out, int chunks) {
-  const DecodeGeom g = make_decode_geom(d, w, nb, bpc, bpi, n_bytes, bound);
-  const int R = g.nmag + g.S;
-  std::vector<uint32_t> red(R + 1, 0xffffffffu);
+                                int n_bytes, uint32_t bound, const uint32_t* table, int planes,
+                                int32_t* out, int warps) {
+  const DecodeGeom g = make_decode_geom(d, w, nb, bpc, bpi, n_bytes, bound, planes);
+  std::vector<uint32_t> mag(g.nmag + 1);
+  std::vector<uint8_t> first(g.T + 1);
+  std::vector<uint64_t> hits(warps);
   std::vector<int8_t> tile(d);
   for (int64_t gl = 0; gl < lanes; ++gl) {
     for (int k = 0; k < n_streams; ++k) {
       const int64_t base = (int64_t)k * n_bytes;
-      std::fill(red.begin(), red.end(), 0xffffffffu);
-      for (int c = 0; c < chunks; ++c) {
-        int r[4];
-        chunk_rows(g, live_rows(g), c, chunks, r);
-        reduce_share(words + gl, lanes, n_words, base, g, table, r, red.data(), 1);
+      std::fill(mag.begin(), mag.end(), 0x7fffffffu);
+      std::fill(first.begin(), first.end(), (uint8_t)0x5a);
+      std::fill(tile.begin(), tile.end(), (int8_t)99);
+      int32_t* row = out + (gl * n_streams + k) * d;
+      for (int c = 0; c < warps; ++c) {
+        int r0, r1;
+        share(g.live, c, warps, r0, r1);
+        hits[c] = planes == 1
+                      ? reduce_share<1>(words + gl, lanes, n_words, base, g, table, r0, r1,
+                                        mag.data(), first.data(), 1)
+                      : reduce_share<3>(words + gl, lanes, n_words, base, g, table, r0, r1,
+                                        mag.data(), first.data(), 1);
       }
       const uint64_t sbits = signum_bits(words + gl, lanes, n_words, base, g);
-      int32_t* row = out + (gl * n_streams + k) * d;
-      if (g.nmag) {
-        place_stream<int32_t>(sbits, red.data(), 1, g, row);
-      } else {
-        place_stream<int8_t>(sbits, red.data(), 1, g, tile.data());
-        for (int i = 0; i < d; ++i) row[i] = tile[i];
+      uint64_t all = 0;
+      for (int c = 0; c < warps; ++c) all |= hits[c];
+      uint64_t before = 0;
+      for (int c = 0; c < warps; ++c) {
+        int r0, r1, i0, i1;
+        share(g.live, c, warps, r0, r1);
+        share(g.d - g.T, c, warps, i0, i1);
+        if (g.nmag)
+          fill_share<int32_t>(sbits, mag.data(), first.data(), 1, g, r0, r1, i0, i1, before, all,
+                              row);
+        else
+          fill_share<int8_t>(sbits, mag.data(), first.data(), 1, g, r0, r1, i0, i1, before, all,
+                             tile.data());
+        before |= hits[c];
       }
+      if (!g.nmag)
+        for (int i = 0; i < d; ++i) row[i] = tile[i];
     }
   }
 }
@@ -123,8 +150,8 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, I32, I64, U32, U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32,
                              ctypes.c_uint64)
-    lib.host_xof_decode.argtypes = [P, I64, I64, I32, I32, I32, I32, I32, I32, I32, U32, P, P,
-                                    I32]
+    lib.host_xof_decode.argtypes = [P, I64, I64, I32, I32, I32, I32, I32, I32, I32, U32, P, I32,
+                                    P, I32]
     lib.host_render_prehash.argtypes = [P, I64, P, P]
     lib.host_lattice_target.argtypes = [P, P, P, P, P, P, I64, I32, I32, I32, U32, U64, I64,
                                         I64, P, P, P]
@@ -156,28 +183,35 @@ def _streams(seed, n_bytes, n_streams, L):
     return rng.integers(0, 2**32, size=(W, L), dtype=np.uint64).astype(np.uint32)
 
 
-def _host_decode(lib, words, tg, n_bytes, n_streams, chunks):
-    table = txd._kernel_table(tg, n_bytes, "cpu")
+def _host_decode(lib, words, tg, n_bytes, n_streams, warps):
+    table, planes = txd._kernel_table(tg, n_bytes, "cpu")
     W, L = words.shape
     out = np.full((L * n_streams, tg.degree), -7, np.int32)
     lib.host_xof_decode(words.ctypes.data, W, L, n_streams, tg.degree, tg.weight_bound,
                         tg.bytes_for_signums, tg.bytes_per_coefficient, tg.bytes_per_index,
-                        n_bytes, tg.bound, table.data_ptr(), out.ctypes.data, chunks)
+                        n_bytes, tg.bound, table.data_ptr(), planes, out.ctypes.data, warps)
     return out
 
 
-def _jax_rows(words, jg, n_bytes, n_streams):
-    """The JAX package's split_streams_w + decode_coeffs_w, as rows."""
-    x = jnp.asarray(words)
-
+@functools.lru_cache(maxsize=None)
+def _jax_decoder(jg, n_bytes, n_streams):
+    """The JAX package's split_streams_w + decode_coeffs_w, jitted once per
+    (geometry, length, streams a lane)."""
     def run(x):
         if n_streams > 1:
             per = jxd.split_streams_w(x, n_streams, n_bytes)
             x = per.reshape(per.shape[0], -1)
         return jxd.decode_coeffs_w(x, jg, n_bytes)
 
-    return np.asarray(jax.jit(run)(x)).T
+    return jax.jit(run)
 
+
+def _jax_rows(words, jg, n_bytes, n_streams):
+    """The JAX package's split_streams_w + decode_coeffs_w, as rows."""
+    return np.asarray(_jax_decoder(jg, n_bytes, n_streams)(jnp.asarray(words))).T
+
+
+LANES = 37  # not a multiple of the kernel's 32 lanes a block (the crafted cases' too)
 
 DECODE_CASES = [
     # (secpar, geometry, stream bytes: None = the pipeline's, "min" = min_bytes, streams a lane)
@@ -197,14 +231,14 @@ def test_xof_decode_lanes_match_plain_and_jax(lib, secpar, which, n_bytes, n_str
     geo, n_pipe = _geometry(secpar, which)
     tg, jg = txd.geometry(*geo), jxd.geometry(*geo)
     n = {None: n_pipe, "min": tg.min_bytes}.get(n_bytes, n_bytes)
-    L = 37  # not a multiple of the kernel's 32 lanes a block
+    L = LANES
     words = _streams(secpar * 7 + n + n_streams, n, n_streams, L)
     plain = txd.decode_coeffs_rows(torch.from_numpy(words.view(np.int32)), tg, n, n_streams)
     assert plain.dtype == torch.int32 and plain.shape == (L * n_streams, tg.degree)
     want = _jax_rows(words, jg, n, n_streams)
     np.testing.assert_array_equal(plain.numpy(), want)
-    for chunks in (KERNEL_CHUNKS, 1):
-        np.testing.assert_array_equal(_host_decode(lib, words, tg, n, n_streams, chunks), want)
+    for warps in SHARES:
+        np.testing.assert_array_equal(_host_decode(lib, words, tg, n, n_streams, warps), want)
     # the reference decoder on a few streams, read at their byte offsets
     by = words.T.copy().view(np.uint8)
     for row in (0, L * n_streams - 1):
@@ -227,8 +261,8 @@ def test_xof_decode_magnitudes(lib, n_streams):
     want = _jax_rows(words, jg, n, n_streams)
     plain = txd.decode_coeffs_rows(torch.from_numpy(words.view(np.int32)), tg, n, n_streams)
     np.testing.assert_array_equal(plain.numpy(), want)
-    for chunks in (KERNEL_CHUNKS, 1):
-        np.testing.assert_array_equal(_host_decode(lib, words, tg, n, n_streams, chunks), want)
+    for warps in SHARES:
+        np.testing.assert_array_equal(_host_decode(lib, words, tg, n, n_streams, warps), want)
     assert np.abs(want).max() > 1
 
 
@@ -247,9 +281,87 @@ def test_xof_decode_wide_rows(lib, n_streams):
         want = _jax_rows(words, jg, n, n_streams)
         plain = txd.decode_coeffs_rows(torch.from_numpy(words.view(np.int32)), tg, n, n_streams)
         np.testing.assert_array_equal(plain.numpy(), want)
-        for chunks in (KERNEL_CHUNKS, 1):
-            np.testing.assert_array_equal(_host_decode(lib, words, tg, n, n_streams, chunks),
+        for warps in SHARES:
+            np.testing.assert_array_equal(_host_decode(lib, words, tg, n, n_streams, warps),
                                           want)
+
+
+CRAFTED_CASES = [
+    # (secpar, geometry, stream bytes as in DECODE_CASES, streams a lane)
+    (128, "ch", None, 1),
+    (256, "ch", None, 1),
+    (256, "ag", None, 1),   # 60 live index rows: swaps 60-194 past the end
+    (128, "ag", None, 3),   # the blob, unaligned
+    (256, "ag", None, 4),
+    (256, "ch", 5000, 1),   # the last live row cut
+    (128, "ch", "min", 1),  # exactly w live index rows
+]
+
+
+@pytest.mark.parametrize("secpar,which,n_bytes,n_streams", CRAFTED_CASES)
+def test_xof_decode_crafted_placement(lib, secpar, which, n_bytes, n_streams):
+    """Streams crafted so that first hits fall on the first and last rows of
+    the shares, one slot is hit in every share, every slot or none is hit,
+    and slot 0 is or is not hit before the rows past the end: the host
+    model at every share count, the plain version and JAX agree."""
+    geo, n_pipe = _geometry(secpar, which)
+    tg, jg = txd.geometry(*geo), jxd.geometry(*geo)
+    n = {None: n_pipe, "min": tg.min_bytes}.get(n_bytes, n_bytes)
+    words = txd.crafted_streams(tg, n, n_streams, LANES, seed=secpar + n)
+    want = _jax_rows(words, jg, n, n_streams)
+    plain = txd.decode_coeffs_rows(torch.from_numpy(words.view(np.int32)), tg, n, n_streams)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    for warps in txd.CRAFTED_SHARES:
+        np.testing.assert_array_equal(_host_decode(lib, words, tg, n, n_streams, warps), want)
+
+
+def test_crafted_streams_follow_their_plans():
+    """The crafted streams do what their plans say, read by the reference
+    decoder's closed form (JAX): every slot hit leaves rows 0..w-1 zero, no
+    slot hit by a live row leaves every swap row zero but the first past the
+    end (slot 0's), slot 0 hit on the last live row of
+    an alpha stream fills row d-1-59, slot 0 never hit is taken by the first
+    swap past the end (row d-1-60), and a slot hit in every share moves
+    once."""
+    geo, n = _geometry(256, "ag")
+    tg, jg = txd.geometry(*geo), jxd.geometry(*geo)
+    d, w = tg.degree, tg.weight_bound
+    P = len(txd.PLACEMENT_PLANS)
+    words = txd.crafted_streams(tg, n, 1, 2 * P, seed=3)
+    rows = _jax_rows(words, jg, n, 1)
+    for b in (2, 2 + P):
+        assert not rows[b, :w].any() and np.count_nonzero(rows[b]) == w
+    T = (n - tg.index_stream_offset) // tg.bytes_per_index
+    assert T == 60
+    for b in (3, 3 + P):  # only the first swap past the end moves a slot: slot 0
+        assert np.count_nonzero(rows[b, 1:w]) == w - 1 and rows[b, 0] == 0
+        assert np.count_nonzero(rows[b, w:]) == 1 and rows[b, d - 1 - T] != 0
+    for b in (4, 4 + P):
+        assert rows[b, d - 1 - (T - 1)] != 0 and rows[b, 0] == 0 and rows[b, d - 1 - T] == 0
+    for b in (5, 5 + P):
+        assert rows[b, 0] == 0 and rows[b, d - 1 - T] != 0
+    for b in (0, P):  # slot 1: first hit at swap 0, every later share's hit reads 0
+        assert rows[b, d - 1] != 0 and rows[b, 1] == 0 and rows[b, d - 1 - T] != 0
+        assert np.count_nonzero(rows[b, w + 1:]) == 2
+
+
+def test_xof_decode_wide_moduli(lib):
+    """Moduli above 256 (a bound of 70,000; no shipped parameter set): the
+    power table in three byte planes, each plane summed by its own dp4a and
+    the planes shifted together once a row; two streams a lane, unaligned;
+    the host model at every share count against JAX and the plain version."""
+    geo = (128, Q, 64, 70000, 27)
+    tg, jg = txd.geometry(*geo), jxd.geometry(*geo)
+    assert txd._planes(tg) == 3
+    n = tg.min_bytes + 23
+    for n_streams in (1, 2):
+        words = _streams(5 + n_streams, n, n_streams, 7)
+        want = _jax_rows(words, jg, n, n_streams)
+        plain = txd.decode_coeffs_rows(torch.from_numpy(words.view(np.int32)), tg, n, n_streams)
+        np.testing.assert_array_equal(plain.numpy(), want)
+        for warps in SHARES:
+            np.testing.assert_array_equal(_host_decode(lib, words, tg, n, n_streams, warps), want)
+        assert np.abs(want).max() > 256
 
 
 def test_decode_coeffs_w_is_the_rows_transposed():
@@ -279,9 +391,16 @@ def _digest_words(values):
                     dtype=np.uint64).astype(np.uint32).T.copy()
 
 
+CHUNK_EDGES = [10**72 + 1, 10**36, 10**45 + 10**9 - 1, 2**256 - 1, 10**77 - 1, 10**72 - 1,
+               10**63 + 10**27, 10**9 * (10**9 - 1)]
+CHUNK_VALUES = CHUNK_EDGES + [10**e + o for e in range(78) for o in (-1, 0)]
+
+
 def test_render_prehash_lanes_match_plain_jax_and_str(lib):
     rng = np.random.default_rng(11)
-    rand = [int.from_bytes(rng.bytes(32), "little") for _ in range(40)]
+    # as many digests as the chunk-edge test: JAX's eager ops compile once a shape
+    n_rand = len(CHUNK_VALUES) - len(DIGEST_EDGES) - 10
+    rand = [int.from_bytes(rng.bytes(32), "little") for _ in range(n_rand)]
     short = [int(rng.integers(0, 2**62)) >> int(rng.integers(0, 62)) for _ in range(10)]
     values = DIGEST_EDGES + rand + short
     d = _digest_words(values)
@@ -291,6 +410,29 @@ def test_render_prehash_lanes_match_plain_jax_and_str(lib):
     np.testing.assert_array_equal(plain.buf.numpy().view(np.uint32), np.asarray(j.buf))
     np.testing.assert_array_equal(plain.length.numpy(), np.asarray(j.length))
     out = np.full((20, B), 0xA5A5A5A5, np.uint32)  # every word must be written
+    lens = np.full(B, -1, np.int32)
+    lib.host_render_prehash(d.ctypes.data, B, out.ctypes.data, lens.ctypes.data)
+    np.testing.assert_array_equal(out, np.asarray(j.buf))
+    np.testing.assert_array_equal(lens, np.asarray(j.length))
+    by = out.T.copy().view(np.uint8)
+    for b, v in enumerate(values):
+        s = str(v).encode()
+        assert lens[b] == len(s) and by[b, :len(s)].tobytes() == s and not by[b, len(s):].any()
+
+
+def test_render_prehash_chunk_edges(lib):
+    """Digests whose base-10^9 chunks are zero in the middle (10^72 + 1,
+    10^36, 10^45 + 10^9 - 1, 10^63 + 10^27) or all nines (2^256 - 1, 10^77 -
+    1, 10^72 - 1), and every power of ten and its predecessor up to 10^77:
+    the host model, the plain version and JAX equal str()."""
+    values = CHUNK_VALUES
+    d = _digest_words(values)
+    B = d.shape[1]
+    j = jrw.render_bigint_dec_w(jnp.asarray(d))
+    plain = trw.render_bigint_dec_w(torch.from_numpy(d.view(np.int32)))
+    np.testing.assert_array_equal(plain.buf.numpy().view(np.uint32), np.asarray(j.buf))
+    np.testing.assert_array_equal(plain.length.numpy(), np.asarray(j.length))
+    out = np.full((20, B), 0xA5A5A5A5, np.uint32)
     lens = np.full(B, -1, np.int32)
     lib.host_render_prehash(d.ctypes.data, B, out.ctypes.data, lens.ctypes.data)
     np.testing.assert_array_equal(out, np.asarray(j.buf))
