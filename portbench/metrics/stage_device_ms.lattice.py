@@ -1,0 +1,8 @@
+"""Device ms a call of the operations launched inside the benchmark's range
+around the pipeline's ``lattice`` stage (``_Pipeline.lattice``), with no sync."""
+
+
+def read(trace):
+    if not trace.on_device:
+        return None
+    return trace.device_ms_in("stage.lattice") / trace.calls
