@@ -7,18 +7,20 @@ Builds a secpar=256, N=4 fleet on the first CUDA device, then, for verify
 calls in the ``--assembly`` configuration ("fold", the default: the
 signer fold kernels; "spec": ``assemble_spec`` on the challenge and triple
 specs),
-  1. times one verify call, the host's packing of each chunk's messages in
-     it, and each stage of one verify (prehash, signer hash, group hash,
-     lattice) between device synchronisations;
-  2. traces one verify with torch.profiler and prints the device time by
-     kernel and the device's busy share of the call;
+  1. times one verify call, then traces one more with torch.profiler and
+     reads the program's spans (``utils/profiling.py``) in it: the host's
+     packing of each chunk's messages (``fct.pack``) and the device time of
+     the operations launched inside each stage's span (``fct.prehash``,
+     ``fct.signer``, ``fct.group``, ``fct.lattice``);
+  2. prints, from the same trace, the device time by kernel and the
+     device's busy share of the call;
   3. beside each of the port's kernels, its device time in that trace, its
      launches and its bound (``bounds.py``) summed over the call's launches,
      each launch's bound computed from its own arguments in another,
      untraced call; then each launch of a kernel launched more than once,
      in order, with its traced time and its bound.
-Stage times include the synchronisations, so they sum to a little more than
-an unsynchronised call.  With ``--out`` the chrome trace and the kernel table
+Nothing waits for the device inside the traced call, so the stages overlap
+as they do untraced.  With ``--out`` the chrome trace and the kernel table
 are written there.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -26,22 +28,20 @@ from __future__ import annotations
 import argparse
 import inspect
 import json
+import os
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
 import torch
 
-
-def _timed(fn, acc: dict, name: str):
-    def wrapper(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
-        acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
-        return out
-    return wrapper
+STAGES = {
+    "prehash": "prehash (SHA3 + decimal)",
+    "signer": "signer hash (vk, challenge, decode, NTT, triple)",
+    "group": "group hash (agg preimage, SHAKE, decode)",
+    "lattice": "lattice (alpha NTT, aggregate check, target)",
+}
 
 
 # the port's kernels by a piece of their CUDA function's name in a trace
@@ -67,7 +67,8 @@ def port_kernel(function: str):
 def trace(fn) -> tuple:
     """One call of ``fn`` under torch.profiler, ended by a device sync ->
     (wall seconds, [(function, device us, launches)] by device time, the
-    profile)."""
+    profile).  The program's spans, which the profiler also projects onto
+    the device, are left out of the rows."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -75,7 +76,8 @@ def trace(fn) -> tuple:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("fct.")]
     if not events:
         events = list(prof.key_averages())
 
@@ -93,6 +95,35 @@ def launch_times(prof) -> dict:
         if k:
             out.setdefault(k, []).append(e.time_range.elapsed_us() / 1e3)
     return out
+
+
+def span_times(prof) -> tuple:
+    """From a trace's Chrome export: ({stage: device ms of the operations
+    launched inside its ``fct.<stage>`` spans}, [host ms of each
+    ``fct.pack`` span, in order]).  A device operation belongs to the span
+    its launch (the runtime call with its correlation id) was issued in."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            raw = json.load(f)
+    finally:
+        os.unlink(path)
+    events = raw["traceEvents"] if isinstance(raw, dict) else raw
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation")
+    launches = [e for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def launched_ms(name: str) -> float:
+        inside = [(a, b) for a, b, n in spans if n == name]
+        corr = {e["args"].get("correlation") for e in launches
+                if any(a <= e["ts"] <= b for a, b in inside)}
+        return sum(e["dur"] for e in device if e.get("args", {}).get("correlation") in corr) / 1e3
+
+    return ({k: launched_ms(f"fct.{k}") for k in STAGES},
+            [(b - a) / 1e3 for a, b, n in spans if n == "fct.pack"])
 
 
 def record_calls(wraps, run, on_call) -> None:
@@ -211,53 +242,24 @@ def main() -> None:
         return out
 
     verify()  # warm
-    # the call, with the host's packing of each chunk's messages timed
-    packing = []
-    pack = dp._message_tensors
+    t0 = time.perf_counter()
+    verify()
+    wall = time.perf_counter() - t0
 
-    def timed_pack(*a, **kw):
-        t = time.perf_counter()
-        out = pack(*a, **kw)
-        packing.append(time.perf_counter() - t)
-        return out
-
-    dp._message_tensors = timed_pack
-    try:
-        t0 = time.perf_counter()
-        verify()
-        wall = time.perf_counter() - t0
-    finally:
-        dp._message_tensors = pack
-
-    # 1. stage breakdown: the call's own pipeline, its stages timed
-    P = dp.get_pipeline(params, N, str(dev), args.assembly)
-    stages = {
-        "prehash": "prehash (SHA3 + decimal)",
-        "signer": "signer hash (vk, challenge, decode, NTT, triple)",
-        "group": "group hash (agg preimage, SHAKE, decode)",
-        "lattice": "lattice (alpha NTT, aggregate check, target)",
-    }
-    acc: dict = {}
-    saved = {attr: getattr(P, attr) for attr in stages}
-    for attr, label in stages.items():
-        setattr(P, attr, _timed(saved[attr], acc, label))
-    try:
-        verify()
-    finally:
-        for attr, fn in saved.items():
-            setattr(P, attr, fn)
-    if not acc:
-        raise SystemExit("profile: the call did not run the timed pipeline")
+    # 1. the program's spans in one traced call
+    traced, rows, prof = trace(verify)
+    stages, packing = span_times(prof)
+    if not packing:
+        raise SystemExit("profile: the traced call opened no fct.pack span")
     print(f"verify G={G}, group_chunk {args.group_chunk}, group_hash_chunk "
           f"{dp.DEFAULT_GROUP_HASH_CHUNK}, assembly {args.assembly!r}: {wall * 1e3:.2f} ms per "
-          "call (unsynchronised stages)")
-    print(f"  host packing of the messages, {len(packing)} chunks: "
-          + ", ".join(f"{t * 1e3:.2f}" for t in packing) + " ms")
-    for k, v in acc.items():
-        print(f"  {k:52s} {v * 1e3:9.2f} ms")
+          "call")
+    print(f"  host packing of the messages (fct.pack), {len(packing)} chunks: "
+          + ", ".join(f"{t:.2f}" for t in packing) + " ms")
+    for k, label in STAGES.items():
+        print(f"  {label:52s} {stages[k]:9.3f} device ms launched in fct.{k}")
 
-    # 2. profiler trace
-    traced, rows, prof = trace(verify)
+    # 2. the same trace by kernel
     busy = sum(r[1] for r in rows) / 1e3
     launches = sum(r[2] for r in rows)
     print(f"traced call {traced * 1e3:.2f} ms, device busy {busy:.2f} ms "
@@ -295,9 +297,9 @@ def main() -> None:
         (out / "verify_kernels.json").write_text(json.dumps(
             {"card": card, "groups": G, "group_chunk": args.group_chunk,
              "group_hash_chunk": dp.DEFAULT_GROUP_HASH_CHUNK, "assembly": args.assembly,
-             "wall_ms": wall * 1e3, "packing_ms": [t * 1e3 for t in packing],
+             "wall_ms": wall * 1e3, "packing_ms": packing,
              "traced_ms": traced * 1e3,
-             "busy_ms": busy, "launches": launches, "stages_ms": {k: v * 1e3 for k, v in acc.items()},
+             "busy_ms": busy, "launches": launches, "stages_device_ms": stages,
              "kernels": [{"name": k, "ms": us / 1e3, "count": n} for k, us, n in rows],
              "port_kernels": port},
             indent=1))

@@ -67,6 +67,7 @@ from ..ops.keccak_sponge import sha3_256_words_w, shake256_words_w
 from ..ops.ntt import ntt_fwd_u
 from ..ops.upload import upload
 from ..params import Params
+from ..utils.profiling import count, span
 
 DEFAULT_GROUP_CHUNK = 8192
 DEFAULT_GROUP_HASH_CHUNK = 16384
@@ -149,44 +150,47 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
     def prehash_stage(msg_words, msg_len):
         """RAW message preimage words (dst + "," + message) -> prehash digit
         words: SHA3-256 on the sponge kernels, then the decimal render."""
-        Wt = msg_words.shape[0]
-        pad = _pad_rate(Wt * 4) // 4 - Wt
-        if pad > 0:
-            msg_words = torch.nn.functional.pad(msg_words, (0, 0, 0, pad))
-        chunk = rw.render_bigint_dec_w(sha3_256_words_w(msg_words.contiguous(), msg_len))
-        return chunk.buf, chunk.length
+        with span("fct.prehash"):
+            Wt = msg_words.shape[0]
+            pad = _pad_rate(Wt * 4) // 4 - Wt
+            if pad > 0:
+                msg_words = torch.nn.functional.pad(msg_words, (0, 0, 0, pad))
+            chunk = rw.render_bigint_dec_w(sha3_256_words_w(msg_words.contiguous(), msg_len))
+            return chunk.buf, chunk.length
 
     def signer_stage(vk2d_t, pre_w, pre_len):
         """With "fold" the str(vk) chunk of signer_fold_a is folded into both
         the challenge preimage and the triple (JAX device_pipeline.py:261-275);
         with "spec" each preimage comes from its spec (JAX :276-297)."""
-        pre_len = pre_len.to(torch.int32)
-        extras = [(pre_w, pre_len)]
-        if assembly == "spec":
-            wbuf, total = assemble_spec(ch_spec, values=vk2d_t, extras=extras,
-                                        extra_bounds=pre_bounds,
-                                        pad_words=_pad_rate(ch_spec.out_max) // 4)
-        else:
-            wbuf, total, vk_buf, vk_len = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
-        xw = shake256_words_w(wbuf, total, n_ch_words)
-        cc = xof_decode.decode_coeffs_rows(xw, g["geom_ch"], g["n_xof_ch_used"])  # [B, d]
-        c_hat_u = ntt_fwd_u(plan, F.to_unsigned(cc))  # [B, d]
-        c_hat_t = F.to_centered(c_hat_u).t().contiguous()
-        if assembly == "spec":
-            tbuf, tlen = assemble_spec(tri_spec, values=torch.cat([vk2d_t, c_hat_t]),
-                                       extras=extras, extra_bounds=pre_bounds,
-                                       pad_words=rw.words_for(tri_spec.out_max))
-        else:
-            tbuf, tlen = pf.signer_fold_b(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t)
-        return cc, c_hat_u, tbuf, tlen
+        with span("fct.signer"):
+            pre_len = pre_len.to(torch.int32)
+            extras = [(pre_w, pre_len)]
+            if assembly == "spec":
+                wbuf, total = assemble_spec(ch_spec, values=vk2d_t, extras=extras,
+                                            extra_bounds=pre_bounds,
+                                            pad_words=_pad_rate(ch_spec.out_max) // 4)
+            else:
+                wbuf, total, vk_buf, vk_len = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
+            xw = shake256_words_w(wbuf, total, n_ch_words)
+            cc = xof_decode.decode_coeffs_rows(xw, g["geom_ch"], g["n_xof_ch_used"])  # [B, d]
+            c_hat_u = ntt_fwd_u(plan, F.to_unsigned(cc))  # [B, d]
+            c_hat_t = F.to_centered(c_hat_u).t().contiguous()
+            if assembly == "spec":
+                tbuf, tlen = assemble_spec(tri_spec, values=torch.cat([vk2d_t, c_hat_t]),
+                                           extras=extras, extra_bounds=pre_bounds,
+                                           pad_words=rw.words_for(tri_spec.out_max))
+            else:
+                tbuf, tlen = pf.signer_fold_b(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t)
+            return cc, c_hat_u, tbuf, tlen
 
     def group_stage(tbs, tls):
-        G = tbs[0].shape[1]
-        wbuf, total = pf.agg_fold(params, N, tbs, tls)
-        blob_w = shake256_words_w(wbuf, total, n_ag_words)  # [ceil(N*block/4), G]
-        # signer k's stream starts at byte k * block_ag of the group's blob
-        al = xof_decode.decode_coeffs_rows(blob_w, g["geom_ag"], g["block_ag"], N)
-        return al.reshape(G, N, d)
+        with span("fct.group"):
+            G = tbs[0].shape[1]
+            wbuf, total = pf.agg_fold(params, N, tbs, tls)
+            blob_w = shake256_words_w(wbuf, total, n_ag_words)  # [ceil(N*block/4), G]
+            # signer k's stream starts at byte k * block_ag of the group's blob
+            al = xof_decode.decode_coeffs_rows(blob_w, g["geom_ag"], g["block_ag"], N)
+            return al.reshape(G, N, d)
 
     return prehash_stage, signer_stage, group_stage
 
@@ -194,17 +198,24 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
 def msg_preimage_words(params: Params, messages: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
     """Host prep for the device prehash: ``dst + "," + message`` preimages as
     packed words (uint32[B, Wt], int32[B]); Wt is the tight word count of the
-    longest message, rounded up to 8 words."""
+    longest message, rounded up to 8 words.  Counts the preimages' bytes
+    (``pack.payload_bytes``) and the words' (``pack.shipped_bytes``)."""
     prefix = bytes(params.sign_pre_hash_dst) + b","
-    bufs = [prefix + m.encode("utf-8") for m in messages]
-    B = len(bufs)
-    lens = np.fromiter((len(b) for b in bufs), np.int32, B)
+    with span("fct.pack.encode"):
+        bufs = [prefix + m.encode("utf-8") for m in messages]
+        B = len(bufs)
+        lens = np.fromiter((len(b) for b in bufs), np.int32, B)
+        payload = b"".join(bufs)
+        del bufs  # B objects: their release is part of the encoding's time
     L = int(lens.max(initial=1))
     Wt = -(-(-(-L // 4)) // 8) * 8
-    arr = np.zeros((B, Wt * 4), dtype=np.uint8)
-    if B:
-        mask = np.arange(Wt * 4) < lens[:, None]
-        arr[mask] = np.frombuffer(b"".join(bufs), np.uint8)
+    with span("fct.pack.scatter"):
+        arr = np.zeros((B, Wt * 4), dtype=np.uint8)
+        if B:
+            mask = np.arange(Wt * 4) < lens[:, None]
+            arr[mask] = np.frombuffer(payload, np.uint8)
+    count("pack.payload_bytes", len(payload))
+    count("pack.shipped_bytes", arr.nbytes)
     return arr.view("<u4"), lens
 
 
@@ -283,13 +294,14 @@ class _Pipeline:
         params = self.params
         F = self.plan.field
         G, N, d = vks.shape[0], self.N, params.degree
-        alpha_u = ntt_fwd_u(self.plan, F.to_unsigned(al))  # [G, N, d]
-        # observed [G, d] and the rows' norms and weights [G, rank]: one
-        # kernel launch over the int32 aggregates on the card
-        observed, nrm, wgt = agg_check(self.plan, self.a_tab, aggs.contiguous())
-        # the target sum against observed, and the limits: one more launch
-        return lattice_target(F, vks, c_hat_u.reshape(G, N, d), alpha_u, observed, nrm, wgt,
-                              min(params.beta_vf, 2**31 - 1), params.omega_vf)
+        with span("fct.lattice"):
+            alpha_u = ntt_fwd_u(self.plan, F.to_unsigned(al))  # [G, N, d]
+            # observed [G, d] and the rows' norms and weights [G, rank]: one
+            # kernel launch over the int32 aggregates on the card
+            observed, nrm, wgt = agg_check(self.plan, self.a_tab, aggs.contiguous())
+            # the target sum against observed, and the limits: one more launch
+            return lattice_target(F, vks, c_hat_u.reshape(G, N, d), alpha_u, observed, nrm, wgt,
+                                  min(params.beta_vf, 2**31 - 1), params.omega_vf)
 
 
 def get_pipeline(params: Params, n_signers: int, device: str,
@@ -310,8 +322,10 @@ def _message_tensors(params: Params, messages: Sequence[str], device) -> Tuple[t
     for the device.  They are packed in pageable memory and copied into
     pinned memory in one pass: written straight into pinned memory, the
     packing's scattered byte writes were slower."""
-    mw, ml = msg_preimage_words(params, messages)
-    return upload(mw.view(np.int32), device), upload(ml, device)
+    with span("fct.pack"):
+        mw, ml = msg_preimage_words(params, messages)
+        with span("fct.pack.upload"):
+            return upload(mw.view(np.int32), device), upload(ml, device)
 
 
 def windows(G: int, group_chunk: int, group_hash_chunk: int) -> List[Tuple[int, int, list]]:
@@ -351,28 +365,29 @@ def _hash_windows(params: Params, P: _Pipeline, vks: torch.Tensor, msgs: List[st
 
 def _verify_windows(params: Params, vks, messages: Sequence[str], aggs, group_chunk: int,
                     group_hash_chunk: int, want_coeffs: bool, device, assembly: str):
-    dev = input_device(device, vks)
-    vks = torch.as_tensor(vks, device=dev)
-    aggs = torch.as_tensor(aggs, device=dev)
-    G, N = vks.shape[0], vks.shape[1]
-    msgs = messages if isinstance(messages, list) else list(messages)
-    if len(msgs) != G * N:
-        raise ValueError(f"need {G * N} messages, got {len(msgs)}")
-    if G == 0:
-        raise ValueError("need at least one group")
-    P = get_pipeline(params, N, str(vks.device), assembly)
-    outs, ccs, als = [], [], []
-    for wlo, signed, al in _hash_windows(params, P, vks, msgs, group_chunk, group_hash_chunk):
-        for lo, hi, cc, c_hat_u in signed:
-            outs.append(P.lattice(vks[lo:hi], c_hat_u, al[lo - wlo:hi - wlo], aggs[lo:hi]))
+    with span("fct.verify"):
+        dev = input_device(device, vks)
+        vks = torch.as_tensor(vks, device=dev)
+        aggs = torch.as_tensor(aggs, device=dev)
+        G, N = vks.shape[0], vks.shape[1]
+        msgs = messages if isinstance(messages, list) else list(messages)
+        if len(msgs) != G * N:
+            raise ValueError(f"need {G * N} messages, got {len(msgs)}")
+        if G == 0:
+            raise ValueError("need at least one group")
+        P = get_pipeline(params, N, str(vks.device), assembly)
+        outs, ccs, als = [], [], []
+        for wlo, signed, al in _hash_windows(params, P, vks, msgs, group_chunk, group_hash_chunk):
+            for lo, hi, cc, c_hat_u in signed:
+                outs.append(P.lattice(vks[lo:hi], c_hat_u, al[lo - wlo:hi - wlo], aggs[lo:hi]))
+                if want_coeffs:
+                    ccs.append(cc.reshape(hi - lo, N, -1))
             if want_coeffs:
-                ccs.append(cc.reshape(hi - lo, N, -1))
-        if want_coeffs:
-            als.append(al)
-    eq, norm_ok, weight_ok = (torch.cat([o[k] for o in outs]) for k in range(3))
-    if not want_coeffs:
-        return eq, norm_ok, weight_ok
-    return eq, norm_ok, weight_ok, torch.cat(ccs), torch.cat(als)
+                als.append(al)
+        eq, norm_ok, weight_ok = (torch.cat([o[k] for o in outs]) for k in range(3))
+        if not want_coeffs:
+            return eq, norm_ok, weight_ok
+        return eq, norm_ok, weight_ok, torch.cat(ccs), torch.cat(als)
 
 
 def verify_batch_device(params: Params, vks, messages: Sequence[str], aggs, *,

@@ -28,25 +28,27 @@ from ..interop import device_serial as ds
 from ..ops import ragged_words as rw
 from ..ops.ntt import ntt_fwd_u
 from ..params import Params
+from ..utils.profiling import span
 from . import device_pipeline as dp
 
 
 def _sample_sk(params: Params, seeds: Sequence[int]) -> np.ndarray:
     """Short secret coefficients int32[B, 2, d]: left from seed, right from
     seed+1 (reference keygen, fusion.py:339-362)."""
-    B = len(seeds)
-    d = params.degree
-    # the C sampler takes uint64 seeds; others go through CPython's random
-    if native.available() and all(isinstance(s, int) and 0 <= s and s + 1 < 2**64 for s in seeds):
-        interleaved = [x for s in seeds for x in (s, s + 1)]
-        return native.sample_short_batch(
-            interleaved, d, params.beta_sk, params.omega_sk, params.modulus
-        ).reshape(B, 2, d)
-    out = np.empty((B, 2, d), dtype=np.int32)
-    for b, s in enumerate(seeds):
-        out[b, 0] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s)
-        out[b, 1] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s + 1)
-    return out
+    with span("fct.sample"):
+        B = len(seeds)
+        d = params.degree
+        # the C sampler takes uint64 seeds; others go through CPython's random
+        if native.available() and all(isinstance(s, int) and 0 <= s and s + 1 < 2**64 for s in seeds):
+            interleaved = [x for s in seeds for x in (s, s + 1)]
+            return native.sample_short_batch(
+                interleaved, d, params.beta_sk, params.omega_sk, params.modulus
+            ).reshape(B, 2, d)
+        out = np.empty((B, 2, d), dtype=np.int32)
+        for b, s in enumerate(seeds):
+            out[b, 0] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s)
+            out[b, 1] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s + 1)
+        return out
 
 
 def vk_from_sk_hat(params: Params, sk_u: torch.Tensor) -> torch.Tensor:

@@ -46,6 +46,7 @@ from ..interop import serial
 from ..ops.ntt import ntt_fwd, ntt_fwd_u
 from ..ops.upload import upload
 from ..params import Params
+from ..utils.profiling import span
 from . import device_pipeline as dp
 from . import device_setup as ds
 
@@ -122,27 +123,28 @@ def keygen(params: Params, seeds: Sequence[Optional[int]], *, device=None) -> Ke
     transformed and ``sk_hat`` is its rank-broadcast view.  ``seed=None`` is
     rejected as the reference rejects it (it fails on ``seed + 1``).
     """
-    seeds = list(seeds)
-    for seed in seeds:
-        if seed is None:
-            raise TypeError(
-                "keygen requires an integer seed: the reference implementation "
-                "fails on seed=None at fusion.py:352 (seed + 1)"
-            )
-    dev = dp.resolve_device(device)
-    B, d, rank = len(seeds), params.degree, params.rank
-    sk = ds._sample_sk(params, seeds)  # int32[B, 2, d]
-    if B:
-        # the reference leaves CPython's global random in the state of its
-        # last seeded sample (polynomials.py:447-448); the C sampler does not
-        sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk,
-                                 seeds[-1] + 1)
-    # the short coefficients (|c| <= beta_sk = 52) travel as int8
-    sk_c = torch.from_numpy(sk.astype(np.int8)).to(dev).to(torch.int32)
-    sk_hat = ntt_fwd(params.plan, sk_c)  # [B, 2, d] centered
-    vk = ds.vk_from_sk_hat(params, params.plan.field.to_unsigned(sk_hat))
-    return KeyBatch(params=params, seeds=seeds,
-                    sk_hat=sk_hat.unsqueeze(2).expand(B, 2, rank, d), vk=vk)
+    with span("fct.keygen"):
+        seeds = list(seeds)
+        for seed in seeds:
+            if seed is None:
+                raise TypeError(
+                    "keygen requires an integer seed: the reference implementation "
+                    "fails on seed=None at fusion.py:352 (seed + 1)"
+                )
+        dev = dp.resolve_device(device)
+        B, d, rank = len(seeds), params.degree, params.rank
+        sk = ds._sample_sk(params, seeds)  # int32[B, 2, d]
+        if B:
+            # the reference leaves CPython's global random in the state of its
+            # last seeded sample (polynomials.py:447-448); the C sampler does not
+            sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk,
+                                     seeds[-1] + 1)
+        # the short coefficients (|c| <= beta_sk = 52) travel as int8
+        sk_c = torch.from_numpy(sk.astype(np.int8)).to(dev).to(torch.int32)
+        sk_hat = ntt_fwd(params.plan, sk_c)  # [B, 2, d] centered
+        vk = ds.vk_from_sk_hat(params, params.plan.field.to_unsigned(sk_hat))
+        return KeyBatch(params=params, seeds=seeds,
+                        sk_hat=sk_hat.unsqueeze(2).expand(B, 2, rank, d), vk=vk)
 
 
 def sign(params: Params, keys: KeyBatch, messages: Sequence[str]) -> SignatureBatch:
@@ -150,22 +152,25 @@ def sign(params: Params, keys: KeyBatch, messages: Sequence[str]) -> SignatureBa
     challenge per (vk, message) from the verifier's prehash and signer
     stages (``get_pipeline(params, 1)``), then sig = sk_l ⊙ c + sk_r for every
     rank entry, ``SIGN_CHUNK`` keys at a time."""
-    msgs = list(messages)
-    if len(msgs) != len(keys):
-        raise ValueError("need exactly one message per key")
-    B, d, rank = len(keys), params.degree, params.rank
-    F = params.plan.field
-    dev = keys.vk.device
-    P = dp.get_pipeline(params, 1, str(dev))
-    mw, ml = dp._message_tensors(params, msgs, dev)
-    sig = torch.empty((B, rank, d), dtype=torch.int32, device=dev)
-    for lo in range(0, B, SIGN_CHUNK):
-        hi = min(B, lo + SIGN_CHUNK)
-        _, c_hat_u, _, _ = P.challenges(keys.vk[lo:hi], mw[lo:hi], ml[lo:hi])
-        c_mont = F.to_mont(c_hat_u).unsqueeze(1)  # [b, 1, d], broadcast over rank
-        sk_u = F.to_unsigned(keys.sk_hat[lo:hi])  # [b, 2, rank, d]
-        sig[lo:hi] = F.to_centered(F.add_mod(F.mont_mul(c_mont, sk_u[:, 0]), sk_u[:, 1]))
-    return SignatureBatch(params=params, sig=sig)
+    with span("fct.sign"):
+        msgs = list(messages)
+        if len(msgs) != len(keys):
+            raise ValueError("need exactly one message per key")
+        B, d, rank = len(keys), params.degree, params.rank
+        F = params.plan.field
+        dev = keys.vk.device
+        P = dp.get_pipeline(params, 1, str(dev))
+        mw, ml = dp._message_tensors(params, msgs, dev)
+        sig = torch.empty((B, rank, d), dtype=torch.int32, device=dev)
+        for lo in range(0, B, SIGN_CHUNK):
+            hi = min(B, lo + SIGN_CHUNK)
+            _, c_hat_u, _, _ = P.challenges(keys.vk[lo:hi], mw[lo:hi], ml[lo:hi])
+            with span("fct.sign.product"):
+                c_mont = F.to_mont(c_hat_u).unsqueeze(1)  # [b, 1, d], broadcast over rank
+                sk_u = F.to_unsigned(keys.sk_hat[lo:hi])  # [b, 2, rank, d]
+                sig[lo:hi] = F.to_centered(F.add_mod(F.mont_mul(c_mont, sk_u[:, 0]),
+                                                     sk_u[:, 1]))
+        return SignatureBatch(params=params, sig=sig)
 
 
 def _sorted_group(params: Params, vks: torch.Tensor, messages: Sequence[str]):

@@ -1,4 +1,4 @@
 """Utilities: profiling and tracing hooks and structured logging (the port of
 the JAX package's ``utils``)."""
 from .log import get_logger
-from .profiling import op_timer, trace
+from .profiling import count, counters, reset_counters, span, trace

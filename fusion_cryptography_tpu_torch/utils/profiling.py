@@ -1,22 +1,63 @@
-"""Profiling helpers: torch.profiler traces and per-op wall-clock timers.
+"""Profiling: torch.profiler traces, and the program's own spans and counters.
 
 ``trace(log_dir)`` records the enclosed region with torch.profiler (host
 activity, and the CUDA device's when there is one) and writes a Chrome trace
-into ``log_dir`` (viewable in Perfetto, with each kernel's device time);
-``op_timer`` gives the mean/median/min summary per op name of the reference's
-benchmark harness.  The port of the JAX package's ``utils/profiling.py``.
+into ``log_dir`` (viewable in Perfetto, with each kernel's device time).
+
+``span(name)`` and ``count(name, n)`` mark the program's work where it
+happens.  They act only while a torch profiler records on this process (in
+``trace``, or any ``torch.profiler.profile``): a span is then a
+``record_function`` range in the same trace as the CUDA runtime calls and the
+kernels, on one clock, nested on the caller's thread, and a count adds to a
+counter that ``counters()`` reads and ``reset_counters()`` clears.  Otherwise
+a span is one shared null context and a count does nothing, so the cost is
+one flag check.  Neither waits for the device.
+
+The program's spans, all named ``fct.*``: ``fct.verify`` (a grouped verify
+call), ``fct.pack`` with ``fct.pack.encode``, ``fct.pack.scatter`` and
+``fct.pack.upload`` (packing a chunk's messages), ``fct.prehash``,
+``fct.signer``, ``fct.group``, ``fct.lattice`` (the pipeline's stages),
+``fct.keygen`` with ``fct.sample`` (the host sampler), ``fct.sign`` with
+``fct.sign.product`` (the signature product).  Its counters:
+``pack.payload_bytes`` (the message preimages' bytes) and
+``pack.shipped_bytes`` (the packed words' bytes, padding included).
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import statistics
 import time
-from collections import defaultdict
 from pathlib import Path
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator
 
 import torch
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+_counters: Dict[str, int] = {}
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler records,
+    else a shared null context."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to counter ``name`` while a profiler records."""
+    if torch.autograd._profiler_enabled():
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counters() -> Dict[str, int]:
+    """A copy of the counters."""
+    return dict(_counters)
+
+
+def reset_counters() -> None:
+    _counters.clear()
 
 
 @contextlib.contextmanager
@@ -32,39 +73,3 @@ def trace(log_dir: str) -> Iterator[None]:
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(str(out / f"trace_{os.getpid()}_{time.time_ns()}.json"))
-
-
-class op_timer:
-    """Accumulate wall-clock samples per op name; summarize like the reference
-    harness (mean/median/min per op)."""
-
-    def __init__(self) -> None:
-        self.samples: Dict[str, List[float]] = defaultdict(list)
-
-    @contextlib.contextmanager
-    def measure(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.samples[name].append(time.perf_counter() - t0)
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        return {
-            name: {
-                "n": len(ts),
-                "mean": statistics.mean(ts),
-                "median": statistics.median(ts),
-                "min": min(ts),
-            }
-            for name, ts in self.samples.items()
-        }
-
-    def report(self) -> str:
-        lines = []
-        for name, s in self.summary().items():
-            lines.append(
-                f"{name:30s} n={s['n']:4d} min={s['min']*1e3:9.3f}ms "
-                f"mean={s['mean']*1e3:9.3f}ms median={s['median']*1e3:9.3f}ms"
-            )
-        return "\n".join(lines)

@@ -1,6 +1,6 @@
 """The port's utilities vs the JAX package's: sample_short_matrix_coeffs
-(integer seed and seed=None), op_timer's summary, get_logger's level from
-FUSION_TPU_LOG, and trace writing a Chrome trace on the CPU."""
+(integer seed and seed=None), get_logger's level from FUSION_TPU_LOG, and
+trace writing a Chrome trace on the CPU."""
 import json
 import logging
 import random
@@ -11,7 +11,7 @@ import torch
 
 from fusion_cryptography_tpu.hashing import sampler as jsampler
 from fusion_cryptography_tpu_torch.hashing import sampler as tsampler
-from fusion_cryptography_tpu_torch.utils import get_logger, op_timer, trace
+from fusion_cryptography_tpu_torch.utils import get_logger, trace
 
 
 @pytest.mark.parametrize("seed", [7, None])
@@ -27,19 +27,6 @@ def test_sample_short_matrix_coeffs_matches_jax(seed, args):
     np.testing.assert_array_equal(got, want)
     if seed is not None:
         assert (got == got[0, 0]).all()  # the per-entry reseed quirk
-
-
-def test_op_timer_summary():
-    t = op_timer()
-    for _ in range(3):
-        with t.measure("a"):
-            pass
-    with t.measure("b"):
-        torch.ones(4).sum()
-    s = t.summary()
-    assert set(s) == {"a", "b"} and s["a"]["n"] == 3 and s["b"]["n"] == 1
-    assert s["a"]["min"] <= s["a"]["median"] and s["a"]["min"] <= s["a"]["mean"]
-    assert len(t.report().splitlines()) == 2
 
 
 def test_get_logger_level_from_env(monkeypatch):
