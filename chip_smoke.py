@@ -52,7 +52,12 @@ Phases (each fails loudly; any failure exits non-zero):
      ``xof_decode`` also on crafted streams at both launches' shapes (first
      hits on share edges, every slot or none hit, slot 0 before the rows
      past the end or not), and the launches' registers, shared memory,
-     blocks an SM and waves of ``xof_decode`` and ``render_prehash``
+     blocks an SM and waves of ``xof_decode`` and ``render_prehash``;
+     ``place_preimages`` (the prehash sponge's input placed from the flat
+     message stream) at the verify call's launch (captured) and at the nist
+     traffic's 32,768 messages of 33 * k bytes, k = 1..100, each equal to
+     its plain version, on words memory filled with -1 just before, and
+     timed beside its bound
   S. the "spec" assembly, with phase 3's fleet alive: build_fleet gives the
      same fleet, verify (the same measurements) gives all verdicts true and
      rejects a tampered aggregate in exactly its group, derive_coeffs_device
@@ -81,7 +86,8 @@ Phases (each fails loudly; any failure exits non-zero):
      fleet freed, a fleet of G=32,768 groups x 4 verified in signer chunks of
      8,192 and group windows of 16,384 (one call entirely under
      ``set_sync_debug_mode("error")``, all verdicts true, verifies/s over 5
-     calls with one sync, the host's packing time per chunk, a tampered
+     calls with one sync, the host's packing time per chunk from the
+     program's ``fct.pack`` spans in one traced call, a tampered
      group in the third chunk fails alone, ``derive_coeffs_device`` in
      chunks of 2,048 equals one chunk on 8,192 groups); the segmented
      absorb at 32,768 lanes equals its CPU plain version; the CLI at
@@ -147,10 +153,11 @@ LANE128_GROUPS = 1024
 # prehash render and the lattice target
 GLUE_KERNELS = ("xof_decode", "render_prehash", "lattice_target")
 MAIN_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight",
-                     "signer_fold_a", "signer_fold_b", "agg_fold", "ntt_u") + GLUE_KERNELS
+                     "signer_fold_a", "signer_fold_b", "agg_fold", "ntt_u",
+                     "place_preimages") + GLUE_KERNELS
 # the "spec" assembly: assemble_spec in place of the signer folds
 SPEC_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight", "agg_fold",
-                     "ntt_u", "assemble_spec") + GLUE_KERNELS
+                     "ntt_u", "assemble_spec", "place_preimages") + GLUE_KERNELS
 # the lifecycle: the main path's kernels and keygen's sk_hat = NTT(sk)
 LIFECYCLE_KERNELS = MAIN_PATH_KERNELS + ("ntt_centered",)
 # the object API: keygen and the challenge/coefficient NTTs, verify's pipeline
@@ -1186,6 +1193,60 @@ def phase_glue_shapes(params, fleet, kernel_rows: list) -> None:
                                       if "launch_shapes" in r}}))
     del calls
     torch.cuda.empty_cache()
+    return per_call, per_fleet
+
+
+def phase_place_preimages(params, fleet, kernel_rows: list, per_call: dict,
+                          per_fleet: dict) -> None:
+    """Kernel ``place_preimages`` at the verify call's own launch (its
+    arguments captured from one call on the fleet: the fleet's 32,768
+    messages, signer-major) and at the nist traffic's shape (32,768
+    messages of 33 * k bytes, k = 1..100, signer-major): each equal to its
+    plain version exactly, its words on memory filled with -1 just before
+    (the caching allocator hands the freed block back), and timed beside
+    its bound and its plain version.  The row's ms, plain_ms and bound are
+    the verify call's launch; ``nist`` holds the other shape's."""
+    from fusion_cryptography_tpu_torch.ops import place_preimages as pp
+    from fusion_cryptography_tpu_torch.profile_verify import nist_messages
+
+    (short,) = capture_calls(params, fleet, [(pp, "place_preimages", "place")])["place"]
+    prefix, _, _, n_signers, _ = short
+    data, lens, _ = pp.encode(nist_messages(len(fleet[1])))
+    offsets, stream = pp.split(pp.stream_buffer(data, lens, pin=True).to(prefix.device),
+                               len(lens))
+    nist = (prefix, offsets, stream, n_signers, pp.rows_for(prefix.numel() + int(lens.max())))
+    shapes, errs = {}, []
+    for label, args in (("verify call", short), ("nist", nist)):
+        _, offsets, stream, _, rows = args
+        B = offsets.numel() - 1
+        filled = torch.full((rows, B), -1, dtype=torch.int32, device=prefix.device)
+        ptr = filled.data_ptr()
+        del filled
+        got = pp.place_preimages(*args)
+        want = pp.place_preimages_plain(*args)
+        errs.append(max(max_abs_err(g, w) for g, w in zip(got, want)))
+        require(errs[-1] == 0, f"place_preimages ({label}) != its plain version")
+        t_k = cuda_ms(lambda: pp.place_preimages(*args), 20)
+        t_p = cuda_ms(lambda: pp.place_preimages_plain(*args), 1)
+        b = bounds.place_preimages(B, rows, stream.numel())
+        shapes[label] = dict(lanes=B, rows=rows, stream_bytes=stream.numel(), ms=t_k,
+                             plain_ms=t_p, on_filled=got[0].data_ptr() == ptr, **b)
+        log(f"place_preimages, {label}: {B} lanes x {rows} words, {stream.numel()} stream bytes: "
+            f"equals the plain version (words on the -1-filled block: "
+            f"{shapes[label]['on_filled']}); {t_k:.4f} ms, plain {t_p:.3f} ms, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({t_k / b['bound_ms']:.2f}x)")
+    call = shapes["verify call"]
+    kernel_rows.append(dict(
+        name="place_preimages", route="cuda",
+        source="fusion_cryptography_tpu_torch/csrc/place_preimages.cu",
+        replaces="none: the JAX package lays the rows out on the host "
+                 "(fusion_cryptography_tpu/scheme/device_pipeline.py msg_preimage_words)",
+        library_ms=None, max_abs_err=max(errs), ms=call["ms"], plain_ms=call["plain_ms"],
+        bound_ms=call["bound_ms"], bound_by=call["bound_by"], nist=shapes["nist"],
+        launches_per_verify_call=per_call.get("place_preimages", 0),
+        launches_per_fleet_build=per_fleet.get("place_preimages", 0)))
+    del short, nist, offsets, stream
+    torch.cuda.empty_cache()
 
 
 def drive_main_path(params, G: int, N: int, dev) -> tuple:
@@ -1261,8 +1322,8 @@ def check_lattice_no_sync(params, fleet) -> None:
 
     vks, msgs, aggs = fleet
     P = dp.get_pipeline(params, vks.shape[1], str(vks.device))
-    mw, ml = dp._message_tensors(params, msgs, vks.device)
-    _, c_hat_u, al = P.hash_chunk(vks, mw, ml)
+    mw, mb, _ = dp._message_tensors(params, msgs, vks.device, vks.shape[1])
+    _, c_hat_u, al = P.hash_chunk(vks, mw, mb)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1584,6 +1645,8 @@ def drive_windows(params, dev) -> dict:
     """The windowed verify at G = W_GROUPS: signer chunks of W_CHUNK groups,
     group windows of W_HASH_CHUNK (four chunks, two windows)."""
     from fusion_cryptography_tpu_torch.ops.field import Q
+    from fusion_cryptography_tpu_torch.profile_verify import span_times
+    from fusion_cryptography_tpu_torch.profile_verify import trace as trace_call
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
     from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
 
@@ -1614,21 +1677,10 @@ def drive_windows(params, dev) -> dict:
     t_tp = time.time() - t0
     require(all(bool(o[0].all() & o[1].all() & o[2].all()) for o in outs), "windowed reps")
     del outs
-    # the host's packing of each chunk's messages, in one more call
-    packing, pack = [], dp._message_tensors
-
-    def timed_pack(*a, **kw):
-        t = time.perf_counter()
-        out = pack(*a, **kw)
-        packing.append(time.perf_counter() - t)
-        return out
-
-    dp._message_tensors = timed_pack
-    try:
-        verify()
-    finally:
-        dp._message_tensors = pack
-    torch.cuda.synchronize()
+    # the host's packing of each chunk's messages: the fct.pack spans of one
+    # more call, traced
+    _, _, prof = trace_call(verify)
+    _, packing = span_times(prof)
     bad_g = 2 * W_CHUNK + W_CHUNK // 7  # in the third signer chunk, the second window
     bad = aggs.clone()
     bad[bad_g, 0, 0] = (bad[bad_g, 0, 0] + 1) % Q
@@ -1646,13 +1698,13 @@ def drive_windows(params, dev) -> dict:
         f"group_hash_chunk {W_HASH_CHUNK}: one call under set_sync_debug_mode('error') (no "
         f"host sync), every verdict true; {reps} calls, one sync: {t_tp:.3f} s -> {vps:,.0f} "
         f"verifies/s; host packing per chunk "
-        f"{', '.join(f'{t * 1e3:.2f}' for t in packing)} ms; a tampered aggregate in group "
+        f"{', '.join(f'{t:.2f}' for t in packing)} ms; a tampered aggregate in group "
         f"{bad_g} fails alone; derive_coeffs_device on {N_GROUPS} groups in chunks of "
         f"{N_GROUPS // 4} equals one chunk")
     return {"window_groups": G, "window_group_chunk": W_CHUNK,
             "window_group_hash_chunk": W_HASH_CHUNK, "window_fleet_s": t_fleet,
             "window_verifies_per_s": vps, "window_verify_reps_s": t_tp,
-            "window_packing_ms": [t * 1e3 for t in packing]}
+            "window_packing_ms": packing}
 
 
 def check_absorb_segments(dev) -> dict:
@@ -2203,7 +2255,8 @@ def main(argv) -> int:
     check_lattice_no_sync(params, fleet)
     phase_sponge_shapes(params, fleet, kernel_rows)
     phase_fold_shapes(params, fleet, kernel_rows)
-    phase_glue_shapes(params, fleet, kernel_rows)
+    per_call, per_fleet = phase_glue_shapes(params, fleet, kernel_rows)
+    phase_place_preimages(params, fleet, kernel_rows, per_call, per_fleet)
 
     # -- S. the "spec" assembly ---------------------------------------------
     spec_metrics, spec_launches = drive_spec_path(params, fleet, metrics, dev)

@@ -166,3 +166,11 @@ def lattice_target(groups: int, n: int, d: int, rank: int) -> dict:
     int32 [G, rank] in, three bytes a group out."""
     return bound(groups * (8 * n * d + 16 * n * d + 8 * d + 8 * rank + 3),
                  groups * (d * (n * LATTICE_TERM_OPS + 3) + 2 * rank))
+
+
+def place_preimages(lanes: int, rows: int, n_bytes: int) -> dict:
+    """Kernel ``place_preimages``: the messages' ``n_bytes`` and the offsets
+    int64[lanes + 1] in; words int32[rows, lanes], block counts and lengths
+    out.  Operations: ~``WORD_OPS`` a word (a funnel shift of two loads,
+    the compare and the store)."""
+    return bound(n_bytes + 8 * (lanes + 1) + 4 * (rows + 2) * lanes, rows * lanes * WORD_OPS)

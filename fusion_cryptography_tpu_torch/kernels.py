@@ -6,8 +6,8 @@ covers the source and the shared ``csrc/*.cuh`` headers), and loaded with
 ctypes through a plain C interface (no PyTorch headers, so a build takes
 seconds).  Only the wrappers in ``ops/keccak_sponge.py``, ``ops/ntt.py``,
 ``ops/intt_norm_weight.py``, ``ops/preimage_fold.py``, ``ops/assemble_spec.py``,
-``ops/xof_decode.py``, ``ops/ragged_words.py`` (``render_bigint_dec_w``) and
-``ops/lattice_target.py`` call into the library; each adds one to
+``ops/xof_decode.py``, ``ops/ragged_words.py`` (``render_bigint_dec_w``),
+``ops/lattice_target.py`` and ``ops/place_preimages.py`` call into the library; each adds one to
 ``LAUNCHES[name]`` where it launches its kernel, so a run can show that its
 main path went through the kernels.
 """
@@ -69,6 +69,9 @@ SOURCES = {
     "lattice_target.cu": {
         "fct_lattice_target": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _U32, _U64, _I64,
                                _I64, _P, _P, _P, _P],
+    },
+    "place_preimages.cu": {
+        "fct_place_preimages": [_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P],
     },
 }
 

@@ -1,9 +1,13 @@
 """Where a grouped verify spends its time on the GPU.
 
     python -m fusion_cryptography_tpu_torch.profile_verify [--groups 8192]
-        [--group-chunk 8192] [--assembly fold|spec] [--out DIR]
+        [--group-chunk 8192] [--assembly fold|spec] [--messages short|nist]
+        [--out DIR]
 
-Builds a secpar=256, N=4 fleet on the first CUDA device, then, for verify
+Builds a secpar=256, N=4 fleet on the first CUDA device (messages of
+``--messages``: "short", build_fleet's own ~12-byte ones; "nist", 33 * k
+bytes, k = 1..100 equally often in seeded order, the mlen schedule of
+NIST's PQC signature KAT generator), then, for verify
 calls in the ``--assembly`` configuration ("fold", the default: the
 signer fold kernels; "spec": ``assemble_spec`` on the challenge and triple
 specs),
@@ -33,7 +37,9 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
+import numpy as np
 import torch
 
 STAGES = {
@@ -53,6 +59,7 @@ KERNEL_FUNCTIONS = {
     "signer_fold_b_kernel": "signer_fold_b", "agg_fold_kernel": "agg_fold",
     "assemble_spec_kernel": "assemble_spec", "xof_decode_kernel": "xof_decode",
     "render_prehash_kernel": "render_prehash", "lattice_target_kernel": "lattice_target",
+    "place_preimages_kernel": "place_preimages",
 }
 
 
@@ -97,19 +104,24 @@ def launch_times(prof) -> dict:
     return out
 
 
-def span_times(prof) -> tuple:
-    """From a trace's Chrome export: ({stage: device ms of the operations
-    launched inside its ``fct.<stage>`` spans}, [host ms of each
+def span_times(prof, keep: Optional[Path] = None) -> tuple:
+    """From a trace's Chrome export (written to ``keep`` if given, else to a
+    temporary file; a profile exports once): ({stage: device ms of the
+    operations launched inside its ``fct.<stage>`` spans}, [host ms of each
     ``fct.pack`` span, in order]).  A device operation belongs to the span
     its launch (the runtime call with its correlation id) was issued in."""
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
+    if keep is None:
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+    else:
+        path = str(keep)
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
             raw = json.load(f)
     finally:
-        os.unlink(path)
+        if keep is None:
+            os.unlink(path)
     events = raw["traceEvents"] if isinstance(raw, dict) else raw
     spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                    if e.get("cat") == "user_annotation")
@@ -160,6 +172,7 @@ def call_bounds(params, run) -> dict:
     from . import bounds
     from .interop import device_serial as ds
     from .ops import keccak_sponge as ks
+    from .ops import place_preimages as pp
     from .ops import preimage_fold as pf
     from .ops import ragged_words as rw
     from .ops import xof_decode as xd
@@ -198,6 +211,9 @@ def call_bounds(params, run) -> dict:
                            lambda F, vks, c, a, obs, nrm, wgt, beta, omega:
                            bounds.lattice_target(vks.shape[0], vks.shape[1], vks.shape[3],
                                                  nrm.shape[-1])),
+        "place_preimages": (pp, "place_preimages",
+                            lambda prefix, offsets, stream, n, rows: bounds.place_preimages(
+                                offsets.numel() - 1, rows, stream.numel())),
     }
     per: dict = {}
 
@@ -212,6 +228,16 @@ def call_bounds(params, run) -> dict:
     return per
 
 
+def nist_messages(n: int, seed: int = 42) -> list:
+    """``n`` printable ASCII messages of 33 * k bytes, k = 1..100 equally
+    often, in an order drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    lengths = 33 * rng.permutation(np.resize(np.arange(1, 101), n))
+    text = rng.integers(0x20, 0x7F, int(lengths.sum()), dtype=np.uint8).tobytes().decode()
+    ends = np.cumsum(lengths)
+    return [text[e - k:e] for e, k in zip(ends.tolist(), lengths.tolist())]
+
+
 def main() -> None:
     from .params import fusion_setup
     from .scheme import device_pipeline as dp
@@ -221,6 +247,7 @@ def main() -> None:
     ap.add_argument("--groups", type=int, default=8192)
     ap.add_argument("--group-chunk", type=int, default=dp.DEFAULT_GROUP_CHUNK)
     ap.add_argument("--assembly", choices=dp.ASSEMBLIES, default="fold")
+    ap.add_argument("--messages", choices=("short", "nist"), default="short")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -233,7 +260,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     G, N = args.groups, 4
     params = fusion_setup(256, 42)
-    vks, msgs, aggs = build_fleet(params, G, N, device=dev, group_chunk=args.group_chunk)
+    vks, msgs, aggs = build_fleet(params, G, N, device=dev, group_chunk=args.group_chunk,
+                                  messages=nist_messages(G * N) if args.messages == "nist"
+                                  else None)
 
     def verify():
         out = dp.verify_batch_device(params, vks, msgs, aggs, group_chunk=args.group_chunk,
@@ -248,12 +277,15 @@ def main() -> None:
 
     # 1. the program's spans in one traced call
     traced, rows, prof = trace(verify)
-    stages, packing = span_times(prof)
+    out = Path(args.out) if args.out else None
+    if out:
+        out.mkdir(parents=True, exist_ok=True)
+    stages, packing = span_times(prof, out / "verify_trace.json" if out else None)
     if not packing:
         raise SystemExit("profile: the traced call opened no fct.pack span")
     print(f"verify G={G}, group_chunk {args.group_chunk}, group_hash_chunk "
-          f"{dp.DEFAULT_GROUP_HASH_CHUNK}, assembly {args.assembly!r}: {wall * 1e3:.2f} ms per "
-          "call")
+          f"{dp.DEFAULT_GROUP_HASH_CHUNK}, assembly {args.assembly!r}, {args.messages} "
+          f"messages: {wall * 1e3:.2f} ms per call")
     print(f"  host packing of the messages (fct.pack), {len(packing)} chunks: "
           + ", ".join(f"{t:.2f}" for t in packing) + " ms")
     for k, label in STAGES.items():
@@ -290,13 +322,11 @@ def main() -> None:
     for k, b_each in ((k, v[2]) for k, v in per.items() if v[0] > 1):
         pairs = zip(each.get(k, []), b_each)
         print(f"  {k} by launch: " + ", ".join(f"{t:.4f} ms (bound {b:.4f})" for t, b in pairs))
-    if args.out:
-        out = Path(args.out)
-        out.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(out / "verify_trace.json"))
+    if out:
         (out / "verify_kernels.json").write_text(json.dumps(
             {"card": card, "groups": G, "group_chunk": args.group_chunk,
              "group_hash_chunk": dp.DEFAULT_GROUP_HASH_CHUNK, "assembly": args.assembly,
+             "messages": args.messages,
              "wall_ms": wall * 1e3, "packing_ms": packing,
              "traced_ms": traced * 1e3,
              "busy_ms": busy, "launches": launches, "stages_device_ms": stages,

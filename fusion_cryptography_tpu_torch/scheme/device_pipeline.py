@@ -4,7 +4,10 @@ Port of the JAX package's ``scheme/device_pipeline.py`` (packed-word hash
 path, SHA3 prehash on the device, fused sponge, preimage folds, fused
 observed sum + INTT + norm/weight):
 
-  vks int32[G, N, 2, d], ``dst + "," + message`` bytes, aggs int32[G, rank, d]
+  vks int32[G, N, 2, d], messages, aggs int32[G, rank, d]
+    -> packing:     the messages as one flat byte stream, placed as the
+                    sponge's padded ``dst + "," + message`` input
+                    (place_preimages kernel)
     -> prehash:     SHA3-256 (sponge kernels) + 78-digit decimal render
                     (render_prehash kernel)
     -> signer hash: str(vk) chunk + challenge preimage (signer_fold_a
@@ -56,6 +59,8 @@ import torch
 
 from ..hashing.xof import agg_block_len, challenge_xof_len
 from ..interop import device_serial as ds
+from ..ops import keccak_sponge as ks
+from ..ops import place_preimages as pp
 from ..ops import preimage_fold as pf
 from ..ops import ragged_words as rw
 from ..ops import xof_decode
@@ -63,7 +68,7 @@ from ..ops.assemble_spec import assemble_spec
 from ..ops.intt_norm_weight import agg_check, agg_table
 from ..ops.lattice_target import lattice_target
 from ..ops.keccak import RATE
-from ..ops.keccak_sponge import sha3_256_words_w, shake256_words_w
+from ..ops.keccak_sponge import shake256_words_w
 from ..ops.ntt import ntt_fwd_u
 from ..ops.upload import upload
 from ..params import Params
@@ -127,7 +132,8 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
     ``assembly`` ("fold" or "spec", see the module docstring) picks the
     signer preimages' kernels:
 
-    prehash_stage(msg_words int32[Wt, B], msg_len int32[B])
+    prehash_stage(msg_words int32[rows, B], msg_blocks int32[B]; the placed
+                  preimages of :func:`_message_tensors`)
         -> (pre_w int32[20, B], pre_len int32[B])
     signer_stage(vk2d_t int32[2d, B], pre_w int32[20, B], pre_len int32[B])
         -> (cc int32[B, d], c_hat_u int64[B, d], tbuf int32[Lt, B], tlen int32[B])
@@ -147,15 +153,12 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
     pre_bounds = [(1, ds.PREHASH_W)]
     n_ag_words = -(-(N * g["block_ag"]) // 4)
 
-    def prehash_stage(msg_words, msg_len):
-        """RAW message preimage words (dst + "," + message) -> prehash digit
-        words: SHA3-256 on the sponge kernels, then the decimal render."""
+    def prehash_stage(msg_words, msg_blocks):
+        """Placed, padded preimage words (dst + "," + message) -> prehash
+        digit words: SHA3-256 on the sponge kernels, then the decimal render."""
         with span("fct.prehash"):
-            Wt = msg_words.shape[0]
-            pad = _pad_rate(Wt * 4) // 4 - Wt
-            if pad > 0:
-                msg_words = torch.nn.functional.pad(msg_words, (0, 0, 0, pad))
-            chunk = rw.render_bigint_dec_w(sha3_256_words_w(msg_words.contiguous(), msg_len))
+            digest = ks.squeeze(ks.absorb(msg_words, msg_blocks), 8)
+            chunk = rw.render_bigint_dec_w(digest)
             return chunk.buf, chunk.length
 
     def signer_stage(vk2d_t, pre_w, pre_len):
@@ -195,30 +198,6 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
     return prehash_stage, signer_stage, group_stage
 
 
-def msg_preimage_words(params: Params, messages: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
-    """Host prep for the device prehash: ``dst + "," + message`` preimages as
-    packed words (uint32[B, Wt], int32[B]); Wt is the tight word count of the
-    longest message, rounded up to 8 words.  Counts the preimages' bytes
-    (``pack.payload_bytes``) and the words' (``pack.shipped_bytes``)."""
-    prefix = bytes(params.sign_pre_hash_dst) + b","
-    with span("fct.pack.encode"):
-        bufs = [prefix + m.encode("utf-8") for m in messages]
-        B = len(bufs)
-        lens = np.fromiter((len(b) for b in bufs), np.int32, B)
-        payload = b"".join(bufs)
-        del bufs  # B objects: their release is part of the encoding's time
-    L = int(lens.max(initial=1))
-    Wt = -(-(-(-L // 4)) // 8) * 8
-    with span("fct.pack.scatter"):
-        arr = np.zeros((B, Wt * 4), dtype=np.uint8)
-        if B:
-            mask = np.arange(Wt * 4) < lens[:, None]
-            arr[mask] = np.frombuffer(payload, np.uint8)
-    count("pack.payload_bytes", len(payload))
-    count("pack.shipped_bytes", arr.nbytes)
-    return arr.view("<u4"), lens
-
-
 class _Pipeline:
     """Stage functions and device constants for one (params, N, device,
     assembly)."""
@@ -231,22 +210,25 @@ class _Pipeline:
         self.a_tab = agg_table(self.plan.field, params.public_challenge, device)  # [rank, d]
         self.prehash, self.signer, self.group = make_stages(params, n_signers, assembly)
 
-    def challenges(self, vk: torch.Tensor, mw: torch.Tensor, ml: torch.Tensor):
+    def challenges(self, vk: torch.Tensor, mw: torch.Tensor, mb: torch.Tensor):
         """The signer half alone, for B keys in any grouping: vk int32[B, 2, d],
-        message words int32[B, Wt], lengths int32[B] -> (cc int32[B, d],
-        c_hat_u int64[B, d], triple words int32[Lt, B], lengths int32[B])."""
+        the keys' placed message words int32[rows, B] and block counts
+        int32[B] (:func:`_message_tensors` with one signer) -> (cc int32[B,
+        d], c_hat_u int64[B, d], triple words int32[Lt, B], lengths
+        int32[B])."""
         B, d = vk.shape[0], self.params.degree
-        return self._signer_hash(vk.reshape(B, 2 * d).t().contiguous(), mw, ml)
+        return self._signer_hash(vk.reshape(B, 2 * d).t().contiguous(), mw, mb)
 
-    def _signer_hash(self, vk2d_t: torch.Tensor, mw: torch.Tensor, ml: torch.Tensor):
-        pre_w, pre_len = self.prehash(mw.t(), ml)
+    def _signer_hash(self, vk2d_t: torch.Tensor, mw: torch.Tensor, mb: torch.Tensor):
+        pre_w, pre_len = self.prehash(mw, mb)
         return self.signer(vk2d_t, pre_w, pre_len)
 
-    def signer_chunk(self, vkc: torch.Tensor, mwc: torch.Tensor, mlc: torch.Tensor):
+    def signer_chunk(self, vkc: torch.Tensor, mw: torch.Tensor, mb: torch.Tensor):
         """The signer half of one chunk of complete groups: vkc int32[c, N,
-        2, d], message words int32[c*N, Wt], lengths int32[c*N] -> (cc
-        int32[c*N, d], c_hat_u int64[c*N, d], triple words int32[Lt, N*c],
-        triple lengths int32[N*c]).
+        2, d], the chunk's placed message words int32[rows, N*c] and block
+        counts int32[N*c] in signer-major order (:func:`_message_tensors`
+        with N signers) -> (cc int32[c*N, d], c_hat_u int64[c*N, d], triple
+        words int32[Lt, N*c], triple lengths int32[N*c]).
 
         The stage runs on lanes in signer-major order (lane k*c + g is
         signer k of group g), so each signer's triples are contiguous
@@ -256,9 +238,7 @@ class _Pipeline:
         signer-major, as :meth:`group_window` takes them."""
         c, N = vkc.shape[0], self.N
         vk2d_t = vkc.reshape(c, N, -1).permute(2, 1, 0).reshape(-1, N * c).contiguous()
-        mw = mwc.reshape(c, N, -1).transpose(0, 1).reshape(N * c, -1)
-        ml = mlc.reshape(c, N).t().reshape(-1)
-        cc, c_hat_u, tbuf, tlen = self._signer_hash(vk2d_t, mw, ml)
+        cc, c_hat_u, tbuf, tlen = self._signer_hash(vk2d_t, mw, mb)
 
         def group_major(x):
             return x.reshape(N, c, -1).transpose(0, 1).reshape(c * N, -1)
@@ -281,11 +261,11 @@ class _Pipeline:
             tls.append(lens[0] if len(parts) == 1 else torch.cat(lens))
         return self.group(tbs, tls)
 
-    def hash_chunk(self, vkc: torch.Tensor, mwc: torch.Tensor, mlc: torch.Tensor):
+    def hash_chunk(self, vkc: torch.Tensor, mw: torch.Tensor, mb: torch.Tensor):
         """Both hash halves of one chunk of complete groups (arguments as
         :meth:`signer_chunk`'s) -> (cc int32[c*N, d], c_hat_u int64[c*N, d],
         alphas int32[c, N, d])."""
-        cc, c_hat_u, tbuf, tlen = self.signer_chunk(vkc, mwc, mlc)
+        cc, c_hat_u, tbuf, tlen = self.signer_chunk(vkc, mw, mb)
         return cc, c_hat_u, self.group_window([(tbuf, tlen)])
 
     def lattice(self, vks, c_hat_u, al, aggs):
@@ -316,16 +296,42 @@ def _cached_pipeline(params: Params, n_signers: int, device: str, assembly: str)
     return _Pipeline(params, n_signers, torch.device(device), assembly)
 
 
-def _message_tensors(params: Params, messages: Sequence[str], device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Packed message preimages (int32[B, Wt] words, int32[B] lengths) on
-    ``device``; to a CUDA device they go from pinned memory without waiting
-    for the device.  They are packed in pageable memory and copied into
-    pinned memory in one pass: written straight into pinned memory, the
-    packing's scattered byte writes were slower."""
+@lru_cache(maxsize=16)
+def _prefix_on(prefix: bytes, device: str) -> torch.Tensor:
+    """The preimages' constant ``dst + ","`` bytes on a device, uploaded once."""
+    return upload(np.frombuffer(prefix, np.uint8).copy(), device)
+
+
+def _message_tensors(params: Params, messages: Sequence[str], device, n_signers: int = 1
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The prehash sponge's input for one chunk of B messages on
+    ``device``: (words int32[rows, B], block counts int32[B], preimage byte
+    lengths int32[B]) of the ``dst + "," + message`` preimages, padded for
+    SHA3-256, lanes in the signer-major order of B / ``n_signers`` groups of
+    ``n_signers`` (the natural order for one).
+
+    The host encodes the messages as one byte string, writes it and its
+    offsets into one buffer (pinned for a CUDA device) and uploads it
+    without waiting for the device; kernel ``place_preimages`` lays the
+    words out there.  Counts the message bytes (``pack.payload_bytes``),
+    the uploaded stream's (``pack.shipped_bytes``) and the messages encoded
+    one by one because their chunk was not all ASCII
+    (``pack.rows_fallback``)."""
+    dev = torch.device(device)
+    prefix = bytes(params.sign_pre_hash_dst) + b","
     with span("fct.pack"):
-        mw, ml = msg_preimage_words(params, messages)
+        with span("fct.pack.encode"):
+            data, lens, fallback = pp.encode(messages)
+            rows = pp.rows_for(len(prefix) + int(lens.max(initial=0)))
+        count("pack.payload_bytes", len(data))
+        count("pack.shipped_bytes", pp.stream_bytes(len(data)))
+        count("pack.rows_fallback", fallback)
         with span("fct.pack.upload"):
-            return upload(mw.view(np.int32), device), upload(ml, device)
+            buf = upload(pp.stream_buffer(data, lens, pin=dev.type == "cuda"), dev)
+        with span("fct.pack.scatter"):
+            offsets, stream = pp.split(buf, len(lens))
+            return pp.place_preimages(_prefix_on(prefix, str(dev)), offsets, stream, n_signers,
+                                      rows)
 
 
 def windows(G: int, group_chunk: int, group_hash_chunk: int) -> List[Tuple[int, int, list]]:
@@ -354,8 +360,8 @@ def _hash_windows(params: Params, P: _Pipeline, vks: torch.Tensor, msgs: List[st
     for wlo, _, chunks in windows(vks.shape[0], group_chunk, group_hash_chunk):
         signed, triples = [], []
         for lo, hi in chunks:
-            mw, ml = _message_tensors(params, msgs[lo * N:hi * N], vks.device)
-            cc, c_hat_u, tbuf, tlen = P.signer_chunk(vks[lo:hi], mw, ml)
+            mw, mb, _ = _message_tensors(params, msgs[lo * N:hi * N], vks.device, N)
+            cc, c_hat_u, tbuf, tlen = P.signer_chunk(vks[lo:hi], mw, mb)
             signed.append((lo, hi, cc, c_hat_u))
             triples.append((tbuf, tlen))
         al = P.group_window(triples)

@@ -163,11 +163,11 @@ def build_fleet(
     vks = vk.index_select(0, oflat).reshape(G, N, 2, d)
 
     P = dp.get_pipeline(params, N, str(device), assembly)
-    mw, ml = dp._message_tensors(params, s_msgs, device)
     aggs = torch.empty((G, params.rank, d), dtype=torch.int32, device=device)
     for lo in range(0, G, max(1, group_chunk)):
         hi = min(G, lo + group_chunk)
-        _, c_hat_u, al = P.hash_chunk(vks[lo:hi], mw[lo * N : hi * N], ml[lo * N : hi * N])
+        mw, mb, _ = dp._message_tensors(params, s_msgs[lo * N : hi * N], device, N)
+        _, c_hat_u, al = P.hash_chunk(vks[lo:hi], mw, mb)
         agg = _math(params, N, sk_s[lo * N : hi * N], c_hat_u, al)
         aggs[lo:hi] = agg.unsqueeze(1)
     return vks, s_msgs, aggs

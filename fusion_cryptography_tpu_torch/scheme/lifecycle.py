@@ -160,11 +160,11 @@ def sign(params: Params, keys: KeyBatch, messages: Sequence[str]) -> SignatureBa
         F = params.plan.field
         dev = keys.vk.device
         P = dp.get_pipeline(params, 1, str(dev))
-        mw, ml = dp._message_tensors(params, msgs, dev)
         sig = torch.empty((B, rank, d), dtype=torch.int32, device=dev)
         for lo in range(0, B, SIGN_CHUNK):
             hi = min(B, lo + SIGN_CHUNK)
-            _, c_hat_u, _, _ = P.challenges(keys.vk[lo:hi], mw[lo:hi], ml[lo:hi])
+            mw, mb, _ = dp._message_tensors(params, msgs[lo:hi], dev)
+            _, c_hat_u, _, _ = P.challenges(keys.vk[lo:hi], mw, mb)
             with span("fct.sign.product"):
                 c_mont = F.to_mont(c_hat_u).unsqueeze(1)  # [b, 1, d], broadcast over rank
                 sk_u = F.to_unsigned(keys.sk_hat[lo:hi])  # [b, 2, rank, d]
@@ -185,9 +185,10 @@ def _sorted_group(params: Params, vks: torch.Tensor, messages: Sequence[str]):
 def _group_hash(params: Params, vks_s: torch.Tensor, msgs_s: List[str]):
     """(pipeline, c_hat_u int64[N, d], alphas int32[1, N, d]) of one sorted
     group."""
-    P = dp.get_pipeline(params, vks_s.shape[1], str(vks_s.device))
-    mw, ml = dp._message_tensors(params, msgs_s, vks_s.device)
-    _, c_hat_u, al = P.hash_chunk(vks_s, mw, ml)
+    N = vks_s.shape[1]
+    P = dp.get_pipeline(params, N, str(vks_s.device))
+    mw, mb, _ = dp._message_tensors(params, msgs_s, vks_s.device, N)
+    _, c_hat_u, al = P.hash_chunk(vks_s, mw, mb)
     return P, c_hat_u, al
 
 

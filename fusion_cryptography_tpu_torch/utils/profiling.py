@@ -15,12 +15,15 @@ one flag check.  Neither waits for the device.
 
 The program's spans, all named ``fct.*``: ``fct.verify`` (a grouped verify
 call), ``fct.pack`` with ``fct.pack.encode``, ``fct.pack.scatter`` and
-``fct.pack.upload`` (packing a chunk's messages), ``fct.prehash``,
-``fct.signer``, ``fct.group``, ``fct.lattice`` (the pipeline's stages),
-``fct.keygen`` with ``fct.sample`` (the host sampler), ``fct.sign`` with
-``fct.sign.product`` (the signature product).  Its counters:
-``pack.payload_bytes`` (the message preimages' bytes) and
-``pack.shipped_bytes`` (the packed words' bytes, padding included).
+``fct.pack.upload`` (packing a chunk's messages: the join and encoding,
+the flat stream's copy into pinned memory and its upload, and the launch of
+kernel ``place_preimages``), ``fct.prehash``, ``fct.signer``,
+``fct.group``, ``fct.lattice`` (the pipeline's stages), ``fct.keygen`` with
+``fct.sample`` (the host sampler), ``fct.sign`` with ``fct.sign.product``
+(the signature product).  Its counters: ``pack.payload_bytes`` (the
+messages' bytes), ``pack.shipped_bytes`` (the uploaded stream's bytes, word
+padding included) and ``pack.rows_fallback`` (messages encoded one by one
+because their chunk was not all ASCII).
 """
 from __future__ import annotations
 

@@ -22,6 +22,7 @@ from fusion_cryptography_tpu_torch.ops.assemble_spec import assemble_spec
 from fusion_cryptography_tpu_torch.ops.field import Q
 from fusion_cryptography_tpu_torch.ops.intt_norm_weight import agg_check, agg_check_plain, agg_table
 from fusion_cryptography_tpu_torch.ops import ntt
+from fusion_cryptography_tpu_torch.ops import place_preimages as pp
 from fusion_cryptography_tpu_torch.ops.ntt import make_plan
 
 pytestmark = pytest.mark.cuda
@@ -686,11 +687,42 @@ def test_lattice_target_kernel_matches_plain(dev, secpar, N):
     assert kernels.LAUNCHES["lattice_target"] == before + 3
 
 
+@pytest.mark.parametrize("n_signers", [1, 4])
+def test_place_preimages_kernel_matches_plain(dev, n_signers):
+    """Kernel ``place_preimages`` == ``place_preimages_plain`` exactly (words,
+    block counts, lengths; the plain version on the same card tensors and on
+    the CPU), at 59-byte messages with the rate edges among them, at the
+    nist traffic's 33 * k bytes, k = 1..100, and with multi-byte UTF-8 and
+    NUL characters, in both lane orders."""
+    rng = np.random.default_rng(7)
+
+    def text(n):
+        return rng.integers(0x20, 0x7F, n, dtype=np.uint8).tobytes().decode()
+
+    sets = {"short": [text(59) for _ in range(8188)] + [text(n) for n in (132, 133, 134, 269)],
+            "nist": [text(33 * (1 + k % 100)) for k in range(400)],
+            "utf8": ["é" * 70, "\x00", "", "\U0001F600" + text(130)] * 25}
+    prefix = torch.tensor([5, 0, 44], dtype=torch.uint8)
+    before = kernels.LAUNCHES["place_preimages"]
+    for name, msgs in sets.items():
+        data, lens, _ = pp.encode(msgs)
+        buf = pp.stream_buffer(data, lens, pin=True).to(dev)
+        offsets, stream = pp.split(buf, len(msgs))
+        rows = pp.rows_for(3 + int(lens.max()))
+        got = pp.place_preimages(prefix.to(dev), offsets, stream, n_signers, rows)
+        want = pp.place_preimages_plain(prefix.to(dev), offsets, stream, n_signers, rows)
+        cpu = pp.place_preimages(prefix, offsets.cpu(), stream.cpu(), n_signers, rows)
+        for g, w, c in zip(got, want, cpu):
+            assert torch.equal(g, w) and torch.equal(g.cpu(), c), name
+    assert kernels.LAUNCHES["place_preimages"] == before + len(sets)
+
+
 def test_card_paths_run_no_plain_glue(dev, monkeypatch):
-    """With the plain XOF decode, prehash render and lattice target made to
-    fail, the fleet build, the grouped verify (both assemblies), the
-    windowed verify and the lifecycle still run on the card: each of those
-    stages there is its kernel, and each path launched all three."""
+    """With the plain XOF decode, prehash render, lattice target and
+    preimage placement made to fail, the fleet build, the grouped verify
+    (both assemblies), the windowed verify and the lifecycle still run on
+    the card: each of those stages there is its kernel, and each path
+    launched all four."""
     from fusion_cryptography_tpu_torch.ops import lattice_target as lt
     from fusion_cryptography_tpu_torch.ops import xof_decode as xd
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
@@ -701,20 +733,21 @@ def test_card_paths_run_no_plain_glue(dev, monkeypatch):
         raise AssertionError("a plain glue stage ran on a card path")
 
     for mod, name in ((xd, "decode_rows_plain"), (xd, "split_streams_w"),
-                      (rw, "render_bigint_dec_plain"), (lt, "lattice_target_plain")):
+                      (rw, "render_bigint_dec_plain"), (lt, "lattice_target_plain"),
+                      (pp, "place_preimages_plain")):
         monkeypatch.setattr(mod, name, plain)
-    names = ("xof_decode", "render_prehash", "lattice_target")
+    names = ("xof_decode", "render_prehash", "lattice_target", "place_preimages")
     params = fusion_setup(128, 3)
     before = Counter(kernels.LAUNCHES)
     vks, msgs, aggs = build_fleet(params, 5, 4, seed0=9, device=dev)
     fleet = Counter(kernels.LAUNCHES) - before
-    assert fleet["xof_decode"] == 2 and fleet["render_prehash"] == 1 and not fleet["lattice_target"]
+    assert [fleet[k] for k in names] == [2, 1, 0, 1], fleet
     for assembly in ("fold", "spec"):
         before = Counter(kernels.LAUNCHES)
         assert all(bool(t.all()) for t in dp.verify_batch_device(params, vks, msgs, aggs,
                                                                   assembly=assembly))
         call = Counter(kernels.LAUNCHES) - before
-        assert [call[k] for k in names] == [2, 1, 1], (assembly, call)
+        assert [call[k] for k in names] == [2, 1, 1, 1], (assembly, call)
     out = dp.verify_batch_device(params, vks, msgs, aggs, group_chunk=2, group_hash_chunk=2)
     assert all(bool(t.all()) for t in out)
     keys = lc.keygen(params, [9, 10, 11], device=dev)

@@ -217,10 +217,12 @@ def test_specs_and_terminators():
 
 
 def test_prehash_stage_renders_host_prehash():
-    """msg_preimage_words + the device prehash stage (SHA3-256 on the sponge
-    wrappers, decimal render) give str(hash_message_to_int(dst, m)), and the
-    host helpers equal the JAX package's."""
+    """The placed message preimages (device_pipeline._message_tensors) + the
+    device prehash stage (SHA3-256 on the sponge wrappers, decimal render)
+    give str(hash_message_to_int(dst, m)), and the placed words are the JAX
+    package's msg_preimage_words rows padded by its SHA3 padding."""
     from fusion_cryptography_tpu.hashing.xof import hash_message_to_int as j_hash
+    from fusion_cryptography_tpu.ops.keccak import _payload_words_to_blocks
     from fusion_cryptography_tpu.scheme.device_pipeline import msg_preimage_words as j_words
     from fusion_cryptography_tpu_torch.hashing.xof import hash_message_to_int
     from fusion_cryptography_tpu_torch.scheme import device_pipeline as tdp
@@ -229,12 +231,21 @@ def test_prehash_stage_renders_host_prehash():
     tp = params_from_numpy(jp)
     # dst + "," is 3 bytes: 133 and 134 characters end at the rate edge
     msgs = ["", "a", "x" * 133, "y" * 134, "é" * 70, "m" * 300, "group7:msg3"]
-    mw, ml = tdp.msg_preimage_words(tp, msgs)
+    mw, mb, ml = tdp._message_tensors(tp, msgs, "cpu")
     jw, jl = j_words(jp, msgs)
-    np.testing.assert_array_equal(mw, jw)
-    np.testing.assert_array_equal(ml, jl)
+    rows, B = mw.shape
+    full = -(-max(rows, jw.shape[1]) // 34) * 34
+    jt = np.zeros((full, B), np.uint32)
+    jt[:jw.shape[1]] = jw.T
+    blocks, jb = _payload_words_to_blocks(jnp.asarray(jt), jnp.asarray(jl), pad_head=0x06,
+                                          assume_clean=True)
+    want = np.asarray(blocks).reshape(full, B)
+    np.testing.assert_array_equal(_u32(mw), want[:rows])
+    assert not want[rows:].any()
+    np.testing.assert_array_equal(mb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(ml.numpy(), jl)
     prehash, _, _ = tdp.make_stages(tp, 2)
-    pre_w, pre_len = prehash(torch.from_numpy(mw.view(np.int32)).t(), torch.from_numpy(ml))
+    pre_w, pre_len = prehash(mw, mb)
     assert pre_w.shape == (tds.PREHASH_W // 4 + 1, len(msgs))
     for b, m in enumerate(msgs):
         want = hash_message_to_int(tp.sign_pre_hash_dst, m)

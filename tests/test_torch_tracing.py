@@ -141,15 +141,17 @@ def test_keygen_and_sign_spans(traced_lifecycle):
 @pytest.mark.parametrize("messages", [MESSAGES, ["m" * 59] * 7], ids=["mixed", "59B"])
 def test_pack_counters_count_exact_bytes(params, messages):
     prefix = bytes(params.sign_pre_hash_dst) + b","
-    payload = sum(len(prefix + m.encode("utf-8")) for m in messages)
+    payload = sum(len(m.encode("utf-8")) for m in messages)
     profiling.reset_counters()
     with profile(activities=[ProfilerActivity.CPU]):
-        mw, ml = dp._message_tensors(params, messages, CPU)
-    B, Wt = mw.shape
-    assert B == len(messages) and Wt % 8 == 0
+        mw, _, ml = dp._message_tensors(params, messages, CPU)
+    rows, B = mw.shape
+    assert B == len(messages) and rows % 34 == 0
+    fallback = 0 if all(m.isascii() for m in messages) else B
     assert profiling.counters() == {"pack.payload_bytes": payload,
-                                    "pack.shipped_bytes": B * Wt * 4}
-    assert int(ml.sum()) == payload
+                                    "pack.shipped_bytes": 4 * (payload // 4 + 1),
+                                    "pack.rows_fallback": fallback}
+    assert int(ml.sum()) == payload + B * len(prefix)
     profiling.reset_counters()
     assert profiling.counters() == {}
 
@@ -178,6 +180,19 @@ def test_profile_verify_reads_the_pack_spans(params):
     stages, packing = pv.span_times(prof)
     assert stages == {k: 0.0 for k in pv.STAGES}
     assert len(packing) == 2 and all(t > 0 for t in packing)
+
+
+def test_profile_verify_keeps_the_trace(params, tmp_path):
+    """``span_times(prof, keep)`` reads the same spans from the Chrome export
+    it leaves at ``keep`` (a profile exports once: ``profile_verify --out``
+    keeps this one)."""
+    from fusion_cryptography_tpu_torch import profile_verify as pv
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        dp._message_tensors(params, MESSAGES, CPU)
+    _, packing = pv.span_times(prof, tmp_path / "trace.json")
+    assert len(packing) == 1 and packing[0] > 0
+    assert "fct.pack.scatter" in (tmp_path / "trace.json").read_text()
 
 
 @pytest.mark.cuda
