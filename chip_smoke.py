@@ -58,6 +58,12 @@ Phases (each fails loudly; any failure exits non-zero):
      traffic's 32,768 messages of 33 * k bytes, k = 1..100, each equal to
      its plain version, on words memory filled with -1 just before, and
      timed beside its bound
+  X. wide aggregates (BASELINE config 3), with phase 3's fleet alive: a
+     fleet of 32 groups of 1,024 built (timed) and verified (a tampered
+     aggregate fails alone); ``agg_fold``, ``lattice_target`` and the
+     aggregation launch of the sponge captured from one call, held against
+     their plain versions (the sponge against hashlib) and timed beside
+     their times at the short shape
   S. the "spec" assembly, with phase 3's fleet alive: build_fleet gives the
      same fleet, verify (the same measurements) gives all verdicts true and
      rejects a tampered aggregate in exactly its group, derive_coeffs_device
@@ -171,6 +177,7 @@ ALL_KERNELS = LIFECYCLE_KERNELS + ("assemble_spec",)
 # and prepare_real's keygen (kernel 9)
 SHARDED_KERNELS = ALL_KERNELS
 STEP_KERNELS = ("intt_norm_weight", "ntt_u")
+WIDE_GROUPS, WIDE_SIGNERS = 32, 1024  # BASELINE config 3: aggregates of 2^10 signatures
 D_KEYS = 16384  # one card's share of config 4 (65,536 keys over four cards)
 D_REAL_KEYS = 64  # prepare_real on the card and on the CPU
 D_NTT_ROWS = 8192
@@ -824,8 +831,7 @@ def phase_agg_fold(params, tri_buf: torch.Tensor, tri_len: torch.Tensor, dev,
     (group-major, a triple's columns N apart) and as the pipeline lays them
     out (signer-major, a triple's columns contiguous), on the first G - 37
     groups (not a multiple of the 32-group tile) and on group 0 alone; the
-    outputs of the first two land on a block of the caching allocator
-    filled with -1 just before the call.  Timed on both layouts; one call runs under
+    outputs on memory filled with -1.  Timed on both layouts; one call runs under
     ``set_sync_debug_mode("error")``."""
     from fusion_cryptography_tpu_torch.interop import device_serial as ds
     from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
@@ -833,46 +839,38 @@ def phase_agg_fold(params, tri_buf: torch.Tensor, tri_len: torch.Tensor, dev,
     G, N = N_GROUPS, N_SIGNERS
     (agg_w,) = ds.agg_fold_table(params, N).widths
     tb_g, tl_g = tri_buf.reshape(-1, G, N), tri_len.reshape(G, N)
-    tb_s = tb_g.permute(0, 2, 1).reshape(tb_g.shape[0], N * G)
-    tl_s = tl_g.t().reshape(-1)
-    layouts = {
-        "group_major": ([tb_g[:, :, k] for k in range(N)], [tl_g[:, k] for k in range(N)]),
-        "signer_major": ([tb_s[:, k * G:(k + 1) * G] for k in range(N)],
-                         [tl_s[k * G:(k + 1) * G] for k in range(N)]),
-    }
-    want = pf.agg_fold_plain(params, N, *layouts["group_major"])
+
+    def lanes(cut):  # the first ``cut`` groups' triples [W, N, cut], [N, cut] in each order
+        g = (tb_g[:, :cut].transpose(1, 2), tl_g[:cut].t())
+        return {"group": g, "signer": (g[0].contiguous(), g[1].contiguous())}
+
+    layouts = lanes(G)
+    want = pf.agg_fold_plain(params, N, *layouts["group"])
     errs = []
     for cut in (G, G - 37, 1):
-        for name, (tbs, tls) in layouts.items():
-            tbs, tls = [t[:, :cut] for t in tbs], [t[:cut] for t in tls]
-            torch.cuda.synchronize()
-            junk = torch.full((agg_w, cut), -1, dtype=torch.int32, device=dev)
-            junk_ptr = junk.data_ptr()
-            del junk
-            got = pf.agg_fold(params, N, tbs, tls)
-            # (one group's output is small enough for the pointer table to
-            # take the freed block first)
-            require(cut == 1 or got[0].data_ptr() == junk_ptr,
-                    f"agg_fold ({name}, G={cut}): the output did not land on the -1 block")
+        for name, (tbuf, tlen) in lanes(cut).items():
+            outs = [torch.full((agg_w, cut), -1, dtype=torch.int32, device=dev),
+                    torch.full((cut,), -1, dtype=torch.int32, device=dev)]
+            got = pf._agg_fold_launch(params, N, tbuf, tlen, outs)
             errs.append(max(max_abs_err(got[0], want[0][:, :cut]),
                             max_abs_err(got[1], want[1][:cut])))
-            require(errs[-1] == 0, f"agg_fold ({name}, G={cut}) != agg_fold_plain")
-            del got
-    tbs, tls = layouts["signer_major"]
+            require(errs[-1] == 0, f"agg_fold ({name}-major, G={cut}) != agg_fold_plain")
+            del got, outs
+    tbuf, tlen = layouts["signer"]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pf.agg_fold(params, N, tbs, tls)
+        pf.agg_fold(params, N, tbuf, tlen)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     log(f"agg_fold: G={G} x N={N} triples of {int(tri_len.min())}..{int(tri_len.max())} B, "
         f"group-major and signer-major lanes, G={G}, {G - 37} and 1: every word and length "
         "equals agg_fold_plain on -1-filled outputs; one call under "
         "set_sync_debug_mode('error'): no host sync")
-    t_s = cuda_ms(lambda: pf.agg_fold(params, N, *layouts["signer_major"]), 10)
-    t_g = cuda_ms(lambda: pf.agg_fold(params, N, *layouts["group_major"]), 10)
-    t_p = cuda_ms(lambda: pf.agg_fold_plain(params, N, *layouts["signer_major"]), 2)
-    bnd = bounds.agg_fold(tls, agg_w)
+    t_s = cuda_ms(lambda: pf.agg_fold(params, N, tbuf, tlen), 10)
+    t_g = cuda_ms(lambda: pf.agg_fold(params, N, *layouts["group"]), 10)
+    t_p = cuda_ms(lambda: pf.agg_fold_plain(params, N, tbuf, tlen), 2)
+    bnd = bounds.agg_fold(tlen, N, agg_w)
     log(f"  agg_fold       {t_s:.3f} ms signer-major (the pipeline's lanes), {t_g:.3f} ms "
         f"group-major  (plain {t_p:.3f} ms, bound {bnd['bound_ms']:.4f} ms by "
         f"{bnd['bound_by']}: {t_s / bnd['bound_ms']:.2f}x; the per-thread design this tiled "
@@ -881,7 +879,7 @@ def phase_agg_fold(params, tri_buf: torch.Tensor, tri_len: torch.Tensor, dev,
         name="agg_fold", route="cuda", source="fusion_cryptography_tpu_torch/csrc/preimage_fold.cu",
         replaces="fusion_cryptography_tpu/ops/fold_pallas.py:675", max_abs_err=max(errs),
         ms=t_s, group_major_ms=t_g, plain_ms=t_p, **bnd, library_ms=None))
-    del tb_s, tl_s, layouts, want, tbs, tls
+    del layouts, want, tbuf, tlen
 
 
 def check_assemble(spec, values, extras, bnds, pad_words, label: str) -> int:
@@ -1025,6 +1023,132 @@ GLUE_ROWS = {  # kernel -> (source, the JAX function it replaces)
 }
 
 
+def phase_wide(params, dev, kernel_rows: list) -> dict:
+    """Wide aggregates (BASELINE config 3): a fleet of 32 groups of 1,024
+    signers built (timed, with its sort of each group's keys by str(vk))
+    and verified (all verdicts true, a tampered aggregate fails alone);
+    from one verify call, kernels ``agg_fold`` (its prefix launch and runs
+    that start mid-table), ``lattice_target`` (split over the signers, and
+    one warp a group) and the aggregation launch of ``keccak_absorb`` and
+    ``keccak_squeeze``, each held exactly against its plain version
+    (``agg_fold_plain`` and ``lattice_target_plain`` on outputs filled with
+    -1 or with the negated verdicts, the sponge's output against hashlib's
+    SHAKE256 of each group's preimage), timed beside its bound and beside
+    its time at the short shape (the rows of phases 2-3) -> metrics."""
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+    from fusion_cryptography_tpu_torch.ops import keccak, keccak_sponge as ks
+    from fusion_cryptography_tpu_torch.ops import lattice_target as lt
+    from fusion_cryptography_tpu_torch.ops import preimage_fold as pf
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+    from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+
+    G, N = WIDE_GROUPS, WIDE_SIGNERS
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fleet = build_fleet(params, G, N, seed0=1 + 4 * N_GROUPS * N_SIGNERS, device=dev)
+    torch.cuda.synchronize()
+    t_fleet = time.time() - t0
+    eq, norm_ok, weight_ok = dp.verify_batch_device(params, *fleet)
+    require(bool(eq.all() & norm_ok.all() & weight_ok.all()), "wide fleet must verify")
+    bad = fleet[2].clone()
+    bad[G // 3, 0, 5] = (bad[G // 3, 0, 5] + 1) % params.modulus
+    eq = dp.verify_batch_device(params, fleet[0], fleet[1], bad)[0]
+    require(torch.nonzero(~eq).flatten().tolist() == [G // 3], "wide: tampered group must fail")
+    del bad
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(3):
+        out = dp.verify_batch_device(params, *fleet)
+    torch.cuda.synchronize()
+    t_call = (time.time() - t0) / 3
+    log(f"wide: fleet of {G} groups x {N} built in {t_fleet:.3f} s; verify {t_call * 1e3:.1f} ms "
+        f"a call ({G / t_call:.1f} groups/s, {G * N / t_call:,.0f} signatures/s), all true; "
+        "a tampered aggregate fails alone")
+    del out
+
+    calls = capture_calls(params, fleet, [(pf, "agg_fold", "agg_fold"),
+                                          (dp, "lattice_target", "lattice_target"),
+                                          (ks, "absorb", "absorb"), (ks, "squeeze", "squeeze")])
+    short = {r["name"]: r for r in kernel_rows}
+    out_m = dict(wide_groups=G, wide_signers=N, wide_fleet_build_s=t_fleet,
+                 wide_verify_call_ms=t_call * 1e3)
+
+    # agg_fold: its prefix launch, then runs that start at their first op
+    (_, _, tbuf, tlen) = calls["agg_fold"][0]
+    (agg_w,) = ds.agg_fold_table(params, N).widths
+    want = pf.agg_fold_plain(params, N, tbuf, tlen)
+    outs = [torch.full((agg_w, G), -1, dtype=torch.int32, device=dev),
+            torch.full((G,), -1, dtype=torch.int32, device=dev)]
+    got = pf._agg_fold_launch(params, N, tbuf, tlen, outs)
+    err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    require(err == 0, "wide: agg_fold != agg_fold_plain")
+    t_k = cuda_ms(lambda: pf.agg_fold(params, N, tbuf, tlen), 10)
+    t_p = cuda_ms(lambda: pf.agg_fold_plain(params, N, tbuf, tlen), 1)
+    b = bounds.agg_fold(tlen, N, agg_w)
+    log(f"wide agg_fold: {agg_w} words x {G} groups ({int(got[1].max())} B at most): equals "
+        f"agg_fold_plain on -1; {t_k:.4f} ms (short shape {short['agg_fold']['ms']:.4f} ms), "
+        f"plain {t_p:.2f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+        f"({t_k / b['bound_ms']:.2f}x)")
+    out_m.update(wide_agg_fold_ms=t_k, wide_agg_fold_plain_ms=t_p,
+                 wide_agg_fold_bound_ms=b["bound_ms"])
+    wbuf, total = want
+    del got, outs
+
+    # lattice_target: split over the signers (the wrapper's choice) and one warp a group
+    args = calls["lattice_target"][0]
+    want = lt.lattice_target_plain(*args)
+    require(all(bool(x.all()) for x in want), "wide: the verify call's groups pass")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chosen = lt.lattice_split(G, N, sms)
+    times = {}
+    for slices in (chosen, 1):
+        out = torch.stack([~x for x in want])
+        got = lt._lattice_target_launch(*args, slices, out)
+        err = max(max_abs_err(x, y) for x, y in zip(got, want))
+        require(err == 0, f"wide: lattice_target ({slices} slices) != lattice_target_plain")
+        times[slices] = cuda_ms(lambda: lt._lattice_target_launch(*args, slices), 10)
+    t_p = cuda_ms(lambda: lt.lattice_target_plain(*args), 1)
+    b = bounds.lattice_target(G, N, params.degree, params.rank)
+    log(f"wide lattice_target: equals lattice_target_plain over its negated verdicts; "
+        f"{chosen} slices {times[chosen]:.4f} ms, one warp a group {times[1]:.4f} ms (short "
+        f"shape {short['lattice_target']['ms']:.4f} ms), plain {t_p:.2f} ms, bound "
+        f"{b['bound_ms']:.4f} ms by {b['bound_by']} ({times[chosen] / b['bound_ms']:.2f}x)")
+    out_m.update(wide_lattice_target_ms=times[chosen], wide_lattice_target_one_warp_ms=times[1],
+                 wide_lattice_slices=chosen, wide_lattice_target_plain_ms=t_p,
+                 wide_lattice_target_bound_ms=b["bound_ms"])
+
+    # the aggregation sponge (the call's third absorb and squeeze) against hashlib
+    (padded, nblk), (state, n_words) = calls["absorb"][2], calls["squeeze"][2]
+    require(padded.shape[1] == G and state.shape[1] == G, "wide: the aggregation launches")
+    xof = ks.squeeze(ks.absorb(padded, nblk), n_words).cpu().numpy()
+    pre = wbuf.cpu().numpy()
+    for g in range(G):
+        data = pre[:, g].tobytes()[:int(total[g])]
+        want_g = np.frombuffer(hashlib.shake_256(data).digest(4 * n_words), np.int32)
+        require(np.array_equal(xof[:, g], want_g), f"wide: group {g}'s SHAKE256 != hashlib")
+    teams = {}
+    for team in SPONGE_TEAMS:
+        teams[("absorb", team)] = cuda_ms(lambda: ks._absorb_launch(padded, nblk, team), 2)
+        teams[("squeeze", team)] = cuda_ms(lambda: ks._squeeze_launch(state, n_words, team), 2)
+    ab_team, sq_team = ks.absorb_team(G, sms), ks.squeeze_team(G, n_words, sms)
+    short_ab = next(x for x in short["keccak_absorb"]["shapes"] if x["launch"] == "aggregation")
+    short_sq = next(x for x in short["keccak_squeeze"]["shapes"] if x["launch"] == "aggregation")
+    perms = int(nblk.max()), -(-n_words // keccak.RATE_WORDS) - 1
+    for (name, team, ms_short, p) in (("absorb", ab_team, short_ab["ms"], perms[0]),
+                                      ("squeeze", sq_team, short_sq["ms"], perms[1])):
+        log(f"wide keccak_{name} (aggregation launch, {G} sponges, {p} permutations the "
+            f"longest): with the squeeze equals hashlib's SHAKE256 of every group's preimage; "
+            f"{teams[(name, team)]:.2f} ms at {team} thread(s) a sponge (the other team "
+            f"{teams[(name, 3 - team)]:.2f} ms), {teams[(name, team)] * 1e3 / p:.3f} us a "
+            f"permutation (short shape {ms_short:.4f} ms)")
+        out_m[f"wide_{name}_ms"] = teams[(name, team)]
+        out_m[f"wide_{name}_other_team_ms"] = teams[(name, 3 - team)]
+        out_m[f"wide_{name}_chain_perms"] = p
+    del calls, fleet, wbuf, total, pre, xof
+    torch.cuda.empty_cache()
+    return out_m
+
+
 def capture_glue(params, fleet) -> tuple:
     """The arguments of the glue kernels' calls in one ``verify_batch_device``
     call on the fleet ({kernel: [args, ...]} in call order), and every
@@ -1149,7 +1273,7 @@ def phase_glue_shapes(params, fleet, kernel_rows: list) -> None:
                 bounds.render_prehash(digest.shape[1]), dict(lanes=digest.shape[1]))
 
     def target(args):
-        _, vks, _, _, _, nrm, _, _, _ = args
+        vks, nrm = args[1], args[5]
         G, N, _, d = vks.shape
         return (lambda: lt.lattice_target(*args), lambda: lt.lattice_target_plain(*args),
                 bounds.lattice_target(G, N, d, nrm.shape[-1]), dict(groups=G, signers=N))
@@ -2257,6 +2381,7 @@ def main(argv) -> int:
     phase_fold_shapes(params, fleet, kernel_rows)
     per_call, per_fleet = phase_glue_shapes(params, fleet, kernel_rows)
     phase_place_preimages(params, fleet, kernel_rows, per_call, per_fleet)
+    metrics.update(phase_wide(params, dev, kernel_rows))
 
     # -- S. the "spec" assembly ---------------------------------------------
     spec_metrics, spec_launches = drive_spec_path(params, fleet, metrics, dev)

@@ -120,13 +120,13 @@ def signer_fold_b(d: int, vk_len: torch.Tensor, pre_len: torch.Tensor, tri_words
                  + 4 * (tri_words + 1) * B, B * (d * RENDER_OPS + tri_words * WORD_OPS))
 
 
-def agg_fold(tri_lens: Sequence[torch.Tensor], agg_words: int) -> dict:
-    """The N triples' live words and lengths in (``tri_lens``: N int32[G]);
-    the aggregation preimage at full width and its length out."""
-    G = tri_lens[0].numel()
-    B = G * len(tri_lens)
-    live = sum(live_bytes(t) for t in tri_lens)
-    return bound(live + 4 * B + 4 * (agg_words + 1) * G, G * agg_words * AGG_WORD_OPS)
+def agg_fold(tri_lens: torch.Tensor, n_signers: int, agg_words: int) -> dict:
+    """The N triples' live words and lengths in (``tri_lens``: int32[N, G]
+    or [N*G]); the aggregation preimage at full width and its length out."""
+    B = tri_lens.numel()
+    G = B // n_signers
+    return bound(live_bytes(tri_lens) + 4 * B + 4 * (agg_words + 1) * G,
+                 G * agg_words * AGG_WORD_OPS)
 
 
 def assemble_spec(n_values: int, lanes: int, extra_lens: Sequence[torch.Tensor],

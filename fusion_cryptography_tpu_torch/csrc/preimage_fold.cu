@@ -46,13 +46,23 @@
 //     segment offsets and lists the ops that overlap the tile's rows.  For a
 //     triple the block copies the union of the source rows its groups need
 //     into shared memory (cp.async), whole rows of the tile's 32 columns, in
-//     passes of kAggR rows when the groups' offsets spread wider (any spread
-//     is correct).  Each thread ORs its group's words from shared memory
-//     into registers with funnel shifts and stores out[w * G + g], a warp's
-//     stores one 128-B segment.  The N triple buffers are read through a
-//     pointer table and strides: with signer-major lanes (col_stride 1, as
-//     the pipeline lays them out) a warp's copies of a row are one 128-B
-//     segment; with group-major lanes (col_stride N) they span 32*N words.
+//     one pass of up to kAggR rows, or, where the groups' offsets spread
+//     wider, each group its own window (any spread is correct).  Each
+//     thread ORs its group's words from shared memory into registers with
+//     funnel shifts and stores out[w * G + g], a warp's stores one 128-B
+//     segment.  The N triples are one strided view [words, N, G]: with
+//     signer-major lanes (strides N*G, G and 1, as the pipeline lays them
+//     out) a warp's copies of a row are one 128-B segment; with group-major
+//     lanes (strides G*N, 1 and N) they span 32*N words.
+//     A run of rows starts its walk at op 0 while the ops fit the lengths
+//     a block holds (kAggOps: N <= 15).  With more (N=1,024 signers: 2,049
+//     ops, ~22,000 runs of a ~2.8 M-word preimage) that walk would be O(N)
+//     a run.  So a first launch (agg_prefix) sums each group's triple
+//     lengths into prefix offsets, a block of warps a tile of groups, and
+//     writes the totals; each run's warp 0 then finds, lane by lane, the
+//     last op that starts at or before the run's first byte (galloping from
+//     the run before it, or from the guess the group's total gives) and
+//     the block walks from the least of them.
 //
 // What bounds them.  Their bytes, at G=8192, N=4, secpar=256 (B=32,768
 // signers), counting full widths: signer_fold_a reads ~70 MB and writes ~475 MB,
@@ -138,18 +148,102 @@ FCT_HD void signer_fold_b_tile(const int32_t* ops, int n_ops, const uint32_t* po
 }
 
 // agg_fold, per group.  The aggregation preimage is a list of segments in
-// op order: const (pool bytes) or extra e (group g's triple e, packed words
-// tb[e][i * row_stride + g * col_stride], tl[e][g * len_stride] bytes long).
-// Output word w of a group ORs the segments that overlap its bytes
-// [4w, 4w + 4), each shifted to its byte offset.
+// op order: const (pool bytes) or extra e (group g's triple e).  Output
+// word w of a group ORs the segments that overlap its bytes [4w, 4w + 4),
+// each shifted to its byte offset.
 
-// Bytes of op j for the group whose lengths sit at tl[e][len_off], clamped to
-// the triple buffer's width.
-FCT_HD int agg_op_len(const int32_t* ops, int j, const int32_t* const* tl, int64_t len_off,
-                      int tri_rows) {
+// The N triples as strided views: group g's triple e has its packed word i
+// at tb[i * row_stride + e * signer_stride + g * group_stride] and its
+// length at tl[e * len_signer_stride + g * len_group_stride] bytes (clamped
+// to the buffer's tri_rows words).
+struct AggSrc {
+  const uint32_t* tb;
+  const int32_t* tl;
+  int64_t row_stride, signer_stride, group_stride, len_signer_stride, len_group_stride;
+  int tri_rows;
+};
+
+FCT_HD int agg_tri_len(const AggSrc& a, int e, int64_t g) {
+  return clamp_int(a.tl[e * a.len_signer_stride + g * a.len_group_stride], 0, 4 * a.tri_rows);
+}
+
+// Bytes of op j for group g.
+FCT_HD int agg_op_len(const int32_t* ops, int j, const AggSrc& a, int64_t g) {
   const int32_t* op = ops + j * kOpFields;
-  if (op[0] == kOpConst) return op[3];
-  return clamp_int(tl[op[2]][len_off], 0, 4 * tri_rows);
+  return op[0] == kOpConst ? op[3] : agg_tri_len(a, op[2], g);
+}
+
+// With prefix offsets: op_at[2j], op_at[2j + 1] are the const bytes and the
+// extras before op j (j <= n_ops; the extras in op order are triples 0, 1,
+// ...), prefix[e * groups + g] group g's triple bytes up to triple e,
+// inclusive.  Op j starts at op_at[2j] + prefix[(op_at[2j+1] - 1) * groups
+// + g].
+FCT_HD int agg_op_start(const int32_t* op_at, const int32_t* prefix, int64_t groups, int64_t g,
+                        int j) {
+  const int e = op_at[2 * j + 1];
+  return op_at[2 * j] + (e ? prefix[(int64_t)(e - 1) * groups + g] : 0);
+}
+
+// The last op below n_ops that starts at or before byte b of group g (ops
+// lie end to end from byte 0, so it holds byte b if any op does), galloping
+// from op ``guess`` up or down, then halving the bracket.
+FCT_HD int agg_last_op_at(const int32_t* op_at, const int32_t* prefix, int64_t groups,
+                          int64_t g, int n_ops, int b, int guess) {
+  guess = clamp_int(guess, 0, n_ops - 1);
+  int lo, hi, step = 1;  // op lo starts at or before b; op hi after it, or hi == n_ops
+  if (agg_op_start(op_at, prefix, groups, g, guess) <= b) {
+    for (lo = guess;; step *= 2) {
+      hi = lo + step;
+      if (hi >= n_ops) {
+        hi = n_ops;
+        break;
+      }
+      if (agg_op_start(op_at, prefix, groups, g, hi) > b) break;
+      lo = hi;
+    }
+  } else {
+    for (hi = guess;; step *= 2) {
+      lo = hi - step;
+      if (lo <= 0) {
+        lo = 0;
+        break;
+      }
+      if (agg_op_start(op_at, prefix, groups, g, lo) <= b) break;
+      hi = lo;
+    }
+  }
+  while (hi - lo > 1) {
+    const int mid = lo + (hi - lo) / 2;
+    if (agg_op_start(op_at, prefix, groups, g, mid) <= b)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// The prefix launch's warps: warp ``part`` of ``parts`` takes a share of the
+// N triples (agg_prefix_share), sums their clamped lengths for group g
+// (agg_share_sum), then, given the sum of the shares before it, writes their
+// inclusive prefix (agg_share_prefix).
+FCT_HD void agg_prefix_share(int n_signers, int parts, int part, int& e0, int& e1) {
+  const int per = (n_signers + parts - 1) / parts;
+  e0 = part * per < n_signers ? part * per : n_signers;
+  e1 = e0 + per < n_signers ? e0 + per : n_signers;
+}
+
+FCT_HD int agg_share_sum(const AggSrc& a, int e0, int e1, int64_t g) {
+  int sum = 0;
+  for (int e = e0; e < e1; ++e) sum += agg_tri_len(a, e, g);
+  return sum;
+}
+
+FCT_HD void agg_share_prefix(const AggSrc& a, int e0, int e1, int64_t g, int64_t groups,
+                             int before, int32_t* prefix) {
+  for (int e = e0; e < e1; ++e) {
+    before += agg_tri_len(a, e, g);
+    prefix[(int64_t)e * groups + g] = before;
+  }
 }
 
 // Does a segment of ``len`` bytes at byte ``s`` overlap the bytes [b0, b1)?
@@ -261,21 +355,28 @@ constexpr int kAggTG = 32;
 constexpr int kAggWarps = 8;
 constexpr int kAggTW = 128;
 constexpr int kAggR = 256;
+static_assert(kAggTW + 1 <= kAggR, "a group's window of a run fits one pass");
 constexpr int kAggOps = 32;
+constexpr int kAggOpsWide = 8;  // with prefix offsets, ops held at once: a run meets 2 to 4
 constexpr int kAggMinBlocks = 3;
+constexpr int kPrefixWarps = 32;  // the prefix launch's warps a tile (shares of the N triples)
 
 // A tile's staging buffer, rows [c_lo, c_lo + c_n) of one triple for the
 // tile's TG groups (stage[r * TG + lane]); thread (row0, lane) copies rows
 // row0, row0 + row_step, ...  On the card the copies are asynchronous
 // (cp.async: every row of the pass in flight at once, no registers); the
 // caller waits for them.  A warp's copies of a row are one contiguous
-// 4*TG-byte segment when the triples' columns are (col_stride 1).
+// 4*TG-byte segment when the groups' columns are (group_stride 1).  Where
+// the tile's groups spread over more rows than a pass holds (hundreds at
+// N=1,024: their offsets drift apart triple by triple), each group stages
+// only its own window instead, from its own first row c_lo: the warp's
+// copies of a row are then scattered, but one pass holds every window.
 template <int TG>
-FCT_HD void agg_stage_rows(uint32_t* stage, const uint32_t* src, int64_t row_stride,
-                           int64_t col_off, bool live, int c_lo, int c_n, int row0,
-                           int row_step, int lane) {
+FCT_HD void agg_stage_rows(uint32_t* stage, const AggSrc& a, int e, int64_t g, bool live,
+                           int c_lo, int c_n, int row0, int row_step, int lane) {
   if (!live) return;
-  const uint32_t* p = src + col_off;
+  const int64_t row_stride = a.row_stride;
+  const uint32_t* p = a.tb + e * a.signer_stride + g * a.group_stride;
   for (int r = row0; r < c_n; r += row_step) {
 #ifdef __CUDA_ARCH__
     __pipeline_memcpy_async(stage + r * TG + lane, p + (int64_t)(c_lo + r) * row_stride, 4);
@@ -333,20 +434,21 @@ struct AggTile {
   int n;                        // ops listed: jbase + first, ...
   int first;
   int more;                     // go on from op ``next``
-  int next;
+  int next;                     // (with prefix offsets, first the run's first op)
   int u_lo[kAggOps];            // a listed triple's source rows that the tile's groups read
   int u_hi[kAggOps];
   uint32_t stage[kAggR * kAggTG];
 };
 
-// Warp 0, lane = group of the tile: the byte offsets of the held ops from
-// s (op jbase's offset in this lane's group; on return the offset of op
-// ``next``), and the list: the ops from the first to the last that overlaps
-// the bytes [b0, b1) of some group, with each triple's union of source
-// rows.  ``more`` when the held ops ran out before every group passed b1.
-__device__ __forceinline__ void agg_walk(AggTile& sh, int n_ops, int jbase, bool live, int b0,
-                                         int b1, int lane, int& s) {
-  const int count = n_ops - jbase < kAggOps ? n_ops - jbase : kAggOps;
+// Warp 0, lane = group of the tile: the byte offsets of the ``hold`` (at
+// most kAggOps) ops held from s (op jbase's offset in this lane's group; on
+// return the offset of op ``next``), and the list: the ops from the first
+// to the last that overlaps the bytes [b0, b1) of some group, with each
+// triple's union of source rows.  ``more`` when the held ops ran out before
+// every group passed b1.
+__device__ __forceinline__ void agg_walk(AggTile& sh, int n_ops, int jbase, int hold, bool live,
+                                         int b0, int b1, int lane, int& s) {
+  const int count = n_ops - jbase < hold ? n_ops - jbase : hold;
   int first = kAggOps, last = -1;
   for (int k = 0; k < count; ++k) {
     const int len = sh.lens[k][lane];
@@ -381,13 +483,33 @@ __device__ __forceinline__ void agg_walk(AggTile& sh, int n_ops, int jbase, bool
   }
 }
 
+// Warp 0 of a run with prefix offsets, lane = group of the tile: the last
+// op at or before byte b0 of each live group (from ``hint``, the run
+// before's, or the guess from the group's total), the least of them in
+// sh.next, and s = its offset in this lane's group.
+__device__ __forceinline__ void agg_run_start(AggTile& sh, const int32_t* op_at,
+                                              const int32_t* prefix, const int32_t* total,
+                                              int64_t groups, int64_t g, bool live, int n_ops,
+                                              int b0, int& hint, int& s) {
+  int j = kIntMax;
+  if (live) {
+    if (hint < 0) hint = (int)((int64_t)b0 * n_ops / (total[g] > 0 ? total[g] : 1));
+    hint = agg_last_op_at(op_at, prefix, groups, g, n_ops, b0, hint);
+    j = hint;
+  }
+  const int jbase = __reduce_min_sync(kAllThreads, j);
+  s = live ? agg_op_start(op_at, prefix, groups, g, jbase) : 0;
+  if (threadIdx.x == 0) sh.next = jbase;
+}
+
+// kWide: with prefix offsets (op_at, prefix), each group's own window
+// where the tile's spread exceeds a pass; else every run walks from op 0.
+template <bool kWide>
 __global__ void __launch_bounds__(kAggTG * kAggWarps, kAggMinBlocks)
 agg_fold_kernel(const int32_t* __restrict__ ops, int n_ops,
-                const uint32_t* __restrict__ pool, const uint32_t* const* tb,
-                const int32_t* const* tl, int64_t row_stride, int64_t col_stride,
-                int64_t len_stride, int tri_rows, int64_t groups,
-                uint32_t* __restrict__ out, int out_width,
-                int32_t* __restrict__ total) {
+                const uint32_t* __restrict__ pool, AggSrc src, int64_t groups,
+                uint32_t* __restrict__ out, int out_width, int32_t* __restrict__ total,
+                const int32_t* __restrict__ op_at, const int32_t* __restrict__ prefix) {
   constexpr int WPT = kAggTW / kAggWarps;  // output words per thread
   __shared__ AggTile sh;
   const int lane = threadIdx.x % kAggTG;
@@ -395,7 +517,15 @@ agg_fold_kernel(const int32_t* __restrict__ ops, int n_ops,
   const int64_t g = (int64_t)blockIdx.x * kAggTG + lane;
   const bool live = g < groups;
   const int runs = (out_width + kAggTW - 1) / kAggTW;
-  for (int run = blockIdx.y; run < runs; run += gridDim.y) {
+  // with prefix offsets a block takes consecutive runs (each one's search
+  // starts at the op the run before found), else runs gridDim.y apart
+  const int per = (runs + gridDim.y - 1) / gridDim.y;
+  const int run0 = kWide ? blockIdx.y * per : blockIdx.y;
+  const int run_end = kWide ? (run0 + per < runs ? run0 + per : runs) : runs;
+  const int run_step = kWide ? 1 : gridDim.y;
+  constexpr int hold = kWide ? kAggOpsWide : kAggOps;
+  int hint = -1;  // with prefix offsets: warp 0's last first op
+  for (int run = run0; run < run_end; run += run_step) {
     const int w0 = run * kAggTW;
     const int w1 = w0 + kAggTW < out_width ? w0 + kAggTW : out_width;
     const int b0 = 4 * w0, b1 = 4 * w1;
@@ -403,11 +533,17 @@ agg_fold_kernel(const int32_t* __restrict__ ops, int n_ops,
 #pragma unroll
     for (int u = 0; u < WPT; ++u) acc[u] = 0u;
     int jbase = 0, s = 0;  // the held ops' first, its byte offset in this lane's group (warp 0)
-    for (;;) {
-      for (int k = warp; k < kAggOps && jbase + k < n_ops; k += kAggWarps)
-        sh.lens[k][lane] = live ? agg_op_len(ops, jbase + k, tl, g * len_stride, tri_rows) : 0;
+    if (kWide) {
+      if (warp == 0)
+        agg_run_start(sh, op_at, prefix, total, groups, g, live, n_ops, b0, hint, s);
       __syncthreads();
-      if (warp == 0) agg_walk(sh, n_ops, jbase, live, b0, b1, lane, s);
+      jbase = sh.next;
+    }
+    for (;;) {
+      for (int k = warp; k < hold && jbase + k < n_ops; k += kAggWarps)
+        sh.lens[k][lane] = live ? agg_op_len(ops, jbase + k, src, g) : 0;
+      __syncthreads();
+      if (warp == 0) agg_walk(sh, n_ops, jbase, hold, live, b0, b1, lane, s);
       __syncthreads();
       const int n = sh.n;
       for (int q = 0; q < n; ++q) {
@@ -420,12 +556,24 @@ agg_fold_kernel(const int32_t* __restrict__ ops, int n_ops,
                            (my_len + 3) >> 2);
           continue;
         }
-        const uint32_t* src = tb[o[2]];
         const int u_lo = sh.u_lo[q], u_hi = sh.u_hi[q];
+        if (kWide && u_hi - u_lo >= kAggR) {  // spread wider than a pass: each its own window
+          int lo = 0, hi = -1;
+          if (live && agg_overlaps(my_s, my_len, b0, b1))
+            agg_window_rows(my_s, my_len, b0, b1, lo, hi);
+          agg_stage_rows<kAggTG>(sh.stage, src, o[2], g, live, lo, hi + 1 - lo, warp, kAggWarps,
+                                 lane);
+          __pipeline_commit();
+          __pipeline_wait_prior(0);
+          __syncthreads();
+          agg_compose<WPT>(acc, w0 + warp, kAggWarps, w1, my_s, my_len, sh.stage + lane, kAggTG,
+                           lo, hi + 1 - lo);
+          __syncthreads();  // before the next op's pass overwrites the stage
+          continue;
+        }
         for (int c_lo = u_lo; c_lo <= u_hi; c_lo += kAggR) {
           const int c_n = u_hi + 1 - c_lo < kAggR ? u_hi + 1 - c_lo : kAggR;
-          agg_stage_rows<kAggTG>(sh.stage, src, row_stride, g * col_stride, live, c_lo, c_n,
-                                 warp, kAggWarps, lane);
+          agg_stage_rows<kAggTG>(sh.stage, src, o[2], g, live, c_lo, c_n, warp, kAggWarps, lane);
           __pipeline_commit();
           __pipeline_wait_prior(0);
           __syncthreads();
@@ -439,8 +587,8 @@ agg_fold_kernel(const int32_t* __restrict__ ops, int n_ops,
       __syncthreads();  // every warp has read the list before it is rewritten
       if (!more) break;
     }
-    if (run == 0 && warp == 0 && live) {
-      for (int j = jbase; j < n_ops; ++j) s += agg_op_len(ops, j, tl, g * len_stride, tri_rows);
+    if (!kWide && run == 0 && warp == 0 && live) {
+      for (int j = jbase; j < n_ops; ++j) s += agg_op_len(ops, j, src, g);
       total[g] = s;
     }
     if (live) {
@@ -452,6 +600,31 @@ agg_fold_kernel(const int32_t* __restrict__ ops, int n_ops,
     }
     __syncthreads();  // every warp has read sh.more before the next run's walk
   }
+}
+
+// The prefix launch: a block of kPrefixWarps warps a tile of kAggTG groups,
+// warp ``part`` a share of the N triples (lane = group): the shares' sums,
+// the sums of the shares before each, then the inclusive prefix; the last
+// share's last thread writes the group's total (const_bytes: op_at's
+// entry for n_ops, the table's const bytes).
+__global__ void __launch_bounds__(kAggTG * kPrefixWarps)
+agg_prefix_kernel(AggSrc src, int n_signers, int64_t groups,
+                  const int32_t* __restrict__ const_bytes, int32_t* __restrict__ prefix,
+                  int32_t* __restrict__ total) {
+  __shared__ int sums[kPrefixWarps][kAggTG];
+  const int lane = threadIdx.x % kAggTG;
+  const int part = threadIdx.x / kAggTG;
+  const int64_t g = (int64_t)blockIdx.x * kAggTG + lane;
+  const bool live = g < groups;
+  int e0, e1;
+  agg_prefix_share(n_signers, kPrefixWarps, part, e0, e1);
+  sums[part][lane] = live ? agg_share_sum(src, e0, e1, g) : 0;
+  __syncthreads();
+  if (!live) return;
+  int before = 0;
+  for (int p = 0; p < part; ++p) before += sums[p][lane];
+  agg_share_prefix(src, e0, e1, g, groups, before, prefix);
+  if (part == kPrefixWarps - 1) total[g] = *const_bytes + before + sums[part][lane];
 }
 
 #endif
@@ -491,22 +664,39 @@ extern "C" int fct_signer_fold_b(const int32_t* ops, int n_ops, const uint32_t* 
   return (int)cudaGetLastError();
 }
 
-// ptrs: int64[2N] device array, N triple-buffer pointers then N length
-// pointers; element (w, g) of triple k at ptrs[k] + w*row_stride + g*col_stride.
+// tb, tl: the N triples as strided views (AggSrc).  With op_at
+// (int32[n_ops + 1, 2], see agg_op_start) and prefix (int32[N, groups] of
+// scratch) non-null: the prefix launch first, then runs that start at
+// their first op; with both null one launch that walks every run from op 0.
 extern "C" int fct_agg_fold(const int32_t* ops, int n_ops, const uint32_t* pool,
-                            const int64_t* ptrs, int n_signers, int64_t row_stride,
-                            int64_t col_stride, int64_t len_stride, int tri_rows,
-                            int64_t groups, uint32_t* out, int out_width,
-                            int32_t* total, void* stream) {
+                            const uint32_t* tb, const int32_t* tl, int n_signers,
+                            int64_t row_stride, int64_t signer_stride, int64_t group_stride,
+                            int64_t len_signer_stride, int64_t len_group_stride, int tri_rows,
+                            int64_t groups, uint32_t* out, int out_width, int32_t* total,
+                            const int32_t* op_at, int32_t* prefix, void* stream) {
   if (groups <= 0 || out_width <= 0) return 0;
+  const AggSrc src{tb, tl, row_stride, signer_stride, group_stride, len_signer_stride,
+                   len_group_stride, tri_rows};
+  const unsigned tiles = (unsigned)((groups + kAggTG - 1) / kAggTG);
+  if (prefix != nullptr)
+    agg_prefix_kernel<<<tiles, kAggTG * kPrefixWarps, 0, (cudaStream_t)stream>>>(
+        src, n_signers, groups, op_at + 2 * n_ops, prefix, total);
   const int runs = (out_width + kAggTW - 1) / kAggTW;
-  const dim3 grid((unsigned)((groups + kAggTG - 1) / kAggTG),
-                  (unsigned)(runs < 65535 ? runs : 65535));
-  const uint32_t* const* tb = reinterpret_cast<const uint32_t* const*>(ptrs);
-  const int32_t* const* tl = reinterpret_cast<const int32_t* const*>(ptrs + n_signers);
-  agg_fold_kernel<<<grid, kAggTG * kAggWarps, 0, (cudaStream_t)stream>>>(
-      ops, n_ops, pool, tb, tl, row_stride, col_stride, len_stride, tri_rows, groups, out,
-      out_width, total);
+  int blocks_y = runs < 65535 ? runs : 65535;
+  if (prefix != nullptr) {  // about four waves of the card's resident blocks
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int64_t want = (4LL * kAggMinBlocks * sms + tiles - 1) / tiles;
+    blocks_y = want < blocks_y ? (want > 1 ? (int)want : 1) : blocks_y;
+  }
+  const dim3 grid(tiles, (unsigned)blocks_y);
+  if (prefix != nullptr)
+    agg_fold_kernel<true><<<grid, kAggTG * kAggWarps, 0, (cudaStream_t)stream>>>(
+        ops, n_ops, pool, src, groups, out, out_width, total, op_at, prefix);
+  else
+    agg_fold_kernel<false><<<grid, kAggTG * kAggWarps, 0, (cudaStream_t)stream>>>(
+        ops, n_ops, pool, src, groups, out, out_width, total, op_at, prefix);
   return (int)cudaGetLastError();
 }
 #endif

@@ -51,8 +51,8 @@ SOURCES = {
                               _P, _P],
         "fct_signer_fold_b": [_P, _I32, _P, _P, _I32, _P, _P, _I32, _P, _P, _I64, _P, _I32,
                               _P, _P],
-        "fct_agg_fold": [_P, _I32, _P, _P, _I32, _I64, _I64, _I64, _I32, _I64, _P, _I32, _P,
-                         _P],
+        "fct_agg_fold": [_P, _I32, _P, _P, _P, _I32, _I64, _I64, _I64, _I64, _I64, _I32, _I64,
+                         _P, _I32, _P, _P, _P, _P],
     },
     "assemble_spec.cu": {
         "fct_assemble_spec": [_P, _I32, _P, _P, _I64, _P, _I64, _P, _I32, _P, _P],
@@ -68,7 +68,7 @@ SOURCES = {
     },
     "lattice_target.cu": {
         "fct_lattice_target": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _I32, _U32, _U64, _I64,
-                               _I64, _P, _P, _P, _P],
+                               _I64, _P, _P, _P, _I32, _P, _P],
     },
     "place_preimages.cu": {
         "fct_place_preimages": [_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P],

@@ -10,8 +10,9 @@ names and contracts:
 * :func:`signer_fold_b`: the ``str(vk)`` chunk + prehash digits + centered
   challenge values -> the triple ``str((vk, i, challenge))``
   (fusion.py:586-589);
-* :func:`agg_fold`: N triples -> the padded aggregation preimage
-  ``dst + "," + str(list(zip(...)))`` (fusion.py:573-591).
+* :func:`agg_fold`: N triples of G groups, one strided view -> the padded
+  aggregation preimage ``dst + "," + str(list(zip(...)))``
+  (fusion.py:573-591).
 
 Words are int32 carrying uint32 bit patterns, batch minor ([W, B]); every
 output is zero past its length up to its full width.  The kernels are in
@@ -22,8 +23,10 @@ version, built from the word-assembly functions of ``interop/device_serial``.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from functools import lru_cache
+from typing import Tuple
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -32,6 +35,7 @@ from . import ragged_words as rw
 from .upload import upload
 
 PRE_ROWS = rw.words_for(ds.PREHASH_W)  # 20 words of prehash digits
+AGG_OPS_HELD = 32  # op lengths an agg_fold block holds (csrc/preimage_fold.cu kAggOps)
 
 
 def _pre_chunk(pre_w: torch.Tensor, pre_len: torch.Tensor) -> rw.WChunk:
@@ -63,16 +67,38 @@ def signer_fold_b_plain(params, vk_buf: torch.Tensor, vk_len: torch.Tensor,
     return ds.fold_triple_w(params, vk_chunk, _pre_chunk(pre_w, pre_len), c_hat_t)
 
 
-def agg_fold_plain(params, n_signers: int, tbs: Sequence[torch.Tensor],
-                   tls: Sequence[torch.Tensor]):
+def agg_fold_plain(params, n_signers: int, tbuf: torch.Tensor, tlen: torch.Tensor):
     """Plain version of :func:`agg_fold`."""
     tri_spec = ds.triple_spec(params)
     spec = ds.agg_preimage_spec(params, n_signers, tri_spec.out_max)
     bounds = [(ds.spec_min_total(tri_spec, [1]), tri_spec.out_max)] * n_signers
     return ds.assemble_chunks_words(
-        spec, values=None, extras=list(zip(tbs, tls)), extra_bounds=bounds,
+        spec, values=None, extras=[(tbuf[:, k], tlen[k]) for k in range(n_signers)],
+        extra_bounds=bounds,
         pad_words=ds.agg_fold_table(params, n_signers).widths[0],
     )
+
+
+def agg_op_at(ops: np.ndarray) -> np.ndarray:
+    """int32[n_ops + 1, 2] of an aggregation op table: the const bytes and
+    the extras before each op (and in all), the extras in op order being
+    triples 0, 1, ...: op j starts at ``[j, 0]`` plus the bytes of the
+    group's first ``[j, 1]`` triples."""
+    out = np.zeros((len(ops) + 1, 2), np.int32)
+    for j, (kind, _, arg, n, _, _) in enumerate(ops):
+        out[j + 1] = out[j]
+        if kind == ds.OP_CONST:
+            out[j + 1, 0] += n
+        else:
+            if arg != out[j, 1]:
+                raise ValueError(f"op {j} reads triple {arg}, not triple {out[j, 1]} in turn")
+            out[j + 1, 1] += 1
+    return out
+
+
+@lru_cache(maxsize=16)
+def _agg_op_at_on(params, n_signers: int, device: str) -> torch.Tensor:
+    return upload(agg_op_at(ds.agg_fold_table(params, n_signers).ops), device)
 
 
 # ---------------------------------------------------------------------------
@@ -159,45 +185,55 @@ def _signer_fold_b_launch(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t, outs=
     return trib, trit
 
 
-def agg_fold(params, n_signers: int, tbs: Sequence[torch.Tensor],
-             tls: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """N triple buffers int32[Wtri, G] (zero past their lengths) and lengths
-    int32[G] -> (agg_wbuf int32[Wagg, G], agg_total int32[G]), the
-    aggregation preimage padded to whole SHAKE256 rate blocks (kernel
-    ``agg_fold``).  The buffers may be strided views (for example signer k's
-    columns of one [Wtri, G*N] buffer) with one shared pair of strides; the
-    lengths likewise.  The kernel reads a row of 32 neighbouring groups of
-    one triple at a time, fastest when a triple's columns are contiguous
-    (column stride 1: signer-major lanes, as the pipeline lays them out)."""
-    if len(tbs) != n_signers or len(tls) != n_signers:
-        raise ValueError(f"agg_fold needs {n_signers} triples and lengths, "
-                         f"got {len(tbs)} and {len(tls)}")
-    if tbs[0].device.type == "cpu":
-        return agg_fold_plain(params, n_signers, tbs, tls)
+def agg_fold(params, n_signers: int, tbuf: torch.Tensor, tlen: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The N triples of G groups as strided views, int32[Wtri, N, G] words
+    (zero past their lengths) and int32[N, G] lengths -> (agg_wbuf
+    int32[Wagg, G], agg_total int32[G]), the aggregation preimage padded to
+    whole SHAKE256 rate blocks (kernel ``agg_fold``).  The kernel reads a
+    row of 32 neighbouring groups of one triple at a time, fastest when a
+    triple's groups are contiguous (signer-major lanes, as the pipeline lays
+    them out: ``buf.view(Wtri, N, G)`` of a [Wtri, N*G] buffer).  Beyond 15
+    signers (more ops than a block holds) a first launch sums each group's
+    triple lengths into prefix offsets, so that each run of output rows
+    starts at its first op."""
+    if (tbuf.dim() != 3 or tlen.dim() != 2 or tuple(tbuf.shape[1:]) != tuple(tlen.shape)
+            or tlen.shape[0] != n_signers or not tlen.shape[1]):
+        raise ValueError(f"agg_fold: triples {tuple(tbuf.shape)} and lengths "
+                         f"{tuple(tlen.shape)} are not [Wtri, {n_signers}, G] and "
+                         f"[{n_signers}, G]")
+    if tbuf.device.type == "cpu":
+        return agg_fold_plain(params, n_signers, tbuf, tlen)
+    return _agg_fold_launch(params, n_signers, tbuf, tlen)
+
+
+def _agg_fold_launch(params, n_signers, tbuf, tlen, outs=None):
+    """Kernel ``agg_fold`` (with its prefix launch beyond 15 signers) into
+    ``outs`` (its two outputs, for example pre-filled by a test) or new
+    tensors."""
     table = ds.agg_fold_table(params, n_signers)
-    dev = tbs[0].device
+    dev = tbuf.device
     tri_words = rw.words_for(ds.triple_spec(params).out_max)
-    G = tbs[0].shape[-1]
-    for name, ts, shape in (("tbs", tbs, (tri_words, G)), ("tls", tls, (G,))):
-        for t in ts:
-            if (t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != shape
-                    or t.stride() != ts[0].stride()):
-                raise ValueError(f"agg_fold: every {name} entry must be an int32{list(shape)} "
-                                 f"CUDA tensor on {dev} with one shared stride; got "
-                                 f"{t.dtype}{tuple(t.shape)} strides {t.stride()} on {t.device}")
-    # the pointer table goes over from pinned memory, asynchronously on the
-    # stream (a blocking copy would sync the device)
-    ptrs = upload([t.data_ptr() for t in (*tbs, *tls)], dev, torch.int64)
+    G = tlen.shape[1]
+    if tbuf.shape[0] != tri_words:
+        raise ValueError(f"agg_fold: triples of {tbuf.shape[0]} words, not {tri_words}")
+    for name, t in (("tbuf", tbuf), ("tlen", tlen)):
+        if t.device != dev or t.dtype != torch.int32:
+            raise ValueError(f"agg_fold: {name} must be int32 on {dev}, got {t.dtype} on "
+                             f"{t.device}")
     ops, pool = table.on(dev)
     (out_words,) = table.widths
-    out = torch.empty((out_words, G), dtype=torch.int32, device=dev)
-    total = torch.empty(G, dtype=torch.int32, device=dev)
-    rs, cs = tbs[0].stride()
+    out, total = kernels.outputs(outs, ((out_words, G), (G,)), dev)
+    op_at = prefix = None
+    if ops.shape[0] > AGG_OPS_HELD:
+        op_at = _agg_op_at_on(params, n_signers, str(dev))
+        prefix = torch.empty((n_signers, G), dtype=torch.int32, device=dev)
     rc = kernels.library().fct_agg_fold(
-        ops.data_ptr(), ops.shape[0], pool.data_ptr(), ptrs.data_ptr(), n_signers, rs, cs,
-        tls[0].stride(0), tri_words, G, out.data_ptr(), out_words, total.data_ptr(),
-        kernels.cuda_stream(),
+        ops.data_ptr(), ops.shape[0], pool.data_ptr(), tbuf.data_ptr(), tlen.data_ptr(),
+        n_signers, *tbuf.stride(), *tlen.stride(), tri_words, G, out.data_ptr(), out_words,
+        total.data_ptr(), None if op_at is None else op_at.data_ptr(),
+        None if prefix is None else prefix.data_ptr(), kernels.cuda_stream(),
     )
-    kernels.LAUNCHES["agg_fold"] += 1
+    kernels.LAUNCHES["agg_fold"] += 1 if prefix is None else 2
     kernels.check_launch(rc, "agg_fold")
     return out, total

@@ -60,6 +60,9 @@ KERNEL_FUNCTIONS = {
     "assemble_spec_kernel": "assemble_spec", "xof_decode_kernel": "xof_decode",
     "render_prehash_kernel": "render_prehash", "lattice_target_kernel": "lattice_target",
     "place_preimages_kernel": "place_preimages",
+    # the second launches of a split check and of a wide group's fold
+    "lattice_partial_kernel": "lattice_target", "lattice_combine_kernel": "lattice_target",
+    "agg_prefix_kernel": "agg_fold",
 }
 
 
@@ -193,8 +196,8 @@ def call_bounds(params, run) -> dict:
         "signer_fold_b": (pf, "signer_fold_b",
                           lambda p, vk_buf, vk_len, pre_w, pre_len, c_hat_t:
                           bounds.signer_fold_b(d, vk_len, pre_len, tri_w)),
-        "agg_fold": (pf, "agg_fold", lambda p, n, tbs, tls: bounds.agg_fold(
-            tls, ds.agg_fold_table(p, n).widths[0])),
+        "agg_fold": (pf, "agg_fold", lambda p, n, tbuf, tlen: bounds.agg_fold(
+            tlen, n, ds.agg_fold_table(p, n).widths[0])),
         "assemble_spec": (dp, "assemble_spec",
                           lambda spec, values, extras, extra_bounds, pad_words:
                           bounds.assemble_spec(

@@ -137,8 +137,8 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
         -> (pre_w int32[20, B], pre_len int32[B])
     signer_stage(vk2d_t int32[2d, B], pre_w int32[20, B], pre_len int32[B])
         -> (cc int32[B, d], c_hat_u int64[B, d], tbuf int32[Lt, B], tlen int32[B])
-    group_stage(tbs [N x int32[Lt, G]], tls [N x int32[G]]; strided views
-                with one shared stride allowed)
+    group_stage(tbuf int32[Lt, N, G], tlen int32[N, G]; strided views, fastest
+                with each signer's G triples contiguous)
         -> alphas int32[G, N, d]
     """
     if assembly not in ASSEMBLIES:
@@ -152,6 +152,7 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
     ch_spec, tri_spec = ds.challenge_preimage_spec(params), ds.triple_spec(params)
     pre_bounds = [(1, ds.PREHASH_W)]
     n_ag_words = -(-(N * g["block_ag"]) // 4)
+    agg_words = ds.agg_fold_table(params, N).widths[0]
 
     def prehash_stage(msg_words, msg_blocks):
         """Placed, padded preimage words (dst + "," + message) -> prehash
@@ -186,13 +187,18 @@ def make_stages(params: Params, n_signers: int, assembly: str = "fold"):
                 tbuf, tlen = pf.signer_fold_b(params, vk_buf, vk_len, pre_w, pre_len, c_hat_t)
             return cc, c_hat_u, tbuf, tlen
 
-    def group_stage(tbs, tls):
+    def group_stage(tbuf, tlen):
         with span("fct.group"):
-            G = tbs[0].shape[1]
-            wbuf, total = pf.agg_fold(params, N, tbs, tls)
-            blob_w = shake256_words_w(wbuf, total, n_ag_words)  # [ceil(N*block/4), G]
-            # signer k's stream starts at byte k * block_ag of the group's blob
-            al = xof_decode.decode_coeffs_rows(blob_w, g["geom_ag"], g["block_ag"], N)
+            G = tlen.shape[1]
+            count("group.signers", N)
+            count("group.agg_words", agg_words)
+            with span("fct.group.fold"):
+                wbuf, total = pf.agg_fold(params, N, tbuf, tlen)
+            with span("fct.group.sponge"):
+                blob_w = shake256_words_w(wbuf, total, n_ag_words)  # [ceil(N*block/4), G]
+            with span("fct.group.decode"):
+                # signer k's stream starts at byte k * block_ag of the group's blob
+                al = xof_decode.decode_coeffs_rows(blob_w, g["geom_ag"], g["block_ag"], N)
             return al.reshape(G, N, d)
 
     return prehash_stage, signer_stage, group_stage
@@ -250,16 +256,14 @@ class _Pipeline:
         holds each chunk's signer-major (triple words int32[Lt, N*c],
         lengths int32[N*c]) from :meth:`signer_chunk`, in order -> alphas
         int32[Σc, N, d].  One chunk is read in place; several are joined
-        signer by signer first."""
+        into one signer-major buffer first (one ``torch.cat`` each for the
+        words and the lengths)."""
         N = self.N
-        parts = [(tb, tl, tl.shape[0] // N) for tb, tl in triples]
-        tbs, tls = [], []
-        for k in range(N):
-            bufs = [tb[:, k * c:(k + 1) * c] for tb, _, c in parts]
-            lens = [tl[k * c:(k + 1) * c] for _, tl, c in parts]
-            tbs.append(bufs[0] if len(parts) == 1 else torch.cat(bufs, dim=1))
-            tls.append(lens[0] if len(parts) == 1 else torch.cat(lens))
-        return self.group(tbs, tls)
+        tbs = [tb.reshape(tb.shape[0], N, -1) for tb, _ in triples]
+        tls = [tl.reshape(N, -1) for _, tl in triples]
+        if len(triples) == 1:
+            return self.group(tbs[0], tls[0])
+        return self.group(torch.cat(tbs, dim=2), torch.cat(tls, dim=1))
 
     def hash_chunk(self, vkc: torch.Tensor, mw: torch.Tensor, mb: torch.Tensor):
         """Both hash halves of one chunk of complete groups (arguments as
@@ -279,9 +283,11 @@ class _Pipeline:
             # observed [G, d] and the rows' norms and weights [G, rank]: one
             # kernel launch over the int32 aggregates on the card
             observed, nrm, wgt = agg_check(self.plan, self.a_tab, aggs.contiguous())
-            # the target sum against observed, and the limits: one more launch
-            return lattice_target(F, vks, c_hat_u.reshape(G, N, d), alpha_u, observed, nrm, wgt,
-                                  min(params.beta_vf, 2**31 - 1), params.omega_vf)
+            # the target sum against observed, and the limits: one more
+            # launch, or two with few groups of many signers
+            with span("fct.lattice.target"):
+                return lattice_target(F, vks, c_hat_u.reshape(G, N, d), alpha_u, observed, nrm,
+                                      wgt, min(params.beta_vf, 2**31 - 1), params.omega_vf)
 
 
 def get_pipeline(params: Params, n_signers: int, device: str,

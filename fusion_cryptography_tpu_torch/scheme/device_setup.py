@@ -27,6 +27,7 @@ from ..hashing.sampler import sample_short_poly_coeffs
 from ..interop import device_serial as ds
 from ..ops import ragged_words as rw
 from ..ops.ntt import ntt_fwd_u
+from ..ops.upload import upload
 from ..params import Params
 from ..utils.profiling import span
 from . import device_pipeline as dp
@@ -70,35 +71,56 @@ def _keygen(params: Params, sk_coeffs: torch.Tensor) -> Tuple[torch.Tensor, torc
     return sk_u, vk_from_sk_hat(params, sk_u)
 
 
+KEY_BYTES = 12  # str(v) of an int32 (at most 11 bytes) and its terminator
+KEY_BITS = 4  # a key byte's code: the bytes of str(vk)'s numbers and terminators are few
+
+
+def _number_keys(params: Params, vk: torch.Tensor) -> torch.Tensor:
+    """vk int32[B, 2, d] -> int64[B, 2d]: each rendered number's sort key,
+    ``str(v) ++ terminator`` (the template byte after it,
+    interop/device_serial.number_terminators) zero-padded to 12 bytes, each
+    byte replaced by its rank among the bytes such keys hold (4 bits) and
+    packed most significant first.  Two keys compare as integers as their
+    byte strings compare lexicographically."""
+    B, d = vk.shape[0], params.degree
+    terms = ds.number_terminators(ds.vk_body_spec(params))
+    alphabet = sorted({0, ord("-"), *range(ord("0"), ord("9") + 1), *terms.tolist()})
+    if len(alphabet) > 1 << KEY_BITS:
+        raise ValueError(f"str(vk) keys hold {len(alphabet)} distinct bytes, more than "
+                         f"{1 << KEY_BITS}")
+    lut = np.zeros(256, np.int64)
+    lut[alphabet] = np.arange(len(alphabet))
+    chars, length = rw.decimal_chars(vk.reshape(B, 2 * d))  # [B, 2d, 11], [B, 2d]
+    keys = torch.nn.functional.pad(chars, (0, 1))  # [B, 2d, 12]
+    keys.scatter_(2, length.unsqueeze(-1),
+                  upload(terms, vk.device).view(1, 2 * d, 1).expand(B, 2 * d, 1))
+    codes = upload(lut, vk.device)[keys.long()]
+    shifts = upload(KEY_BITS * np.arange(KEY_BYTES - 1, -1, -1, dtype=np.int64), vk.device)
+    return (codes << shifts).sum(-1)
+
+
 def vk_sort_ranks(params: Params, vk: torch.Tensor, n_signers: int) -> torch.Tensor:
     """vk int32[B, 2, d] with groups of ``n_signers`` contiguous -> ranks
     int32[G, N]: each key's position in its group under the reference's
     stable sort by str(vk) (fusion.py:661-663).
 
-    Key of a rendered number: ``str(v) ++ terminator`` (the template byte
-    after it, interop/device_serial.number_terminators), zero-padded to 12
-    bytes; str(vk) order is the lexicographic order of the concatenated keys.
-    A pair's order is decided at its first differing key byte; ties keep the
-    original order (the sort's stability)."""
+    str(vk) order is the lexicographic order of the keys of its 2d numbers
+    (:func:`_number_keys`) in turn.  A stable sort of each group by one
+    number's key, from the last number to the first, gives that order, ties
+    in the original order (the reference's stable sort): 2d sorts of the
+    [G, N] keys, whatever N, and no wait for the device."""
     d = params.degree
     N = n_signers
     B = vk.shape[0]
     G = B // N
-    terms = torch.as_tensor(ds.number_terminators(ds.vk_body_spec(params)), device=vk.device)
-    chars, length = rw.decimal_chars(vk.reshape(B, 2 * d))  # [B, 2d, 11], [B, 2d]
-    keys = torch.nn.functional.pad(chars, (0, 1))  # [B, 2d, 12]
-    keys.scatter_(2, length.unsqueeze(-1), terms.view(1, 2 * d, 1).expand(B, 2 * d, 1))
-    keys = keys.reshape(G, N, 2 * d * 12)
-    rank = torch.zeros((G, N), dtype=torch.int32, device=vk.device)
-    for i in range(N):
-        for j in range(i + 1, N):
-            ki, kj = keys[:, i], keys[:, j]
-            first = (ki != kj).to(torch.uint8).argmax(dim=1, keepdim=True)  # 0 when equal
-            i_first = torch.gather(ki, 1, first) <= torch.gather(kj, 1, first)
-            i_first = i_first.squeeze(1)
-            rank[:, j] += i_first.to(torch.int32)
-            rank[:, i] += (~i_first).to(torch.int32)
-    return rank
+    keys = _number_keys(params, vk).reshape(G, N, 2 * d).permute(2, 0, 1).contiguous()
+    order = torch.arange(N, device=vk.device).expand(G, N)
+    for c in range(2 * d - 1, -1, -1):
+        _, idx = torch.sort(keys[c].gather(1, order), dim=1, stable=True)
+        order = order.gather(1, idx)
+    rank = torch.empty((G, N), dtype=torch.int32, device=vk.device)
+    return rank.scatter_(1, order, torch.arange(N, dtype=torch.int32,
+                                                device=vk.device).expand(G, N))
 
 
 def _math(params: Params, n_signers: int, sk_hat_u: torch.Tensor, c_hat_u: torch.Tensor,

@@ -18,12 +18,18 @@ call), ``fct.pack`` with ``fct.pack.encode``, ``fct.pack.scatter`` and
 ``fct.pack.upload`` (packing a chunk's messages: the join and encoding,
 the flat stream's copy into pinned memory and its upload, and the launch of
 kernel ``place_preimages``), ``fct.prehash``, ``fct.signer``,
-``fct.group``, ``fct.lattice`` (the pipeline's stages), ``fct.keygen`` with
-``fct.sample`` (the host sampler), ``fct.sign`` with ``fct.sign.product``
-(the signature product).  Its counters: ``pack.payload_bytes`` (the
-messages' bytes), ``pack.shipped_bytes`` (the uploaded stream's bytes, word
-padding included) and ``pack.rows_fallback`` (messages encoded one by one
-because their chunk was not all ASCII).
+``fct.group`` with ``fct.group.fold`` (kernel ``agg_fold``),
+``fct.group.sponge`` (the aggregation preimage's SHAKE256 absorb and
+squeeze) and ``fct.group.decode`` (the alphas' decode), ``fct.lattice`` with
+``fct.lattice.target`` (kernel ``lattice_target``) (the pipeline's stages),
+``fct.keygen`` with ``fct.sample`` (the host sampler), ``fct.sign`` with
+``fct.sign.product`` (the signature product).  Its counters:
+``pack.payload_bytes`` (the messages' bytes), ``pack.shipped_bytes`` (the
+uploaded stream's bytes, word padding included), ``pack.rows_fallback``
+(messages encoded one by one because their chunk was not all ASCII),
+``group.signers`` (N, once a group stage) and ``group.agg_words`` (the
+padded aggregation preimage's width in words, from the op table, once a
+group stage); none of them reads the device.
 """
 from __future__ import annotations
 

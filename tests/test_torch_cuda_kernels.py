@@ -228,9 +228,9 @@ def test_wrappers_check_their_inputs(dev):
         pf.signer_fold_a(params, z, pre_w.cpu(), pre_len)
     with pytest.raises(ValueError):  # int64 lengths
         pf.signer_fold_a(params, z, pre_w, pre_len.long())
-    with pytest.raises(ValueError):  # triples of different strides
-        tri = torch.zeros((801, 2 * B), dtype=torch.int32, device=dev)
-        pf.agg_fold(params, 2, [tri[:, :B], tri[:, ::2]], [pre_len, pre_len])
+    with pytest.raises(ValueError):  # lengths of other groups than the triples'
+        tri = torch.zeros((801, 2, B), dtype=torch.int32, device=dev)
+        pf.agg_fold(params, 2, tri, pre_len.view(1, B).expand(2, B)[:, 1:])
 
 
 @pytest.mark.parametrize("secpar", [128, 256])
@@ -253,23 +253,20 @@ def test_fold_kernels_match_plain(dev, secpar):
     got_a = pf.signer_fold_a(params, vk2d_t, pre_w, pre_len)
     got_b = pf.signer_fold_b(params, got_a[2], got_a[3], pre_w, pre_len, c_hat_t)
     G = B // N
-    tb = got_b[0][:, : G * N].reshape(-1, G, N)
-    tl = got_b[1][: G * N].reshape(G, N)
-    got_g = pf.agg_fold(params, N, [tb[:, :, k] for k in range(N)], [tl[:, k] for k in range(N)])
+    tb = got_b[0][:, : G * N].view(-1, G, N).transpose(1, 2)  # group-major lanes
+    tl = got_b[1][: G * N].view(G, N).t()
+    got_g = pf.agg_fold(params, N, tb, tl)
     torch.cuda.synchronize()
     assert all(kernels.LAUNCHES[k] == before.get(k, 0) + 1
                for k in ("signer_fold_a", "signer_fold_b", "agg_fold"))
     want_a = pf.signer_fold_a_plain(params, vk2d_t, pre_w, pre_len)
     want_b = pf.signer_fold_b_plain(params, want_a[2], want_a[3], pre_w, pre_len, c_hat_t)
-    wtb = want_b[0][:, : G * N].reshape(-1, G, N)
-    wtl = want_b[1][: G * N].reshape(G, N)
-    want_g = pf.agg_fold_plain(params, N, [wtb[:, :, k].contiguous() for k in range(N)],
-                               [wtl[:, k].contiguous() for k in range(N)])
+    want_g = pf.agg_fold_plain(params, N, want_b[0][:, : G * N].view(-1, G, N).transpose(1, 2),
+                               want_b[1][: G * N].view(G, N).t())
     for got, want in zip((*got_a, *got_b, *got_g), (*want_a, *want_b, *want_g)):
         assert torch.equal(got, want)
-    # separate contiguous buffers (no shared base) through the pointer table
-    got_c = pf.agg_fold(params, N, [tb[:, :, k].contiguous() for k in range(N)],
-                        [tl[:, k].contiguous() for k in range(N)])
+    # the same triples signer-major, copied into a buffer of their own
+    got_c = pf.agg_fold(params, N, tb.contiguous(), tl.contiguous())
     assert all(torch.equal(g, w) for g, w in zip(got_c, want_g))
 
 
@@ -315,12 +312,12 @@ def test_agg_fold_kernel_matches_plain(dev, secpar, N, G, signer_major):
     from test_torch_kernel_host import agg_triples
 
     params = fusion_setup(secpar, 2)
-    tbs, tls = agg_triples(params, G, N, secpar + 10 * N + G, signer_major, device=dev)
+    tbuf, tlen = agg_triples(params, G, N, secpar + 10 * N + G, signer_major, device=dev)
     before = kernels.LAUNCHES["agg_fold"]
-    got = pf.agg_fold(params, N, tbs, tls)
+    got = pf.agg_fold(params, N, tbuf, tlen)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["agg_fold"] == before + 1
-    want = pf.agg_fold_plain(params, N, tbs, tls)
+    want = pf.agg_fold_plain(params, N, tbuf, tlen)
     assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
 
 
@@ -516,6 +513,22 @@ def test_windowed_verify_makes_no_host_sync(dev, assembly):
     two = dp.derive_coeffs_device(params, vks, msgs, bad, group_chunk=3, assembly=assembly)
     for a, b in zip(one, two):
         assert torch.equal(a, b)
+    # 3 groups of N = 1,024 at secpar 256 (agg_fold's prefix launch, the split
+    # lattice check), signer chunks of one group joined into windows of two
+    p256 = fusion_setup(256, 5)
+    vks, msgs, aggs = build_fleet(p256, 3, 1024, seed0=77, device=dev)
+    aggs[1, 0, 0] = (aggs[1, 0, 0] + 1) % Q
+    want = dp.verify_batch_device(p256, vks, msgs, aggs, assembly=assembly)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = dp.verify_batch_device(p256, vks, msgs, aggs, group_chunk=1, group_hash_chunk=2,
+                                     assembly=assembly)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[0].tolist() == [True, False, True]
 
 
 def _random_words(dev, W, L, seed):
@@ -757,3 +770,62 @@ def test_card_paths_run_no_plain_glue(dev, monkeypatch):
     agg = lc.aggregate(params, keys.vk, m, sigs.sig)
     assert lc.verify(params, keys.vk, m, agg) == (True, "")
     assert all((Counter(kernels.LAUNCHES) - before)[k] > 0 for k in names)
+
+
+@pytest.mark.parametrize("G,N", [(8192, 4), (32, 1024)], ids=["short", "wide"])
+def test_agg_fold_and_lattice_target_at_the_cells_shapes(dev, G, N):
+    """At the short cell's 8,192 groups of 4 and the wide cell's 32 groups of
+    1,024 (secpar 256): kernel ``agg_fold`` on stand-in triples over their
+    whole range (one signer-major buffer; with its prefix launch at N =
+    1,024) == ``agg_fold_plain``, into outputs filled with -1; kernel
+    ``lattice_target`` at ``lattice_split``'s slices (66 at the wide shape
+    on an H100) and at one warp a group == ``lattice_target_plain``, its
+    verdicts written over their negation, with a tampered target, a norm
+    breach and a weight breach."""
+    from test_torch_kernel_host import agg_triples
+
+    from fusion_cryptography_tpu_torch.ops.field import get_field
+    from fusion_cryptography_tpu_torch.ops.lattice_target import (
+        _lattice_target_launch, lattice_split, lattice_target_plain)
+
+    params = fusion_setup(256, 2)
+    q, d, rank = params.modulus, params.degree, params.rank
+    tbuf, tlen = agg_triples(params, G, N, G + N, True, device=dev)
+    (agg_w,) = ds.agg_fold_table(params, N).widths
+    want = pf.agg_fold_plain(params, N, tbuf, tlen)
+    outs = [torch.full((agg_w, G), -1, dtype=torch.int32, device=dev),
+            torch.full((G,), -1, dtype=torch.int32, device=dev)]
+    before = kernels.LAUNCHES["agg_fold"]
+    got = pf._agg_fold_launch(params, N, tbuf, tlen, outs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["agg_fold"] == before + (2 if N > 15 else 1)
+    assert got[0] is outs[0] and got[1] is outs[1]
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    del tbuf, tlen, want, got, outs
+
+    beta, omega = min(params.beta_vf, 2**31 - 1), params.omega_vf
+    F = get_field(q)
+    gen = torch.Generator(device=dev).manual_seed(N)
+
+    def rnd(lo, hi, shape, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, dtype=torch.int64, device=dev,
+                             generator=gen).to(dtype)
+
+    vks = rnd(-(q // 2), q // 2 + 1, (G, N, 2, d), torch.int32)
+    c, a = rnd(0, q, (G, N, d)), rnd(0, q, (G, N, d))
+    nrm, wgt = rnd(0, beta + 1, (G, rank), torch.int32), rnd(0, omega + 1, (G, rank), torch.int32)
+    vk_u = F.to_unsigned(vks)
+    t = F.add_mod(F.mont_mul(F.to_mont(c), vk_u[..., 0, :]), vk_u[..., 1, :])
+    observed = F.sum_mod(F.mont_mul(F.to_mont(a), t), axis=-2)
+    observed[1, d - 1] = (observed[1, d - 1] + 1) % q
+    nrm[2, -1], wgt[3, 0] = beta + 1, omega + 1
+    args = (F, vks, c, a, observed, nrm, wgt, beta, omega)
+    want = lattice_target_plain(*args)
+    assert [torch.nonzero(~x).flatten().tolist() for x in want] == [[1], [2], [3]]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for slices in {lattice_split(G, N, sms), 1}:
+        out = torch.stack([~x for x in want])
+        got = _lattice_target_launch(*args, slices, out)
+        for x, y in zip(got, want):
+            assert x.dtype == torch.bool and torch.equal(x, y)
+    assert (lattice_split(G, N, sms) > 1) == (N > 4)

@@ -62,7 +62,8 @@ def test_agg_fold_matches_jax(folds):
     jtbs = [jnp.roll(jb[0], k, axis=1) for k in range(N)]
     jtls = [jnp.roll(jb[1], k) for k in range(N)]
     want = jfp.agg_fold(jp, N, jtbs, jtls, tile=8, interpret=True)
-    got = pf.agg_fold(p, N, [torch.roll(tb[0], k, dims=1) for k in range(N)],
-                      [torch.roll(tb[1], k) for k in range(N)])
+    # the port takes the N triples as views [Wtri, N, G] and [N, G]
+    got = pf.agg_fold(p, N, torch.stack([torch.roll(tb[0], k, dims=1) for k in range(N)], dim=1),
+                      torch.stack([torch.roll(tb[1], k) for k in range(N)]))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), _i32(w))

@@ -38,7 +38,8 @@ from fusion_cryptography_tpu.ops import xof_decode as jxd
 from fusion_cryptography_tpu_torch.ops import ragged_words as trw
 from fusion_cryptography_tpu_torch.ops import xof_decode as txd
 from fusion_cryptography_tpu_torch.ops.field import get_field
-from fusion_cryptography_tpu_torch.ops.lattice_target import lattice_target, lattice_target_plain
+from fusion_cryptography_tpu_torch.ops.lattice_target import (lattice_split, lattice_target,
+                                                              lattice_target_plain)
 
 CSRC = Path(__file__).resolve().parents[1] / "fusion_cryptography_tpu_torch" / "csrc"
 Q = 2147465729
@@ -133,6 +134,46 @@ extern "C" void host_lattice_target(const int32_t* vks, const int64_t* c_hat,
     weight_ok[g] = (int64_t)mw <= omega;
   }
 }
+
+// The split check: every (slice, group) warp's 32 lanes of the first
+// launch into ``partial`` (pre-filled with marks by the caller), then each
+// group's block of the second: every coefficient's sum, the vote, warp 0's
+// limits.
+extern "C" void host_lattice_target_split(const int32_t* vks, const int64_t* c_hat,
+                                          const int64_t* alpha, const int64_t* observed,
+                                          const int32_t* nrm, const int32_t* wgt,
+                                          int64_t groups, int n, int d, int rank, uint32_t q,
+                                          uint64_t mu, int64_t beta, int64_t omega,
+                                          int slices, uint32_t* partial, uint8_t* eq,
+                                          uint8_t* norm_ok, uint8_t* weight_ok) {
+  for (int64_t w = 0; w < groups * slices; ++w) {
+    const int64_t g = w % groups;
+    for (int lane = 0; lane < WARP; ++lane)
+      partial_lane(vks + g * 2 * n * d, c_hat + g * n * d, alpha + g * n * d, n, d, q, mu,
+                   slices, (int)(w / groups), partial + w * d, lane);
+  }
+  for (int64_t g = 0; g < groups; ++g) {
+    bool e = true;
+    for (int i = 0; i < d; ++i)
+      e = e && (int64_t)combine_coef(partial + g * d, groups * d, slices, q, i) ==
+                   observed[g * d + i];
+    int32_t mn = INT32_MIN, mw = INT32_MIN;
+    for (int lane = 0; lane < WARP; ++lane) {
+      LatticeLane p;
+      limits_lane(p, nrm + g * rank, wgt + g * rank, rank, lane);
+      mn = p.nrm > mn ? p.nrm : mn;
+      mw = p.wgt > mw ? p.wgt : mw;
+    }
+    eq[g] = e;
+    norm_ok[g] = (int64_t)mn <= beta;
+    weight_ok[g] = (int64_t)mw <= omega;
+  }
+}
+
+// The signers [k0, k1) of each slice, concatenated: 2 * slices ints.
+extern "C" void host_slice_signers(int n, int slices, int32_t* out) {
+  for (int s = 0; s < slices; ++s) slice_signers(n, slices, s, out[2 * s], out[2 * s + 1]);
+}
 """
 
 
@@ -155,6 +196,9 @@ def lib(tmp_path_factory):
     lib.host_render_prehash.argtypes = [P, I64, P, P]
     lib.host_lattice_target.argtypes = [P, P, P, P, P, P, I64, I32, I32, I32, U32, U64, I64,
                                         I64, P, P, P]
+    lib.host_lattice_target_split.argtypes = [P, P, P, P, P, P, I64, I32, I32, I32, U32, U64,
+                                              I64, I64, I32, P, P, P, P]
+    lib.host_slice_signers.argtypes = [I32, I32, P]
     return lib
 
 
@@ -508,3 +552,45 @@ def test_lattice_target_lanes_match_plain_and_jax(lib, secpar, G, N):
                             rank, q, (1 << 64) // q, beta, omega, *(o.ctypes.data for o in outs))
     for o, w_ in zip(outs, want):
         np.testing.assert_array_equal(o, w_.astype(np.uint8))
+
+
+@pytest.mark.parametrize("secpar", [128, 256])
+@pytest.mark.parametrize("slices", [1, 3, 8, 64])
+def test_lattice_target_split_lanes_match_plain(lib, slices, secpar):
+    """The split check at N = 64 (G = 6 groups: a tampered target, a norm
+    and a weight breach, both limits met exactly): 1, 3 (slices of 22, 21
+    and 21 signers), 8 and 64 slices of the signers, the partial sums
+    written over marks, give the plain version's verdicts, at d = 64 and
+    256."""
+    params = ftpu.fusion_setup(secpar, 3)
+    q, d, rank = params.modulus, params.degree, params.rank
+    beta, omega = min(params.beta_vf, 2**31 - 1), params.omega_vf
+    G, N = 6, 64
+    ins = _lattice_inputs(q, G, N, d, rank, beta, omega, secpar + slices)
+    want = lattice_target_plain(get_field(q), *(torch.from_numpy(x) for x in ins), beta, omega)
+    assert want[0].tolist() == [g != 1 for g in range(G)]
+    partial = np.full((slices, G, d), 0xA5A5A5A5, np.uint32)
+    outs = np.full((3, G), 7, np.uint8)
+    lib.host_lattice_target_split(*(x.ctypes.data for x in ins), G, N, d, rank, q,
+                                  (1 << 64) // q, beta, omega, slices, partial.ctypes.data,
+                                  *(o.ctypes.data for o in outs))
+    for o, w_ in zip(outs, want):
+        np.testing.assert_array_equal(o, w_.numpy().astype(np.uint8))
+    assert (partial < q).all()  # every partial sum written, reduced mod q
+    spans = np.zeros(2 * slices, np.int32)
+    lib.host_slice_signers(N, slices, spans.ctypes.data)
+    k0, k1 = spans[0::2], spans[1::2]
+    assert k0[0] == 0 and k1[-1] == N and (k0[1:] == k1[:-1]).all()
+    assert (k1 - k0).max() - (k1 - k0).min() <= 1
+
+
+def test_lattice_split_by_shape():
+    """One slice (the one-launch kernel) at the short cell's 8,192 groups of
+    4 and wherever the groups fill the card; at 32 groups of 1,024 on 132
+    SMs, 66 slices of 15 or 16 signers."""
+    assert lattice_split(8192, 4, 132) == 1
+    assert lattice_split(32, 4, 132) == 1
+    assert lattice_split(4096, 1024, 132) == 1
+    assert lattice_split(32, 1024, 132) == 66
+    assert lattice_split(1, 1024, 132) == 128
+    assert lattice_split(2, 64, 132) == 8

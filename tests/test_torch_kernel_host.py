@@ -402,30 +402,64 @@ extern "C" void host_signer_fold_b_tiles(const int32_t* ops, int n_ops, const ui
 // agg_walk) runs lane by lane, its vote and min/max reductions as loops over
 // the lanes; each __syncthreads is a phase boundary.  The staging
 // buffer is poisoned before every pass, so a word composed from a row that
-// no thread copied fails the comparison.
-template <int TG, int TW, int R, int NWARPS, int OPS>
+// no thread copied fails the comparison.  With ``op_at`` and ``prefix``
+// the prefix launch runs first (its PW warps' shares lane by lane, into
+// ``prefix`` pre-filled by the caller), and the runs of a tile are dealt to
+// ``grid_y`` blocks as the kernel's grid does then (block y takes the y-th
+// share of consecutive runs), each lane's first op found from its last
+// (agg_run_start), WIDE ops held at once, and each group stages its own
+// window where the tile spreads wider than R rows (the kernel's kWide).
+template <int TG, int TW, int R, int NWARPS, int OPS, int PW, int WIDE>
 static void host_agg_fold_tiles(const int32_t* ops, int n_ops, const uint32_t* pool,
-                                const uint32_t* const* tb, const int32_t* const* tl,
-                                int64_t row_stride, int64_t col_stride, int64_t len_stride,
-                                int tri_rows, int64_t groups, uint32_t* out, int out_width,
-                                int32_t* total, int64_t* passes) {
+                                const AggSrc& src, int64_t groups, uint32_t* out, int out_width,
+                                int32_t* total, const int32_t* op_at, int32_t* prefix,
+                                int grid_y, int64_t* passes, int64_t* own) {
   constexpr int WPT = (TW + NWARPS - 1) / NWARPS;
   std::vector<uint32_t> stage(R * TG), acc(NWARPS * TG * WPT);
   const int runs = (out_width + TW - 1) / TW;
+  if (prefix != nullptr) {
+    for (int64_t g = 0; g < groups; ++g) {
+      int before = 0;
+      for (int part = 0; part < PW; ++part) {  // the shares in turn: their sums, then
+        int e0, e1;                            // the prefix from the sums before
+        agg_prefix_share(op_at[2 * n_ops + 1], PW, part, e0, e1);
+        const int sum = agg_share_sum(src, e0, e1, g);
+        agg_share_prefix(src, e0, e1, g, groups, before, prefix);
+        before += sum;
+      }
+      total[g] = op_at[2 * n_ops] + before;
+    }
+  }
+  const int blocks_y = prefix != nullptr ? grid_y : 1;
+  const int per = (runs + blocks_y - 1) / blocks_y;
+  const int hold = prefix != nullptr ? WIDE : OPS;
   for (int64_t g0 = 0; g0 < groups; g0 += TG) {
-    for (int run = 0; run < runs; ++run) {
+    for (int y = 0; y < blocks_y; ++y) {
+      int hint[TG];
+      std::fill(hint, hint + TG, -1);
+      for (int run = y * per; run < std::min(runs, (y + 1) * per); ++run) {
       const int w0 = run * TW, w1 = std::min(w0 + TW, out_width);
       const int b0 = 4 * w0, b1 = 4 * w1;
       std::fill(acc.begin(), acc.end(), 0u);
       int jbase = 0, s[TG] = {0};
+      if (prefix != nullptr) {
+        jbase = 0x7fffffff;
+        for (int t = 0; t < TG; ++t) {
+          const int64_t g = g0 + t;
+          if (g >= groups) continue;
+          if (hint[t] < 0) hint[t] = (int)((int64_t)b0 * n_ops / (total[g] > 0 ? total[g] : 1));
+          hint[t] = agg_last_op_at(op_at, prefix, groups, g, n_ops, b0, hint[t]);
+          jbase = std::min(jbase, hint[t]);
+        }
+        for (int t = 0; t < TG; ++t)
+          s[t] = g0 + t < groups ? agg_op_start(op_at, prefix, groups, g0 + t, jbase) : 0;
+      }
       for (;;) {
-        const int count = std::min(n_ops - jbase, OPS);
+        const int count = std::min(n_ops - jbase, hold);
         int lens[OPS][TG], starts[OPS][TG];
         for (int k = 0; k < count; ++k)
           for (int t = 0; t < TG; ++t)
-            lens[k][t] = g0 + t < groups
-                             ? agg_op_len(ops, jbase + k, tl, (g0 + t) * len_stride, tri_rows)
-                             : 0;
+            lens[k][t] = g0 + t < groups ? agg_op_len(ops, jbase + k, src, g0 + t) : 0;
         // the walk: each lane's offsets, the first and last op overlapping
         // some group, the list and its triples' unions of source rows
         int first = OPS, last = -1;
@@ -468,14 +502,35 @@ static void host_agg_fold_tiles(const int32_t* ops, int n_ops, const uint32_t* p
                                  lens[k][t], pool + o[2], 1, 0, (lens[k][t] + 3) >> 2);
             continue;
           }
+          if (prefix != nullptr && u_hi[q] - u_lo[q] >= R) {  // each group its own window
+            ++*passes;
+            ++*own;
+            std::fill(stage.begin(), stage.end(), 0xA5A5A5A5u);
+            int lo[TG], hi[TG];
+            for (int t = 0; t < TG; ++t) {
+              lo[t] = 0;
+              hi[t] = -1;
+              if (g0 + t < groups && agg_overlaps(starts[k][t], lens[k][t], b0, b1))
+                agg_window_rows(starts[k][t], lens[k][t], b0, b1, lo[t], hi[t]);
+            }
+            for (int w = 0; w < NWARPS; ++w)
+              for (int t = 0; t < TG; ++t)
+                agg_stage_rows<TG>(stage.data(), src, o[2], g0 + t, g0 + t < groups, lo[t],
+                                   hi[t] + 1 - lo[t], w, NWARPS, t);
+            for (int w = 0; w < NWARPS; ++w)
+              for (int t = 0; t < TG; ++t)
+                agg_compose<WPT>(&acc[(w * TG + t) * WPT], w0 + w, NWARPS, w1, starts[k][t],
+                                 lens[k][t], stage.data() + t, TG, lo[t], hi[t] + 1 - lo[t]);
+            continue;
+          }
           for (int c_lo = u_lo[q]; c_lo <= u_hi[q]; c_lo += R) {
             const int c_n = std::min(R, u_hi[q] + 1 - c_lo);
             ++*passes;
             std::fill(stage.begin(), stage.end(), 0xA5A5A5A5u);
             for (int w = 0; w < NWARPS; ++w)
               for (int t = 0; t < TG; ++t)
-                agg_stage_rows<TG>(stage.data(), tb[o[2]], row_stride, (g0 + t) * col_stride,
-                                   g0 + t < groups, c_lo, c_n, w, NWARPS, t);
+                agg_stage_rows<TG>(stage.data(), src, o[2], g0 + t, g0 + t < groups, c_lo, c_n,
+                                   w, NWARPS, t);
             for (int w = 0; w < NWARPS; ++w)
               for (int t = 0; t < TG; ++t)
                 agg_compose<WPT>(&acc[(w * TG + t) * WPT], w0 + w, NWARPS, w1, starts[k][t],
@@ -487,9 +542,9 @@ static void host_agg_fold_tiles(const int32_t* ops, int n_ops, const uint32_t* p
       }
       for (int t = 0; t < TG && g0 + t < groups; ++t) {
         const int64_t g = g0 + t;
-        if (run == 0) {
+        if (prefix == nullptr && run == 0) {
           int st = s[t];
-          for (int k = jbase; k < n_ops; ++k) st += agg_op_len(ops, k, tl, g * len_stride, tri_rows);
+          for (int k = jbase; k < n_ops; ++k) st += agg_op_len(ops, k, src, g);
           total[g] = st;
         }
         for (int w = 0; w < NWARPS; ++w)
@@ -498,28 +553,40 @@ static void host_agg_fold_tiles(const int32_t* ops, int n_ops, const uint32_t* p
             if (word < w1) out[(int64_t)word * groups + g] = acc[(w * TG + t) * WPT + u];
           }
       }
+      }
     }
   }
 }
 
 // tile 0: TG 4, TW 7, R 9, 2 warps, the lengths of 3 ops held (passes over
-// sub-windows on any spread, walks that run out of lengths); tile 1: the
-// kernel's own geometry
+// sub-windows on a spread up to R rows, each group's own window past it,
+// walks that run out of lengths), a prefix
+// launch of 3 warps, 2 ops held with prefix offsets; tile 1: the kernel's
+// own geometry
 extern "C" void host_agg_fold(const int32_t* ops, int n_ops, const uint32_t* pool,
-                              const int64_t* ptrs, int n_signers, int64_t row_stride,
-                              int64_t col_stride, int64_t len_stride, int tri_rows,
-                              int64_t groups, uint32_t* out, int out_width,
-                              int32_t* total, int tile, int64_t* passes) {
-  const uint32_t* const* tb = reinterpret_cast<const uint32_t* const*>(ptrs);
-  const int32_t* const* tl = reinterpret_cast<const int32_t* const*>(ptrs + n_signers);
+                              const uint32_t* tb, const int32_t* tl, int64_t row_stride,
+                              int64_t signer_stride, int64_t group_stride,
+                              int64_t len_signer_stride, int64_t len_group_stride,
+                              int tri_rows, int64_t groups, uint32_t* out,
+                              int out_width, int32_t* total, const int32_t* op_at,
+                              int32_t* prefix, int grid_y, int tile, int64_t* passes,
+                              int64_t* own) {
+  const AggSrc src{tb, tl, row_stride, signer_stride, group_stride, len_signer_stride,
+                   len_group_stride, tri_rows};
   if (tile == 0)
-    host_agg_fold_tiles<4, 7, 9, 2, 3>(ops, n_ops, pool, tb, tl, row_stride, col_stride,
-                                       len_stride, tri_rows, groups, out, out_width, total,
-                                       passes);
+    host_agg_fold_tiles<4, 7, 9, 2, 3, 3, 2>(ops, n_ops, pool, src, groups, out, out_width,
+                                             total, op_at, prefix, grid_y, passes, own);
   else
-    host_agg_fold_tiles<kAggTG, kAggTW, kAggR, kAggWarps, kAggOps>(
-        ops, n_ops, pool, tb, tl, row_stride, col_stride, len_stride, tri_rows, groups, out,
-        out_width, total, passes);
+    host_agg_fold_tiles<kAggTG, kAggTW, kAggR, kAggWarps, kAggOps, kPrefixWarps, kAggOpsWide>(
+        ops, n_ops, pool, src, groups, out, out_width, total, op_at, prefix, grid_y, passes,
+        own);
+}
+
+// The first op at or before byte b of group g from each guess, as a
+// kernel's lane finds it.
+extern "C" int host_agg_last_op_at(const int32_t* op_at, const int32_t* prefix, int64_t groups,
+                                   int64_t g, int n_ops, int b, int guess) {
+  return agg_last_op_at(op_at, prefix, groups, g, n_ops, b, guess);
 }
 
 // A spec's table through the plain one-thread walk (run_ops), lane by
@@ -595,7 +662,9 @@ def lib(tmp_path_factory):
                                              I32]
     lib.host_signer_fold_b_tiles.argtypes = [P, I32, P, P, I32, P, P, I32, P, P, I64, P, I32, P,
                                              I32]
-    lib.host_agg_fold.argtypes = [P, I32, P, P, I32, I64, I64, I64, I32, I64, P, I32, P, I32, P]
+    lib.host_agg_fold.argtypes = [P, I32, P, P, P, I64, I64, I64, I64, I64, I32, I64, P, I32,
+                                  P, P, P, I32, I32, P, P]
+    lib.host_agg_last_op_at.argtypes = [P, P, I64, I64, I32, I32, I32]
     lib.host_assemble_spec.argtypes = [P, I32, P, P, I64, P, I64, P, I32, P]
     lib.host_assemble_spec_tiles.argtypes = [P, I32, P, P, I64, P, I64, P, I32, P, I32]
     return lib
@@ -850,16 +919,14 @@ def test_fold_lanes_match_plain(lib, secpar):
     np.testing.assert_array_equal(trib.numpy(), want[0].numpy())
     np.testing.assert_array_equal(trit.numpy(), want[1].numpy())
 
-    # agg_fold over G = 12 groups of N = 3 signers, through strided views of
-    # the [Wtri, G*N] triple buffer, at the small tile and the kernel's own
+    # agg_fold over G = 12 groups of N = 3 signers, the [Wtri, G*N] triple
+    # buffer's lanes group-major, at the small tile and the kernel's own
     G = B // N
-    tb = trib[:, : G * N].reshape(tri_words, G, N)
-    tl = trit[: G * N].reshape(G, N)
-    tbs = [tb[:, :, k] for k in range(N)]
-    tls = [tl[:, k] for k in range(N)]
-    want = pf.agg_fold_plain(params, N, tbs, tls)
+    tbuf = trib[:, : G * N].view(-1, G, N).transpose(1, 2)
+    tlen = trit[: G * N].view(G, N).t()
+    want = pf.agg_fold_plain(params, N, tbuf, tlen)
     for tile in (0, 1):
-        out, total, _ = _host_agg_fold(lib, params, N, tbs, tls, tile)
+        out, total, _, _ = _host_agg_fold(lib, params, N, tbuf, tlen, tile)
         np.testing.assert_array_equal(out.numpy(), want[0].numpy())
         np.testing.assert_array_equal(total.numpy(), want[1].numpy())
 
@@ -1056,22 +1123,28 @@ def test_tile_walk_any_table(lib, fold, seed):
                 np.testing.assert_array_equal(total.numpy(), [len(w) for w in want])
 
 
-def _host_agg_fold(lib, params, N, tbs, tls, tile):
+def _host_agg_fold(lib, params, N, tbuf, tlen, tile, prefix=False, grid_y=1):
     """agg_fold's blocks run serially (tile 0: 4 groups by 7 rows, 9 staged
-    rows; tile 1: the kernel's geometry), outputs pre-filled with -1 ->
-    (out, total, staging passes)."""
+    rows; tile 1: the kernel's geometry), outputs pre-filled with -1, with
+    the prefix launch first when ``prefix`` (its scratch pre-filled with
+    marks; the runs of a tile dealt to ``grid_y`` blocks) -> (out, total,
+    staging passes, passes that staged each group's own window)."""
     table = ds.agg_fold_table(params, N)
     ops, pool = table.on("cpu")
     (out_words,) = table.widths
-    G = tbs[0].shape[-1]
-    ptrs = torch.tensor([t.data_ptr() for t in (*tbs, *tls)], dtype=torch.int64)
+    G = tlen.shape[1]
+    op_at = torch.from_numpy(pf.agg_op_at(table.ops)) if prefix else None
+    scratch = torch.full((N, G), -7, dtype=torch.int32) if prefix else None
     out = torch.full((out_words, G), -1, dtype=torch.int32)
     total = torch.full((G,), -1, dtype=torch.int32)
     passes = torch.zeros(1, dtype=torch.int64)
-    lib.host_agg_fold(ops.data_ptr(), ops.shape[0], pool.data_ptr(), ptrs.data_ptr(), N,
-                      tbs[0].stride(0), tbs[0].stride(1), tls[0].stride(0), tbs[0].shape[0], G,
-                      out.data_ptr(), out_words, total.data_ptr(), tile, passes.data_ptr())
-    return out, total, int(passes)
+    own = torch.zeros(1, dtype=torch.int64)
+    lib.host_agg_fold(ops.data_ptr(), ops.shape[0], pool.data_ptr(), tbuf.data_ptr(),
+                      tlen.data_ptr(), *tbuf.stride(), *tlen.stride(), tbuf.shape[0], G, out.data_ptr(), out_words, total.data_ptr(),
+                      None if op_at is None else op_at.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(), grid_y, tile,
+                      passes.data_ptr(), own.data_ptr())
+    return out, total, int(passes), int(own)
 
 
 def agg_triples(params, G, N, seed, signer_major, lens=None, device="cpu"):
@@ -1079,9 +1152,9 @@ def agg_triples(params, G, N, seed, signer_major, lens=None, device="cpu"):
     length, lengths over the triple's whole range [spec_min_total, out_max]
     (group 0's triple 0 the shortest, group 1's the longest, so the next
     triple's offset spreads across one tile by the whole range) unless
-    ``lens`` int[G, N] is given; laid out as the [Wtri, G*N] buffer's
-    strided views (on ``device``), lanes group-major (g*N + k) or
-    signer-major (k*G + g)."""
+    ``lens`` int[G, N] is given; one buffer int32[Wtri, G*N] and lengths
+    int32[G*N] (on ``device``), lanes group-major (g*N + k) or signer-major
+    (k*G + g), as the views [Wtri, N, G] and [N, G] that agg_fold takes."""
     tri_spec = ds.triple_spec(params)
     lo, hi = ds.spec_min_total(tri_spec, [1]), tri_spec.out_max
     words = -(-hi // 4)
@@ -1096,21 +1169,20 @@ def agg_triples(params, G, N, seed, signer_major, lens=None, device="cpu"):
     if signer_major:
         buf = torch.from_numpy(w.transpose(2, 1, 0).reshape(words, N * G).copy()).to(device)
         ln = torch.from_numpy(lens.T.reshape(-1).copy()).to(device)
-        return ([buf[:, k * G:(k + 1) * G] for k in range(N)],
-                [ln[k * G:(k + 1) * G] for k in range(N)])
+        return buf.view(words, N, G), ln.view(N, G)
     buf = torch.from_numpy(w.transpose(2, 0, 1).reshape(words, G * N).copy()).to(device)
-    buf = buf.reshape(words, G, N)
-    ln = torch.from_numpy(lens.copy()).to(device)
-    return [buf[:, :, k] for k in range(N)], [ln[:, k] for k in range(N)]
+    ln = torch.from_numpy(lens.reshape(-1).copy()).to(device)
+    return buf.view(words, G, N).transpose(1, 2), ln.view(G, N).t()
 
 
-def agg_bytes_reference(params, N, tbs, tls):
+def agg_bytes_reference(params, N, tbuf, tlen):
     """The aggregation preimage by byte concatenation over the op table:
     (words int32[Wagg, G], totals int32[G])."""
+    tbs, tls = tbuf.unbind(1), tlen.unbind(0)
     table = ds.agg_fold_table(params, N)
     pool = table.pool.view(np.uint8)
     (width,) = table.widths
-    G = tbs[0].shape[-1]
+    G = tlen.shape[1]
     out = np.zeros((G, 4 * width), np.uint8)
     totals = np.zeros(G, np.int32)
     for g in range(G):
@@ -1135,14 +1207,14 @@ def test_agg_fold_tiles_match_plain(lib, secpar, N, signer_major):
     of the tile), a tile holding the shortest and the longest triple (the
     staged window spreads over many passes of 9 rows), outputs on -1."""
     params = fusion_setup(secpar, 5)
-    tbs, tls = agg_triples(params, 11, N, 10 * secpar + N, signer_major)
-    want = pf.agg_fold_plain(params, N, tbs, tls)
-    out, total, passes = _host_agg_fold(lib, params, N, tbs, tls, 0)
+    tbuf, tlen = agg_triples(params, 11, N, 10 * secpar + N, signer_major)
+    want = pf.agg_fold_plain(params, N, tbuf, tlen)
+    out, total, passes, own = _host_agg_fold(lib, params, N, tbuf, tlen, 0)
     np.testing.assert_array_equal(out.numpy(), want[0].numpy())
     np.testing.assert_array_equal(total.numpy(), want[1].numpy())
     runs = -(-out.shape[0] // 7)
-    assert passes > 2 * runs  # the spread forced passes over sub-windows
-    got1 = _host_agg_fold(lib, params, N, tbs, tls, 1)
+    assert passes > 2 * runs and not own  # the spread forced passes over sub-windows
+    got1 = _host_agg_fold(lib, params, N, tbuf, tlen, 1)
     np.testing.assert_array_equal(got1[0].numpy(), want[0].numpy())
     np.testing.assert_array_equal(got1[1].numpy(), want[1].numpy())
 
@@ -1156,16 +1228,16 @@ def test_agg_fold_tiles_any_length(lib, tile):
     full = 4 * -(-ds.triple_spec(params).out_max // 4)
     lens = [[0, 1, 2, 3, 5], [4, 0, 0, full, 1], [full, full, 0, 2, 3],
             [7, 6, 5, 4, 3], [0, 0, 0, 0, 0], [1, full, 1, full, 1]]
-    tbs, tls = agg_triples(params, 6, 5, 7, True, lens)
-    want = agg_bytes_reference(params, 5, tbs, tls)
-    for G in (6, 1):
-        got = _host_agg_fold(lib, params, 5, [t[:, :G] for t in tbs], [t[:G] for t in tls], tile)
-        np.testing.assert_array_equal(got[0].numpy(), want[0][:, :G].numpy())
-        np.testing.assert_array_equal(got[1].numpy(), want[1][:G].numpy())
-    tls[3][0] = full + 9
-    got = _host_agg_fold(lib, params, 5, tbs, tls, tile)
-    tls[3][0] = full
-    want = agg_bytes_reference(params, 5, tbs, tls)
+    for G in (1, 6):
+        tbuf, tlen = agg_triples(params, G, 5, 7, True, lens[:G])
+        want = agg_bytes_reference(params, 5, tbuf, tlen)
+        got = _host_agg_fold(lib, params, 5, tbuf, tlen, tile)
+        np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+        np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    tlen[3, 0] = full + 9  # signer 3 of group 0
+    got = _host_agg_fold(lib, params, 5, tbuf, tlen, tile)
+    tlen[3, 0] = full
+    want = agg_bytes_reference(params, 5, tbuf, tlen)
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
 
 
@@ -1262,3 +1334,69 @@ def test_assemble_spec_tiles_match_plain(lib, secpar, ring, B):
     want = ds.assemble_chunks_words(agg_spec, None, extras, pad_words=pad)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("signer_major", [False, True], ids=["group_major", "signer_major"])
+@pytest.mark.parametrize("tile,grid_y", [(0, 1), (0, 5), (1, 1), (1, 64)])
+def test_agg_fold_prefix_tiles_match_plain(lib, tile, grid_y, signer_major):
+    """agg_fold with prefix offsets at N = 64 signers (129 ops, more than
+    either tile holds): G = 5 (a part-full tile at 4 groups by 7 rows), the
+    triples over their whole range, the runs of a tile dealt to 1, 5 or 64
+    blocks, so that runs start mid-table from a guess or from the run
+    before; the prefix scratch starts as marks.  Every word and total
+    equals the plain version's, and the walks from op 0 give the same."""
+    params = fusion_setup(256, 5)
+    N = 64
+    tbuf, tlen = agg_triples(params, 5, N, 64 + tile, signer_major)
+    want = pf.agg_fold_plain(params, N, tbuf, tlen)
+    got = _host_agg_fold(lib, params, N, tbuf, tlen, tile, prefix=True, grid_y=grid_y)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    assert tile == 1 or got[3] > 0  # the tile spread past a pass: each group's own window
+    if grid_y == 1:
+        walked = _host_agg_fold(lib, params, N, tbuf, tlen, tile)
+        np.testing.assert_array_equal(walked[0].numpy(), want[0].numpy())
+
+
+@pytest.mark.parametrize("tile", [0, 1])
+def test_agg_fold_prefix_any_length(lib, tile):
+    """The prefix path on lengths outside the triple's range (empty triples
+    side by side, full and over-full ones) at N = 40 and G = 3: every word
+    equals byte concatenation over the op table."""
+    params = fusion_setup(128, 6)
+    full = 4 * -(-ds.triple_spec(params).out_max // 4)
+    rng = np.random.default_rng(40)
+    lens = rng.choice([0, 0, 1, 3, 4, 7, full, full + 9], size=(3, 40))
+    lens[1] = 0
+    tbuf, tlen = agg_triples(params, 3, 40, 9, True, np.minimum(lens, full))
+    tlen.copy_(torch.from_numpy(lens.T.astype(np.int32)))
+    want = agg_bytes_reference(params, 40, tbuf, torch.clamp(tlen, max=full))
+    got = _host_agg_fold(lib, params, 40, tbuf, tlen, tile, prefix=True, grid_y=3)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+
+
+def test_agg_last_op_at_from_any_guess(lib):
+    """The op a run starts at, found from every guess (0, the last op, the
+    answer, one past and before it, a random one), equals the last op whose
+    offset is at most the byte, at every byte of every group (empty triples
+    and consts included), N = 6."""
+    params = fusion_setup(128, 6)
+    N = 6
+    table = ds.agg_fold_table(params, N)
+    op_at = pf.agg_op_at(table.ops)
+    lens = np.array([[5, 0, 0, 9, 1, 30], [0, 0, 0, 0, 0, 0], [12, 12, 12, 12, 12, 12]])
+    G = len(lens)
+    prefix = np.ascontiguousarray(np.cumsum(lens, axis=1).T.astype(np.int32))  # [N, G]
+    n_ops = len(table.ops)
+    rng = np.random.default_rng(6)
+    for g in range(G):
+        starts = [op_at[j, 0] + (prefix[op_at[j, 1] - 1, g] if op_at[j, 1] else 0)
+                  for j in range(n_ops)]
+        total = op_at[n_ops, 0] + prefix[N - 1, g]
+        for b in range(total + 3):
+            want = max(j for j in range(n_ops) if starts[j] <= b)
+            for guess in (0, n_ops - 1, want, want + 1, want - 1, int(rng.integers(n_ops))):
+                got = lib.host_agg_last_op_at(op_at.ctypes.data, prefix.ctypes.data, G, g,
+                                              n_ops, b, guess)
+                assert got == want, (g, b, guess)

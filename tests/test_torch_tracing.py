@@ -21,8 +21,10 @@ from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
 from fusion_cryptography_tpu_torch.utils import profiling
 
 CPU = torch.device("cpu")
+GROUP_SPANS = {"fct.group.fold", "fct.group.sponge", "fct.group.decode"}
 VERIFY_SPANS = {"fct.verify", "fct.pack", "fct.pack.encode", "fct.pack.scatter",
-                "fct.pack.upload", "fct.prehash", "fct.signer", "fct.group", "fct.lattice"}
+                "fct.pack.upload", "fct.prehash", "fct.signer", "fct.group", "fct.lattice",
+                "fct.lattice.target", *GROUP_SPANS}
 MESSAGES = ["", "a", "é" * 40, "x" * 31, "message ünïcode", "y" * 64]
 
 
@@ -120,8 +122,27 @@ def test_verify_spans_one_per_chunk_and_window(traced_verify):
         each = _named(spans, f"fct.pack.{part}")
         assert len(each) == 3 and all(_inside(s, packs) for s in each)
     for name, n in (("fct.pack", 3), ("fct.prehash", 3), ("fct.signer", 3),
-                    ("fct.lattice", 3), ("fct.group", 2)):
+                    ("fct.lattice", 3), ("fct.group", 2), ("fct.lattice.target", 3),
+                    *((g, 2) for g in GROUP_SPANS)):
         assert len(_named(spans, name)) == n, name
+    for inner, outer in [(g, "fct.group") for g in GROUP_SPANS] + [
+            ("fct.lattice.target", "fct.lattice")]:
+        assert all(_inside(s, _named(spans, outer)) for s in _named(spans, inner)), inner
+
+
+def test_group_counters_count_signers_and_preimage_words(params, fleet):
+    """``group.signers`` adds N and ``group.agg_words`` the padded
+    aggregation preimage's words once a group stage: two windows of the
+    windowed call."""
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _windowed(params, fleet)
+    c = profiling.counters()
+    profiling.reset_counters()
+    assert c["group.signers"] == 2 * 2
+    assert c["group.agg_words"] == 2 * ds.agg_fold_table(params, 2).widths[0]
 
 
 def test_keygen_and_sign_spans(traced_lifecycle):
@@ -228,3 +249,47 @@ def test_profiled_windowed_verify_makes_no_host_sync():
 
     _, rows, _ = pv.trace(lambda: dp.verify_batch_device(params, vks, msgs, aggs))
     assert rows and not any(name.startswith("fct.") for name, _, _ in rows)
+
+
+@pytest.mark.cuda
+def test_traced_wide_group_call_has_the_group_spans_and_counters():
+    """A traced verify of 2 groups of 64 signers on the card (the split
+    lattice check, agg_fold's prefix launch) opens ``fct.group.fold``,
+    ``.sponge``, ``.decode`` inside ``fct.group`` and ``fct.lattice.target``
+    inside ``fct.lattice``, each with device work launched in it, counts
+    ``group.signers`` and ``group.agg_words`` without a host sync, and
+    gives the untraced verdicts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from fusion_cryptography_tpu_torch import kernels
+    from fusion_cryptography_tpu_torch.interop import device_serial as ds
+
+    kernels.library()
+    dev = torch.device("cuda", 0)
+    params = fusion_setup(256, 5)
+    vks, msgs, aggs = build_fleet(params, 2, 64, seed0=41, device=dev)
+    aggs[1, 0, 0] += 1
+    want = dp.verify_batch_device(params, vks, msgs, aggs)
+    torch.cuda.synchronize()
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = dp.verify_batch_device(params, vks, msgs, aggs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    c = profiling.counters()
+    profiling.reset_counters()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[0].tolist() == [True, False]
+    assert c["group.signers"] == 64
+    assert c["group.agg_words"] == ds.agg_fold_table(params, 64).widths[0]
+    names = {e.name for e in prof.events()}
+    assert GROUP_SPANS | {"fct.lattice.target"} <= names
+    from fusion_cryptography_tpu_torch import profile_verify as pv
+
+    _, rows, _ = pv.trace(lambda: dp.verify_batch_device(params, vks, msgs, aggs))
+    kernels_run = {pv.port_kernel(name) for name, _, _ in rows}
+    assert {"agg_fold", "lattice_target", "keccak_absorb", "keccak_squeeze"} <= kernels_run
