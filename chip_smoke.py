@@ -15,7 +15,7 @@ integer).
 Phases (each fails loudly; any failure exits non-zero):
   1. card, versions, kernel build (one nvcc per source, in parallel)
   2. kernels vs plain versions (the sponge on 4,096 lanes of 0..42,787 B,
-     the rate edges among them, the squeeze at one and two threads a
+     the rate edges among them, the squeeze at one, two and 32 threads a
      sponge, and vs hashlib), with timings and
      each kernel's bound (``fusion_cryptography_tpu_torch/bounds.py``);
      ``agg_fold`` on group-major and signer-major lanes, G = 8,192, 8,155
@@ -130,6 +130,9 @@ The last two lines of stdout are the kernel table {"kernels": [...]} and
 before them.  Run from the repository root: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --fold-times`` builds the kernels and a fleet and
 prints only the signer folds' times on their five input sets.
+``python3 chip_smoke.py --sponge-teams`` prints only the sponge teams'
+times: the wide cell's aggregation chain and the crossover of the warp and
+the pair (:func:`sponge_team_times`).
 """
 from __future__ import annotations
 
@@ -280,7 +283,7 @@ def phase_kernels(dev, kernel_rows: list) -> None:
         want = hashlib.sha3_256(by[i, : int(lens[i])].cpu().numpy().tobytes()).digest()
         require(got[i].tobytes() == want, f"SHA3-256 lane {i} != hashlib")
     log(f"sponge: B={B}, lengths 0..42787 B: absorb and squeeze (8423, 15872 B; the squeeze "
-        "at one and two threads a sponge too) equal the plain versions; 64 lanes equal "
+        "at one, two and 32 threads a sponge too) equal the plain versions; 64 lanes equal "
         "hashlib shake_256/sha3_256")
     t_abs = cuda_ms(lambda: ks.absorb(padded, nblk), 3)
     t_abs_p = cuda_ms(lambda: keccak.absorb_padded(padded, nblk), 1)
@@ -313,7 +316,7 @@ def phase_kernels(dev, kernel_rows: list) -> None:
 
 
 SPONGE_LAUNCHES = ("prehash", "challenge", "aggregation")
-SPONGE_TEAMS = (1, 2)  # threads per sponge
+SPONGE_TEAMS = (1, 2, 32)  # threads per sponge
 
 
 def clone_args(x):
@@ -374,7 +377,7 @@ def phase_sponge_shapes(params, fleet, kernel_rows: list) -> None:
     block counts) and three ``squeeze`` calls (state, words) -- prehash
     SHA3-256, challenge and aggregation SHAKE256 -- captured from one
     ``verify_batch_device`` call on the fleet; each held exactly against the
-    plain absorb or squeeze at one and two threads per sponge (each into an
+    plain absorb or squeeze at one, two and 32 threads per sponge (each into an
     output pre-filled with -1) and through the wrapper, and timed beside
     its bound (for the absorb also its permutations and the idle-lane ratio
     of one and two threads per sponge).  Each row's ms, plain_ms and
@@ -411,15 +414,16 @@ def phase_sponge_shapes(params, fleet, kernel_rows: list) -> None:
                      team=team, ms=t_k, plain_ms=t_plain, **b,
                      warp_ratio_team1=bounds.keccak_warp_ratio(nblk, 32),
                      warp_ratio_team2=bounds.keccak_warp_ratio(nblk, 16),
-                     team1_ms=team_ms[1], team2_ms=team_ms[2])
+                     **{f"team{t}_ms": ms for t, ms in team_ms.items()})
         shapes.append(shape)
         log(f"keccak_absorb, the verify call's {label} launch: B={B}, {shape['longest']} blocks "
-            f"at most, {shape['permutations']} permutations: both teams equal the plain "
+            f"at most, {shape['permutations']} permutations: every team equals the plain "
             f"absorb; wrapper ({team} thread(s) per sponge) {t_k:.4f} ms, plain "
             f"{t_plain:.1f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
             f"({t_k / b['bound_ms']:.2f}x); warp ratio {shape['warp_ratio_team1']:.4f} (1 thread) "
             f"/ {shape['warp_ratio_team2']:.4f} (2 threads)")
-        log(f"  one thread a sponge {team_ms[1]:.4f} ms, two {team_ms[2]:.4f} ms")
+        log(f"  one thread a sponge {team_ms[1]:.4f} ms, two {team_ms[2]:.4f} ms, a warp "
+            f"{team_ms[32]:.4f} ms")
         del want
     sum_launches(row, shapes, errs)
 
@@ -447,13 +451,15 @@ def phase_sponge_shapes(params, fleet, kernel_rows: list) -> None:
         b = bounds.keccak_squeeze(B, n_words)
         shape = dict(launch=label, lanes=B, words=n_words,
                      permutations=B * (-(-n_words // keccak.RATE_WORDS) - 1), team=team,
-                     ms=t_k, plain_ms=t_plain, **b, team1_ms=team_ms[1], team2_ms=team_ms[2])
+                     ms=t_k, plain_ms=t_plain, **b,
+                     **{f"team{t}_ms": ms for t, ms in team_ms.items()})
         shapes.append(shape)
         log(f"keccak_squeeze, the verify call's {label} launch: B={B}, {n_words} words, "
-            f"{shape['permutations']} permutations: both teams equal the plain squeeze; "
+            f"{shape['permutations']} permutations: every team equals the plain squeeze; "
             f"wrapper ({team} thread(s) per sponge) {t_k:.4f} ms, plain {t_plain:.1f} ms, "
             f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({t_k / b['bound_ms']:.2f}x)")
-        log(f"  one thread a sponge {team_ms[1]:.4f} ms, two {team_ms[2]:.4f} ms")
+        log(f"  one thread a sponge {team_ms[1]:.4f} ms, two {team_ms[2]:.4f} ms, a warp "
+            f"{team_ms[32]:.4f} ms")
         del want
     sum_launches(row, shapes, errs)
     del absorbs, squeezes
@@ -1136,13 +1142,15 @@ def phase_wide(params, dev, kernel_rows: list) -> dict:
     perms = int(nblk.max()), -(-n_words // keccak.RATE_WORDS) - 1
     for (name, team, ms_short, p) in (("absorb", ab_team, short_ab["ms"], perms[0]),
                                       ("squeeze", sq_team, short_sq["ms"], perms[1])):
+        others = ", ".join(f"{t}: {teams[(name, t)]:.2f} ms" for t in SPONGE_TEAMS if t != team)
         log(f"wide keccak_{name} (aggregation launch, {G} sponges, {p} permutations the "
             f"longest): with the squeeze equals hashlib's SHAKE256 of every group's preimage; "
-            f"{teams[(name, team)]:.2f} ms at {team} thread(s) a sponge (the other team "
-            f"{teams[(name, 3 - team)]:.2f} ms), {teams[(name, team)] * 1e3 / p:.3f} us a "
+            f"{teams[(name, team)]:.2f} ms at {team} thread(s) a sponge (the other teams "
+            f"{others}), {teams[(name, team)] * 1e3 / p:.3f} us a "
             f"permutation (short shape {ms_short:.4f} ms)")
         out_m[f"wide_{name}_ms"] = teams[(name, team)]
-        out_m[f"wide_{name}_other_team_ms"] = teams[(name, 3 - team)]
+        for t in SPONGE_TEAMS:
+            out_m[f"wide_{name}_team{t}_ms"] = teams[(name, t)]
         out_m[f"wide_{name}_chain_perms"] = p
     del calls, fleet, wbuf, total, pre, xof
     torch.cuda.empty_cache()
@@ -2335,6 +2343,76 @@ def fold_times_only(dev, card: str) -> int:
     return 0
 
 
+def sponge_team_times(dev, card: str) -> int:
+    """``--sponge-teams``: kernels ``keccak_absorb`` and ``keccak_squeeze``
+    at two threads and at a warp a sponge, on random words, each output
+    first held against the other team's and the first lane against
+    hashlib's SHAKE256 of its words, then timed by CUDA events in turns
+    (pair, warp, warp, pair):
+
+    - the wide cell's aggregation chain: 32 sponges of 71,667 blocks, and
+      a squeeze of 29,876 permutations (1,015,802 words: the last block
+      part full);
+    - the crossover: absorbs of 64 blocks at 32 to 8,192 sponges.
+
+    Prints one ``{"sponge_teams": ...}`` line."""
+    from fusion_cryptography_tpu_torch.ops import keccak, keccak_sponge as ks
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def words(rows, B):
+        return torch.randint(-(2**31), 2**31, (rows, B), dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    def in_turns(fn, teams=(2, 32, 32, 2), reps=1):
+        ms = {t: [] for t in teams}
+        for t in teams:
+            ms[t].append(cuda_ms(lambda: fn(t), reps))
+        return {t: min(v) for t, v in ms.items()}
+
+    out = {}
+    # the wide chain; lane 0's last byte is SHAKE256's padding (0x1F | 0x80),
+    # so its blocks are the padded message of their other bytes
+    G, blocks, sq_words = 32, 71667, 29877 * keccak.RATE_WORDS - 16
+    w = words(blocks * keccak.RATE_WORDS, G)
+    w[-1, 0] = (w[-1, 0] & 0x00FFFFFF) | ((0x9F << 24) - (1 << 32))
+    nb = torch.full((G,), blocks, dtype=torch.int32, device=dev)
+    states = {t: ks._absorb_launch(w, nb, t) for t in (2, 32)}
+    require(torch.equal(states[2], states[32]), "wide absorb: the warp != the pair")
+    xof = {t: ks._squeeze_launch(states[2], sq_words, t) for t in (2, 32)}
+    require(torch.equal(xof[2], xof[32]), "wide squeeze: the warp != the pair")
+    msg = w[:, 0].cpu().numpy().tobytes()[:-1]
+    tail = xof[32][-4:, 0].cpu().numpy().tobytes()
+    want = hashlib.shake_256(msg).digest(4 * sq_words)
+    require(xof[32][:16, 0].cpu().numpy().tobytes() == want[:64] and want[-16:] == tail,
+            "wide chain: lane 0 != hashlib's SHAKE256")
+    t_ab = in_turns(lambda t: ks._absorb_launch(w, nb, t))
+    t_sq = in_turns(lambda t: ks._squeeze_launch(states[2], sq_words, t))
+    out["wide"] = dict(sponges=G, absorb_blocks=blocks, squeeze_permutations=29876,
+                       absorb_ms=t_ab, squeeze_ms=t_sq,
+                       absorb_us_a_permutation={t: v * 1e3 / blocks for t, v in t_ab.items()},
+                       squeeze_us_a_permutation={t: v * 1e3 / 29876 for t, v in t_sq.items()})
+    log(f"wide chain: absorb pair {t_ab[2]:.2f} ms, warp {t_ab[32]:.2f} ms; squeeze pair "
+        f"{t_sq[2]:.2f} ms, warp {t_sq[32]:.2f} ms")
+    del w, states, xof
+    # the crossover
+    blocks, rows = 64, []
+    for B in (32, 128, 512, 768, 1024, 2048, 4096, 8192):
+        w = words(blocks * keccak.RATE_WORDS, B)
+        nb = torch.full((B,), blocks, dtype=torch.int32, device=dev)
+        require(torch.equal(ks._absorb_launch(w, nb, 2), ks._absorb_launch(w, nb, 32)),
+                f"absorb at {B} sponges: the warp != the pair")
+        t = in_turns(lambda team: ks._absorb_launch(w, nb, team), reps=3)
+        rows.append(dict(sponges=B, blocks=blocks, pair_ms=t[2], warp_ms=t[32],
+                         warp_over_pair=t[32] / t[2]))
+        log(f"crossover: {B} sponges x {blocks} blocks: pair {t[2]:.4f} ms, warp {t[32]:.4f} ms "
+            f"({t[32] / t[2]:.3f})")
+    out["crossover"] = rows
+    log(f"card: {card}")
+    log(json.dumps({"sponge_teams": out}))
+    return 0
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2359,8 +2437,11 @@ def main(argv) -> int:
             log(f"  ptxas: {line.strip()}")
     if argv == ["--fold-times"]:
         return fold_times_only(dev, card)
+    if argv == ["--sponge-teams"]:
+        return sponge_team_times(dev, card)
     if argv:
-        raise SystemExit(f"chip_smoke: unknown arguments {argv} (only --fold-times)")
+        raise SystemExit(f"chip_smoke: unknown arguments {argv} (only --fold-times, "
+                         "--sponge-teams)")
 
     # -- 2. kernels vs plain ------------------------------------------------
     kernel_rows: list = []

@@ -9,8 +9,8 @@
 // per-lane block counts i32[B], state u32[50, B] (word 2l = low half of lane
 // l), XOF words u32[n_words, B].  Bytes are little-endian in each word.
 //
-// Design.  Both kernels put one or two threads on a sponge, in blocks of
-// 128 threads, as the wrappers choose from the batch
+// Design.  Both kernels put one, two or 32 threads on a sponge, as the
+// wrappers choose from the batch and the SM count
 // (ops/keccak_sponge.absorb_team, squeeze_team):
 //  - one thread (the 64-bit form): the 25 lanes live as uint64_t in
 //    registers; the absorb loops over its own block count nblk[b] in place
@@ -22,12 +22,16 @@
 //    interleaves each block's words as it XORs them in and de-interleaves
 //    the state once at the end; the squeeze interleaves the state once and
 //    de-interleaves each rate block's 17 lanes before storing them (one
-//    exchange a word), each thread storing its word of each lane.
-// The absorb loads block j + 1 before permuting block j.  The squeeze
-// permutes before every block after the first; the TPU kernel permutes
-// after every block, which gives the same words.  Threads index the batch
-// axis, so a warp's loads and stores are contiguous segments.  Any B is
-// accepted; counts are clamped to [0, max_blocks].
+//    exchange a word), each thread storing its word of each lane;
+//  - a warp (team 32, below): one lane a thread, a block of one warp a
+//    sponge, for launches of few sponges, whose time is one sponge's chain
+//    of permutations.
+// At teams 1 and 2 a block is 128 threads, threads index the batch axis
+// (a warp's loads and stores are contiguous segments), and the absorb
+// loads block j + 1 before permuting block j.  The squeeze permutes before
+// every block after the first; the TPU kernel permutes after every block,
+// which gives the same words.  Any B is accepted; counts are clamped to
+// [0, max_blocks].
 //
 // What bounds it: integer issue.  A permutation needs ~4,320 32-bit
 // instructions (bounds.KECCAK_OPS) and reads 136 bytes, far from the
@@ -53,6 +57,22 @@
 // SASS), ~1.5 times the minimum per sponge, at about one every two cycles,
 // the integer pipe's rate for the one warp on each scheduler: on an H100
 // its aggregation launch takes 1.5 times its bound.
+//
+// Few sponges: a launch of 32 (the wide verify's aggregation, 32 groups of
+// 1,024 signers: one ~9.7-MB SHAKE256 a group, 71,667 absorb and 29,876
+// squeeze permutations in a row for the longest) leaves the pair on two
+// warps of the card's 528 schedulers, its permutation issue-bound at
+// ~3.1 us (~124 instructions a thread a round).  The warp's round is 35
+// instructions a thread (SASS: 14 LOP3, 4 SHF, 2 SEL, 6 LDS, 1 STS, the
+// __syncwarp, 6 SHFL, 1 uniform constant load) in two exchange stages,
+// and latency-bound: ~1.85 us a permutation on an H100 (~150 cycles a
+// round), ~1.9 us in the absorb and squeeze loops.  Variants measured
+// (CUDA events, 32 sponges): both exchanges through shared memory 1.96 us,
+// both by shuffles 2.16 (20 shuffles for theta), one exchange a round with
+// each thread reading all 25 lanes 3.20, iota moved off the chain 1.99, a
+// table of half-swapped lanes in place of rho's select 2.18.  Each block
+// is one warp, so the block scheduler spreads the sponges over the SMs; up
+// to ~2 sponges a scheduler the warp wins (absorb_team).
 #include <cstdint>
 
 #ifdef __CUDACC__
@@ -350,6 +370,137 @@ FCT_HD void sponge_squeeze_lane(const uint32_t* state, uint32_t* out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// A warp per sponge (team 32), for latency: lane l = x + 5y of the state
+// lives on thread l as two 32-bit words; threads 25..31 repeat thread 24's
+// work and store nothing, so the warp never diverges.  A round is two
+// exchanges:
+//  1. theta and rho, through the warp's shared memory: each thread stores
+//     its lane in a column-major table (columns padded to 6 lanes, so a
+//     column is 16-byte loads), __syncwarp, reads columns x - 1 and x + 1,
+//     forms D[x] itself, XORs it in and rotates by its lane's rho offset;
+//  2. pi, chi and iota, by shuffles: the thread of lane (x, y) gathers
+//     B[x, y], B[x + 1, y], B[x + 2, y] from the threads whose lanes pi
+//     moves there (six 32-bit shuffles), forms its new lane, and thread 0
+//     XORs the round constant.
+// The functions below are one thread's part of a step; the host test runs
+// the 32 threads of each step in turn, a shuffle reading the source
+// thread's value from before the step.
+// ---------------------------------------------------------------------------
+
+struct alignas(8) W64 {  // a lane as its low and high 32-bit words
+  uint32_t lo, hi;
+};
+
+// The warp's theta table: lane (x, y) at 6x + y; 6x + 5 is padding.
+struct WarpTable {
+  W64 cols[30];
+};
+
+// One thread's fixed indices and its lane's constants.
+struct WarpLane {
+  int lane;             // x + 5y: the thread's lane (threads past 24: lane 24)
+  int own, west, east;  // cols: its lane, columns x - 1 and x + 1
+  int src[3];           // the threads holding B[x + i, y] after rho, i = 0..2
+  uint32_t rho;         // rho offset of its lane
+  uint32_t iota;        // ~0 on lane 0, else 0
+};
+
+// rho offsets by source lane x + 5y
+#ifdef __CUDACC__
+__constant__ uint8_t kKeccakRho[25] = {
+#else
+const uint8_t kKeccakRho[25] = {
+#endif
+    0, 1, 62, 28, 27, 36, 44, 6, 55, 20, 3, 10, 43, 25, 39, 41, 45, 15, 21, 8, 18, 2, 61, 56, 14};
+
+FCT_HD WarpLane warp_lane(int t) {
+  const int l = t < 25 ? t : 24;
+  const int x = l % 5, y = l / 5;
+  WarpLane w;
+  w.lane = l;
+  w.own = 6 * x + y;
+  w.west = 6 * ((x + 4) % 5);
+  w.east = 6 * ((x + 1) % 5);
+  // pi moves lane (x', y') to (y', 2x' + 3y'): B[X, y] comes from lane
+  // (3(y - 3X) mod 5, X)
+  for (int i = 0; i < 3; ++i) {
+    const int X = (x + i) % 5;
+    w.src[i] = (3 * (y + 15 - 3 * X)) % 5 + 5 * X;
+  }
+  w.rho = kKeccakRho[l];
+  w.iota = l == 0 ? ~0u : 0u;
+  return w;
+}
+
+// The upper word of (hi:lo) << (s mod 32) (SHF.L.W).
+FCT_HD uint32_t funnel_l(uint32_t lo, uint32_t hi, uint32_t s) {
+#ifdef __CUDACC__
+  return __funnelshift_l(lo, hi, s);
+#else
+  s &= 31;
+  return s ? (hi << s) | (lo >> (32 - s)) : hi;
+#endif
+}
+
+// Two lanes from a 16-byte-aligned address: one 16-byte load on the card.
+FCT_HD void load_lanes2(const W64* p, W64& a, W64& b) {
+#ifdef __CUDACC__
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  a = {v.x, v.y};
+  b = {v.z, v.w};
+#else
+  a = p[0];
+  b = p[1];
+#endif
+}
+
+// The XORs of two columns' five lanes (each 16-byte aligned, padded to
+// six): all six loads first, so that none waits on the other column's
+// XORs.
+FCT_HD void column_parities(const W64* col_a, const W64* col_b, W64& pa, W64& pb) {
+  W64 a[6], b[6];
+  for (int i = 0; i < 6; i += 2) load_lanes2(col_a + i, a[i], a[i + 1]);
+  for (int i = 0; i < 6; i += 2) load_lanes2(col_b + i, b[i], b[i + 1]);
+  pa = {a[0].lo ^ a[1].lo ^ a[2].lo ^ a[3].lo ^ a[4].lo,
+        a[0].hi ^ a[1].hi ^ a[2].hi ^ a[3].hi ^ a[4].hi};
+  pb = {b[0].lo ^ b[1].lo ^ b[2].lo ^ b[3].lo ^ b[4].lo,
+        b[0].hi ^ b[1].hi ^ b[2].hi ^ b[3].hi ^ b[4].hi};
+}
+
+// Step 1, after every thread's lane is in the table: theta and rho of the
+// thread's lane a.
+FCT_HD W64 warp_theta_rho(const WarpTable& tb, W64 a, const WarpLane& w) {
+  W64 cw, ce;
+  column_parities(tb.cols + w.west, tb.cols + w.east, cw, ce);
+  a.lo ^= cw.lo ^ funnel_l(ce.hi, ce.lo, 1);
+  a.hi ^= cw.hi ^ funnel_l(ce.lo, ce.hi, 1);
+  // by rho mod 32 within the words, the words swapped when rho >= 32
+  const uint32_t up = funnel_l(a.lo, a.hi, w.rho), down = funnel_l(a.hi, a.lo, w.rho);
+  return w.rho & 32 ? W64{up, down} : W64{down, up};
+}
+
+// Step 2: chi and iota of the thread's lane from the gathered B[x, y],
+// B[x + 1, y], B[x + 2, y].
+FCT_HD W64 warp_chi_iota(W64 b0, W64 b1, W64 b2, const WarpLane& w, int round) {
+  const uint64_t rc = kKeccakRC[round];
+  return {b0.lo ^ (~b1.lo & b2.lo) ^ ((uint32_t)rc & w.iota),
+          b0.hi ^ (~b1.hi & b2.hi) ^ ((uint32_t)(rc >> 32) & w.iota)};
+}
+
+// The word row of thread t's lane in a rate block: threads past 16 take
+// thread 16's, so the warp's loads and stores need no branch.
+FCT_HD int warp_rate_row(int t) { return 2 * (t < 17 ? t : 16); }
+
+// XOR a block's two words of the thread's lane into a: threads past 16 XOR
+// nothing.  The mask is applied where the words are used, so no thread
+// waits on its load before then.
+FCT_HD void warp_absorb_words(W64& a, W64 v, int t) {
+  const uint32_t keep = t < 17 ? ~0u : 0u;
+  a.lo ^= v.lo & keep;
+  a.hi ^= v.hi & keep;
+}
+
 #ifdef __CUDACC__
 constexpr int kSqueezeThreads = 128;
 constexpr int kAbsorbThreads = 128;
@@ -426,6 +577,94 @@ __device__ __forceinline__ void sponge_absorb_pair(const uint32_t* __restrict__ 
   for (int l = 0; l < 25; ++l) {
     const uint32_t v = zip32(byte_perm(fin[l], __shfl_xor_sync(kFullWarp, fin[l], 1), sel));
     if (live) state[(2 * l + high) * batch + b] = v;
+  }
+}
+
+// Team 32: a block is one warp, one sponge.  Its kernels are
+// keccak_absorb_kernel_warp and keccak_squeeze_kernel_warp, names that a
+// trace's classification by "keccak_absorb_kernel" and
+// "keccak_squeeze_kernel" puts with the other teams' kernels.  They are
+// kernels of their own, not instantiations of the templates below: with
+// the templates' launch bounds ptxas reused the column loads' registers,
+// so the second column's loads waited on the first's XORs (2.14 against
+// 1.88 us a permutation).
+constexpr int kWarpThreads = 32;
+
+// Keccak-f[1600] of the warp's sponge: a is the thread's lane.
+__device__ __forceinline__ void keccak_f1600_warp(W64& a, WarpTable& tb, const WarpLane& w) {
+#pragma unroll 4
+  for (int round = 0; round < 24; ++round) {
+    tb.cols[w.own] = a;
+    __syncwarp();
+    const W64 b = warp_theta_rho(tb, a, w);
+    W64 g[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      g[i] = {__shfl_sync(kFullWarp, b.lo, w.src[i]), __shfl_sync(kFullWarp, b.hi, w.src[i])};
+    a = warp_chi_iota(g[0], g[1], g[2], w, round);
+  }
+}
+
+// Absorb sponge blockIdx.x with one warp.  Each thread holds the next two
+// blocks' words of its lane in registers, so each load has two
+// permutations to land; the loop body takes two blocks, so that no
+// register move waits on a load.
+__global__ void __launch_bounds__(kWarpThreads)
+keccak_absorb_kernel_warp(const uint32_t* __restrict__ words, const int32_t* __restrict__ nblk,
+                          uint32_t* __restrict__ state, int max_blocks, int64_t batch) {
+  __shared__ __align__(16) WarpTable tb;
+  const int64_t b = blockIdx.x;
+  const int t = threadIdx.x;
+  const WarpLane w = warp_lane(t);
+  int n = nblk[b];
+  n = n < 0 ? 0 : (n > max_blocks ? max_blocks : n);
+  const int64_t block_stride = 34 * batch;
+  const uint32_t* src = words + warp_rate_row(t) * batch + b;  // block 0's words
+  W64 a = {0, 0}, buf0 = {0, 0}, buf1 = {0, 0};
+  if (n > 0) buf0 = {src[0], src[batch]};
+  if (n > 1) buf1 = {src[block_stride], src[block_stride + batch]};
+  src += 2 * block_stride;
+  for (int j = 0; j < n; j += 2) {
+    warp_absorb_words(a, buf0, t);
+    if (j + 2 < n) buf0 = {src[0], src[batch]};
+    src += block_stride;
+    keccak_f1600_warp(a, tb, w);
+    if (j + 1 < n) {
+      warp_absorb_words(a, buf1, t);
+      if (j + 3 < n) buf1 = {src[0], src[batch]};
+      src += block_stride;
+      keccak_f1600_warp(a, tb, w);
+    }
+  }
+  if (t < 25) {
+    state[(int64_t)(2 * t) * batch + b] = a.lo;
+    state[(int64_t)(2 * t + 1) * batch + b] = a.hi;
+  }
+}
+
+// Squeeze sponge blockIdx.x with one warp: threads 0..16 store their lane's
+// two words of each rate block, permuting before every block after the
+// first; the last block may be part full.
+__global__ void __launch_bounds__(kWarpThreads)
+keccak_squeeze_kernel_warp(const uint32_t* __restrict__ state, uint32_t* __restrict__ out,
+                           int n_words, int64_t batch) {
+  __shared__ __align__(16) WarpTable tb;
+  const int64_t b = blockIdx.x;
+  const int t = threadIdx.x;
+  const WarpLane w = warp_lane(t);
+  W64 a = {state[(int64_t)(2 * w.lane) * batch + b], state[(int64_t)(2 * w.lane + 1) * batch + b]};
+  const int n_blocks = (n_words + 33) / 34;
+  const int64_t block_stride = 34 * batch;
+  uint32_t* dst = out + warp_rate_row(t) * batch + b;
+  // words left in the block at the thread's first word: t < 17 stores its
+  // low word while this is above 0, its high word while above 1
+  int left = t < 17 ? n_words - 2 * t : 0;
+  for (int k = 0; k < n_blocks; ++k) {
+    if (k) keccak_f1600_warp(a, tb, w);
+    if (left > 0) dst[0] = a.lo;
+    if (left > 1) dst[batch] = a.hi;
+    dst += block_stride;
+    left -= 34;
   }
 }
 
@@ -509,6 +748,7 @@ keccak_squeeze_kernel(const uint32_t* __restrict__ state,
                         ~(uint32_t)t & 1u);
   }
 }
+
 #endif
 
 }  // namespace
@@ -516,13 +756,19 @@ keccak_squeeze_kernel(const uint32_t* __restrict__ state,
 #ifdef __CUDACC__
 // C entry points (bound with ctypes).  Each launches on ``stream`` and
 // returns cudaGetLastError() so a refused launch is reported to the caller.
-// ``team`` (1 or 2 threads per sponge) is chosen by the wrapper from the
-// batch; a block is always 128 threads.
+// ``team`` (1, 2 or 32 threads per sponge) is chosen by the wrapper from the
+// batch and the SM count; any other value is refused.  A block is 128
+// threads at teams 1 and 2, one warp (one sponge) at team 32.
 extern "C" int fct_keccak_absorb(const uint32_t* words, const int32_t* nblk,
                                  uint32_t* state, int max_blocks,
                                  int64_t batch, int team, void* stream) {
+  if (team != 1 && team != 2 && team != kWarpThreads) return (int)cudaErrorInvalidValue;
   if (batch <= 0) return 0;
-  if (team != 1 && team != 2) return (int)cudaErrorInvalidValue;
+  if (team == kWarpThreads) {
+    keccak_absorb_kernel_warp<<<(unsigned)batch, kWarpThreads, 0, (cudaStream_t)stream>>>(
+        words, nblk, state, max_blocks, batch);
+    return (int)cudaGetLastError();
+  }
   const unsigned grid = (unsigned)((batch * team + kAbsorbThreads - 1) / kAbsorbThreads);
   if (team == 1)
     keccak_absorb_kernel<1><<<grid, kAbsorbThreads, 0, (cudaStream_t)stream>>>(
@@ -535,8 +781,13 @@ extern "C" int fct_keccak_absorb(const uint32_t* words, const int32_t* nblk,
 
 extern "C" int fct_keccak_squeeze(const uint32_t* state, uint32_t* out,
                                   int n_words, int64_t batch, int team, void* stream) {
-  if (team != 1 && team != 2) return (int)cudaErrorInvalidValue;
+  if (team != 1 && team != 2 && team != kWarpThreads) return (int)cudaErrorInvalidValue;
   if (batch <= 0 || n_words <= 0) return 0;
+  if (team == kWarpThreads) {
+    keccak_squeeze_kernel_warp<<<(unsigned)batch, kWarpThreads, 0, (cudaStream_t)stream>>>(
+        state, out, n_words, batch);
+    return (int)cudaGetLastError();
+  }
   const unsigned grid = (unsigned)((batch * team + kSqueezeThreads - 1) / kSqueezeThreads);
   if (team == 1)
     keccak_squeeze_kernel<1><<<grid, kSqueezeThreads, 0, (cudaStream_t)stream>>>(

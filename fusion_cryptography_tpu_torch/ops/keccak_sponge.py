@@ -16,6 +16,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import kernels
+from ..utils import profiling
 from . import keccak
 from .keccak import RATE_WORDS
 
@@ -28,6 +29,9 @@ def _pad_words_lm(words: torch.Tensor, lens: torch.Tensor,
 
 
 SCHEDULERS_PER_SM = 4  # warp schedulers of a Hopper SM
+WARP_TEAM = 32  # a warp a sponge
+# sponges a scheduler up to which a warp a sponge beats the pair (H100)
+WARP_SPONGES_PER_SCHEDULER = 2
 
 
 def absorb_team(batch: int, sms: int) -> int:
@@ -35,10 +39,22 @@ def absorb_team(batch: int, sms: int) -> int:
     on a card of ``sms`` SMs.
 
     A warp's time is its longest sponge's chain of permutations, so below
-    one warp per scheduler the card idles.  Two threads a sponge (16 sponges
-    a warp) while their warps do not outnumber the schedulers; one thread
-    (the 64-bit form, fewer instructions a sponge) above that."""
-    return 2 if batch <= 16 * SCHEDULERS_PER_SM * sms else 1
+    one warp per scheduler the card idles.  A warp a sponge runs a
+    permutation in ~1.9 us against the pair's ~3.1 us on an H100 (35
+    instructions a thread a round against ~124, latency-bound), but one
+    sponge a warp against 16, so it wins only while the sponges are few:
+    absorbs of 64 blocks took 0.61 of the pair's time at 32 and 128
+    sponges, 0.69 at 512, 0.81 at 768, 0.96 at 1,024 and 1.94 at 2,048
+    (132 SMs, CUDA events).  The crossover lies near
+    ``WARP_SPONGES_PER_SCHEDULER`` = 2 sponges a scheduler (1,056 at 132
+    SMs), where the warps begin to share a scheduler's issue.  Above it,
+    two threads a sponge (16 sponges a warp) while their warps do not
+    outnumber the schedulers; one thread (the 64-bit form, fewer
+    instructions a sponge) above that."""
+    schedulers = SCHEDULERS_PER_SM * sms
+    if batch <= WARP_SPONGES_PER_SCHEDULER * schedulers:
+        return WARP_TEAM
+    return 2 if batch <= 16 * schedulers else 1
 
 
 def squeeze_team(batch: int, n_words: int, sms: int) -> int:
@@ -61,7 +77,8 @@ def _absorb_launch(words: torch.Tensor, n_blocks: torch.Tensor, team: Optional[i
     """One launch of kernel ``keccak_absorb``, at :func:`absorb_team`'s
     choice unless ``team`` is given, into a new tensor unless ``state`` (a
     contiguous int32[50, B] on the card) is given: chip_smoke and the tests
-    hold both teams at every shape, on outputs they pre-fill."""
+    hold every team at every shape, on outputs they pre-fill.  Counts the
+    launch under ``keccak.team.<team>`` while a profiler records."""
     kernels.require_cuda_tensor(words, "words", torch.int32, 2)
     kernels.require_cuda_tensor(n_blocks, "n_blocks", torch.int32, 1)
     rows, B = words.shape
@@ -75,6 +92,7 @@ def _absorb_launch(words: torch.Tensor, n_blocks: torch.Tensor, team: Optional[i
     rc = lib.fct_keccak_absorb(words.data_ptr(), n_blocks.data_ptr(), state.data_ptr(),
                                rows // RATE_WORDS, B, team, kernels.cuda_stream())
     kernels.LAUNCHES["keccak_absorb"] += 1
+    profiling.count(f"keccak.team.{team}", 1)
     kernels.check_launch(rc, "keccak_absorb")
     return state
 
@@ -92,7 +110,8 @@ def _squeeze_launch(state: torch.Tensor, n_words: int, team: Optional[int] = Non
     """One launch of kernel ``keccak_squeeze``, at :func:`squeeze_team`'s
     choice unless ``team`` is given, into a new tensor unless ``out`` (a
     contiguous int32[n_words, B] on the card) is given: chip_smoke and the
-    tests hold both teams at every shape, on outputs they pre-fill."""
+    tests hold every team at every shape, on outputs they pre-fill.  Counts
+    the launch as :func:`_absorb_launch` does."""
     kernels.require_cuda_tensor(state, "state", torch.int32, 2)
     if state.shape[0] != 50:
         raise ValueError(f"squeeze: state must be int32[50, B], got {tuple(state.shape)}")
@@ -104,6 +123,7 @@ def _squeeze_launch(state: torch.Tensor, n_words: int, team: Optional[int] = Non
     rc = kernels.library().fct_keccak_squeeze(state.data_ptr(), out.data_ptr(), n_words, B,
                                               team, kernels.cuda_stream())
     kernels.LAUNCHES["keccak_squeeze"] += 1
+    profiling.count(f"keccak.team.{team}", 1)
     kernels.check_launch(rc, "keccak_squeeze")
     return out
 

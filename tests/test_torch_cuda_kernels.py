@@ -57,10 +57,10 @@ def test_sponge_kernels_match_plain_and_hashlib(dev):
         assert got[i].tobytes() == shake_256(by[i, : lens[i]].tobytes()).digest(200)
 
 
-@pytest.mark.parametrize("B", [1, 31, 33, 8197])
+@pytest.mark.parametrize("B", [1, 17, 31, 33, 8197])
 def test_absorb_kernel_any_batch_and_counts(dev, B):
-    """Kernel ``keccak_absorb`` at one and two threads per sponge and
-    through the wrapper, against the plain absorb exactly, on random words
+    """Kernel ``keccak_absorb`` at one, two and 32 threads (a warp) per
+    sponge and through the wrapper, against the plain absorb exactly, on random words
     (the absorb reads no padding): all counts 0; counts of 0 and max_blocks
     mixed; counts from -3 to max_blocks + 3 (clamped).  At each team the
     kernel writes into a state pre-filled with -1, so a word it leaves
@@ -76,17 +76,17 @@ def test_absorb_kernel_any_batch_and_counts(dev, B):
     for counts in (np.zeros(B), mixed, wide):
         nb = torch.from_numpy(counts.astype(np.int32)).to(dev)
         want = keccak.absorb_padded(words, nb)
-        for team in (1, 2):
+        for team in (1, 2, 32):
             state = torch.full((50, B), -1, dtype=torch.int32, device=dev)
             assert ks._absorb_launch(words, nb, team, state) is state
             assert torch.equal(state, want)
         assert torch.equal(ks.absorb(words, nb), want)
 
 
-@pytest.mark.parametrize("B", [1, 17, 8192 + 3])
+@pytest.mark.parametrize("B", [1, 17, 31, 33, 8192 + 3])
 def test_squeeze_kernel_both_teams(dev, B):
-    """Kernel ``keccak_squeeze`` at one and two threads per sponge and
-    through the wrapper == the plain squeeze, into words pre-filled with -1,
+    """Kernel ``keccak_squeeze`` at one, two and 32 threads (a warp) per
+    sponge and through the wrapper == the plain squeeze, into words pre-filled with -1,
     on random states: one rate block or less (1, 8, 34 words), a partial
     last block (35, 300), whole blocks (68), and the widths of a verify
     call's challenge (2,106) and aggregation (3,968) squeezes."""
@@ -95,13 +95,17 @@ def test_squeeze_kernel_both_teams(dev, B):
                                           dtype=np.int64).astype(np.int32)).to(dev)
     for n_words in (1, 8, 34, 35, 68, 300, 2106, 3968):
         want = keccak.shake256_squeeze_words(state, n_words)
-        for team in (1, 2):
+        for team in (1, 2, 32):
             out = torch.full((n_words, B), -1, dtype=torch.int32, device=dev)
             assert ks._squeeze_launch(state, n_words, team, out) is out
             assert torch.equal(out, want)
         assert torch.equal(ks.squeeze(state, n_words), want)
-    with pytest.raises(RuntimeError):  # no such team: the launch is refused
-        ks._squeeze_launch(state, 8, 3)
+    for team in (3, 16, 64):  # no such team: the launch is refused
+        with pytest.raises(RuntimeError):
+            ks._squeeze_launch(state, 8, team)
+        with pytest.raises(RuntimeError):
+            ks._absorb_launch(torch.zeros((34, B), dtype=torch.int32, device=dev),
+                              torch.ones(B, dtype=torch.int32, device=dev), team)
 
 
 # secpar 128 and 256 (rank 195 and 83) over the Fusion prime, G not a

@@ -120,12 +120,13 @@ def test_wrappers_never_fall_back_off_cpu():
 
 
 def test_absorb_team_and_warp_ratio():
-    """Two threads a sponge while the pairs' warps (16 sponges each) do not
-    outnumber the card's schedulers (4 an SM), one above; the idle-lane
-    ratio counts each warp's longest sponge for each of its sponges."""
+    """A warp a sponge up to two sponges a scheduler (4 an SM), two threads
+    while the pairs' warps (16 sponges each) do not outnumber the
+    schedulers, one above; the idle-lane ratio counts each warp's longest
+    sponge for each of its sponges."""
     from fusion_cryptography_tpu_torch import bounds
 
-    assert ks.absorb_team(1, 132) == 2
+    assert ks.absorb_team(1, 132) == 32
     assert ks.absorb_team(8192, 132) == 2  # a verify call's aggregation
     assert ks.absorb_team(16 * 4 * 132, 132) == 2
     assert ks.absorb_team(16 * 4 * 132 + 1, 132) == 1
@@ -147,3 +148,39 @@ def test_squeeze_team():
     assert ks.squeeze_team(32768, 8, 132) == 1
     assert ks.squeeze_team(8192, 34, 132) == 1
     assert ks.squeeze_team(8192, 35, 132) == 2
+
+
+# (sponges, squeeze words, SMs) -> (absorb team, squeeze team).  At 132
+# SMs: the wide group (32 sponges, 1,015,818 words) a warp each; the
+# measured crossover's two sides (1,024 a warp, 2,048 the pair) and the
+# rule's edge (2 sponges x 528 schedulers); the short and nist cells' group
+# (8,192) the pair; the prehash and challenge (32,768) one thread; a
+# squeeze of at most 34 words one thread whatever the batch.
+TEAM_CASES = [
+    ((32, 1015818, 132), (32, 32)),
+    ((1, 35, 132), (32, 32)),
+    ((1024, 2106, 132), (32, 32)),
+    ((1056, 3968, 132), (32, 32)),
+    ((1057, 3968, 132), (2, 2)),
+    ((2048, 3968, 132), (2, 2)),
+    ((8192, 3968, 132), (2, 2)),
+    ((8448, 3968, 132), (2, 2)),
+    ((8449, 3968, 132), (1, 1)),
+    ((32768, 2106, 132), (1, 1)),
+    ((32, 34, 132), (32, 1)),
+    ((32, 8, 132), (32, 1)),
+    ((32768, 8, 132), (1, 1)),
+    ((528, 3968, 66), (32, 32)),
+    ((529, 3968, 66), (2, 2)),
+]
+
+
+@pytest.mark.parametrize("shape,teams", TEAM_CASES,
+                         ids=[f"{b}x{w}w@{s}" for (b, w, s), _ in TEAM_CASES])
+def test_team_rule_from_batch_and_sms(shape, teams):
+    """The team is chosen from the batch, the SM count and (for the squeeze)
+    the words alone: a warp a sponge up to two sponges a scheduler, the
+    pair up to 16, one thread above; one thread for a squeeze with no
+    permutation."""
+    batch, n_words, sms = shape
+    assert (ks.absorb_team(batch, sms), ks.squeeze_team(batch, n_words, sms)) == teams

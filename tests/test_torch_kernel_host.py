@@ -80,29 +80,99 @@ static void host_absorb_pair_lane(const uint32_t* words, const int32_t* nblk, ui
           zip32(byte_perm(s[e][l], s[1 - e][l], pair_sel(e)));
 }
 
-// team 1: the one-thread lane function; team 2: the pair, emulated
-extern "C" void host_absorb(const uint32_t* words, const int32_t* nblk,
-                            uint32_t* state, int max_blocks, int64_t batch, int team) {
+// keccak_f1600_warp with the warp's 32 threads run in turn at each step,
+// reg[t] thread t's lane: each stores its lane in the table (poisoned
+// first: the columns' padding is loaded, never used); after the
+// __syncwarp() each forms its theta and rho; each shuffle reads the source
+// thread's value from before the gather.  Returns false if a thread past
+// 24 ever differs from thread 24.
+static bool host_permute_warp(W64 reg[32]) {
+  WarpTable tb;
+  std::fill(&tb.cols[0].lo, &tb.cols[0].lo + 2 * 30, 0xA5A5A5A5u);
+  bool mirrored = true;
+  for (int round = 0; round < 24; ++round) {
+    W64 b[32];
+    for (int t = 0; t < 32; ++t) tb.cols[warp_lane(t).own] = reg[t];
+    for (int t = 0; t < 32; ++t) b[t] = warp_theta_rho(tb, reg[t], warp_lane(t));
+    for (int t = 0; t < 32; ++t) {
+      const WarpLane w = warp_lane(t);
+      reg[t] = warp_chi_iota(b[w.src[0]], b[w.src[1]], b[w.src[2]], w, round);
+    }
+    for (int t = 25; t < 32; ++t)
+      mirrored &= reg[t].lo == reg[24].lo && reg[t].hi == reg[24].hi;
+  }
+  return mirrored;
+}
+
+// keccak_absorb_warp_kernel's arithmetic for lane b, its 32 threads in turn.
+static bool host_absorb_warp_lane(const uint32_t* words, const int32_t* nblk, uint32_t* state,
+                                  int max_blocks, int64_t batch, int64_t b) {
+  W64 reg[32] = {};
+  int n = nblk[b];
+  n = n < 0 ? 0 : (n > max_blocks ? max_blocks : n);
+  bool mirrored = true;
+  for (int j = 0; j < n; ++j) {
+    const uint32_t* blk = words + (int64_t)j * 34 * batch + b;
+    for (int t = 0; t < 32; ++t) {
+      const int row = warp_rate_row(t);
+      warp_absorb_words(reg[t], {blk[row * batch], blk[(row + 1) * batch]}, t);
+    }
+    mirrored &= host_permute_warp(reg);
+  }
+  for (int t = 0; t < 25; ++t) {
+    state[(int64_t)(2 * t) * batch + b] = reg[t].lo;
+    state[(int64_t)(2 * t + 1) * batch + b] = reg[t].hi;
+  }
+  return mirrored;
+}
+
+// team 1: the one-thread lane function; team 2: the pair, emulated; team
+// 32: the warp, emulated.  Returns 0, or -1 if a warp's threads past 24
+// left thread 24's lane.
+extern "C" int host_absorb(const uint32_t* words, const int32_t* nblk,
+                           uint32_t* state, int max_blocks, int64_t batch, int team) {
+  bool mirrored = true;
   for (int64_t b = 0; b < batch; ++b) {
     if (team == 1)
       sponge_absorb_lane(words, nblk, state, max_blocks, batch, b);
-    else
+    else if (team == 2)
       host_absorb_pair_lane(words, nblk, state, max_blocks, batch, b);
+    else
+      mirrored &= host_absorb_warp_lane(words, nblk, state, max_blocks, batch, b);
   }
+  return mirrored ? 0 : -1;
 }
 
-// n states of 25 lanes: keccak_f1600 on each, and the pair's permutation on
-// the same states given as interleaved words (even[k], odd[k]: 25 words each)
-extern "C" void host_permute(uint64_t* lanes, uint32_t* even, uint32_t* odd, int64_t n) {
+// n states of 25 lanes, each permuted ``times`` times: keccak_f1600 on
+// ``lanes``, the pair's permutation on the same states given as
+// interleaved words (even[k], odd[k]: 25 words each), and the warp's on
+// them given as 50 words (low and high word of each lane) in ``warp``.
+// Returns 0, or -1 if the warp's threads past 24 left thread 24's lane.
+extern "C" int host_permute(uint64_t* lanes, uint32_t* even, uint32_t* odd, uint32_t* warp,
+                            int64_t n, int times) {
+  bool mirrored = true;
   for (int64_t k = 0; k < n; ++k) {
-    keccak_f1600(lanes + 25 * k);
     uint32_t s[2][25];
     std::copy(odd + 25 * k, odd + 25 * k + 25, s[0]);
     std::copy(even + 25 * k, even + 25 * k + 25, s[1]);
-    host_permute_pair(s);
+    W64 reg[32];
+    for (int t = 0; t < 32; ++t) {
+      const int l = t < 25 ? t : 24;
+      reg[t] = {warp[50 * k + 2 * l], warp[50 * k + 2 * l + 1]};
+    }
+    for (int i = 0; i < times; ++i) {
+      keccak_f1600(lanes + 25 * k);
+      host_permute_pair(s);
+      mirrored &= host_permute_warp(reg);
+    }
     std::copy(s[0], s[0] + 25, odd + 25 * k);
     std::copy(s[1], s[1] + 25, even + 25 * k);
+    for (int l = 0; l < 25; ++l) {
+      warp[50 * k + 2 * l] = reg[l].lo;
+      warp[50 * k + 2 * l + 1] = reg[l].hi;
+    }
   }
+  return mirrored ? 0 : -1;
 }
 
 // sponge_squeeze_pair's arithmetic for lane b, its two threads run in turn:
@@ -126,15 +196,44 @@ static void host_squeeze_pair_lane(const uint32_t* state, uint32_t* out, int n_w
   }
 }
 
-// team 1: the one-thread lane function; team 2: the pair, emulated
-extern "C" void host_squeeze(const uint32_t* state, uint32_t* out,
-                             int n_words, int64_t batch, int team) {
+// keccak_squeeze_warp_kernel's arithmetic for lane b, its 32 threads in
+// turn: threads 0..16 store their lane's two words of each block.
+static bool host_squeeze_warp_lane(const uint32_t* state, uint32_t* out, int n_words,
+                                   int64_t batch, int64_t b) {
+  W64 reg[32];
+  for (int t = 0; t < 32; ++t) {
+    const int l = warp_lane(t).lane;
+    reg[t] = {state[(int64_t)(2 * l) * batch + b], state[(int64_t)(2 * l + 1) * batch + b]};
+  }
+  bool mirrored = true;
+  int left[32];
+  for (int t = 0; t < 32; ++t) left[t] = t < 17 ? n_words - 2 * t : 0;
+  for (int k = 0; k < (n_words + 33) / 34; ++k) {
+    if (k) mirrored &= host_permute_warp(reg);
+    for (int t = 0; t < 32; ++t) {
+      uint32_t* dst = out + (34 * (int64_t)k + warp_rate_row(t)) * batch + b;
+      if (left[t] > 0) dst[0] = reg[t].lo;
+      if (left[t] > 1) dst[batch] = reg[t].hi;
+      left[t] -= 34;
+    }
+  }
+  return mirrored;
+}
+
+// team 1: the one-thread lane function; team 2: the pair, emulated; team
+// 32: the warp, emulated (returns as host_absorb)
+extern "C" int host_squeeze(const uint32_t* state, uint32_t* out,
+                            int n_words, int64_t batch, int team) {
+  bool mirrored = true;
   for (int64_t b = 0; b < batch; ++b) {
     if (team == 1)
       sponge_squeeze_lane(state, out, n_words, batch, b);
-    else
+    else if (team == 2)
       host_squeeze_pair_lane(state, out, n_words, batch, b);
+    else
+      mirrored &= host_squeeze_warp_lane(state, out, n_words, batch, b);
   }
+  return mirrored ? 0 : -1;
 }
 
 // The aggregate check's rows, one warp of 32 lanes emulated serially: the
@@ -650,7 +749,7 @@ def lib(tmp_path_factory):
     lib = ctypes.CDLL(str(so))
     P, I32, I64, U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
     lib.host_absorb.argtypes = [P, P, P, I32, I64, I32]
-    lib.host_permute.argtypes = [P, P, P, I64]
+    lib.host_permute.argtypes = [P, P, P, P, I64, I32]
     lib.host_squeeze.argtypes = [P, P, I32, I64, I32]
     lib.host_agg_check.argtypes = [P, I64, I32, I32, P, P, P, P, U32, U32, U32, P, P, P]
     lib.host_ntt_u.argtypes = [P, P, I64, I32, P, P, I32, U32, U32, U32]
@@ -670,12 +769,17 @@ def lib(tmp_path_factory):
     return lib
 
 
+# threads per sponge: one (64-bit form), the interleaved pair, the warp
+SPONGE_TEAMS = (1, 2, 32)
+
+
 def _absorb(lib, padded, nblk, team):
     """The absorb of ``team`` threads per sponge over every lane, the state
-    pre-filled with -1 (every word must be written)."""
+    pre-filled with -1 (every word must be written); a warp's idle threads
+    must keep thread 24's lane."""
     state = torch.full((50, padded.shape[1]), -1, dtype=torch.int32)
-    lib.host_absorb(padded.data_ptr(), nblk.data_ptr(), state.data_ptr(),
-                    padded.shape[0] // tk.RATE_WORDS, padded.shape[1], team)
+    assert lib.host_absorb(padded.data_ptr(), nblk.data_ptr(), state.data_ptr(),
+                           padded.shape[0] // tk.RATE_WORDS, padded.shape[1], team) == 0
     return state
 
 
@@ -683,7 +787,8 @@ def _squeeze(lib, state, n_words, team=1):
     """The squeeze of ``team`` threads per sponge over every lane, into
     words pre-filled with -1 (every word must be written)."""
     out = torch.full((n_words, state.shape[1]), -1, dtype=torch.int32)
-    lib.host_squeeze(state.data_ptr(), out.data_ptr(), n_words, state.shape[1], team)
+    assert lib.host_squeeze(state.data_ptr(), out.data_ptr(), n_words, state.shape[1],
+                            team) == 0
     return out
 
 
@@ -698,13 +803,14 @@ def test_sponge_lanes_match_plain_and_hashlib(lib, pad_head):
     words = torch.from_numpy(by.view(np.int32).T.copy())
     padded, nblk = tk.pad_words(words, torch.from_numpy(lens), pad_head, assume_clean=True)
     want = tk.absorb_padded(padded, nblk)
-    for team in (1, 2):  # one thread per sponge, and the interleaved pair
+    for team in SPONGE_TEAMS:
         state = _absorb(lib, padded, nblk, team)
         np.testing.assert_array_equal(state.numpy(), want.numpy())
     for n_words in (1, 8, 34, 35, 300):
-        out = _squeeze(lib, state, n_words)
-        np.testing.assert_array_equal(
-            out.numpy(), tk.shake256_squeeze_words(state, n_words).numpy())
+        for team in SPONGE_TEAMS:
+            out = _squeeze(lib, state, n_words, team)
+            np.testing.assert_array_equal(
+                out.numpy(), tk.shake256_squeeze_words(state, n_words).numpy())
     got = _squeeze(lib, state, 300).t().contiguous().view(torch.uint8).numpy()
     for i, n in enumerate(lens):
         msg = by[i, :n].tobytes()
@@ -721,27 +827,74 @@ def _interleave(lanes):
     return even, odd
 
 
+def _permute(lib, lanes, times):
+    """``times`` Keccak-f of each uint64 state [n, 25]: (the one-thread
+    keccak_f1600's, the pair's (even, odd) words, the warp's lanes)."""
+    even, odd = (np.ascontiguousarray(w) for w in _interleave(lanes))
+    single, warp = lanes.copy(), lanes.copy()
+    assert lib.host_permute(single.ctypes.data, even.ctypes.data, odd.ctypes.data,
+                            warp.ctypes.data, lanes.shape[0], times) == 0
+    return single, (even, odd), warp
+
+
 def test_pair_permutation_matches_keccak_f(lib):
-    """The interleaved pair's Keccak-f (both threads emulated) against the
-    one-thread keccak_f1600 and the plain torch keccak_f, on random states
-    and the all-zero and all-one states."""
+    """The interleaved pair's and the warp's Keccak-f (every thread
+    emulated) against the one-thread keccak_f1600 and the plain torch
+    keccak_f, on random states and the all-zero and all-one states."""
     rng = np.random.default_rng(1600)
     lanes = rng.integers(0, 2**64, size=(64, 25), dtype=np.uint64)
     lanes[0], lanes[1] = 0, np.uint64(2**64 - 1)
-    even, odd = (np.ascontiguousarray(w) for w in _interleave(lanes))
-    single = lanes.copy()
-    lib.host_permute(single.ctypes.data, even.ctypes.data, odd.ctypes.data, lanes.shape[0])
+    single, (even, odd), warp = _permute(lib, lanes, 1)
     plain = tk.keccak_f(torch.from_numpy(lanes.view(np.int64).T.copy())).T.numpy()
     np.testing.assert_array_equal(single.view(np.int64), plain)
     want_even, want_odd = _interleave(single)
     np.testing.assert_array_equal(even, want_even)
     np.testing.assert_array_equal(odd, want_odd)
+    np.testing.assert_array_equal(warp, single)
+
+
+def test_warp_permutation_chained_matches_keccak_f(lib):
+    """1,200 Keccak-f in a row on the warp (emulated) and the pair, from
+    random, all-zero and all-one states, against the one-thread
+    keccak_f1600 chained as long and the plain torch keccak_f."""
+    rng = np.random.default_rng(1201)
+    lanes = rng.integers(0, 2**64, size=(4, 25), dtype=np.uint64)
+    lanes[0], lanes[1] = 0, np.uint64(2**64 - 1)
+    single, (even, odd), warp = _permute(lib, lanes, 1200)
+    plain = torch.from_numpy(lanes.view(np.int64).T.copy())
+    for _ in range(1200):
+        plain = tk.keccak_f(plain)
+    np.testing.assert_array_equal(single.view(np.int64), plain.T.numpy())
+    np.testing.assert_array_equal(warp, single)
+    want_even, want_odd = _interleave(single)
+    np.testing.assert_array_equal(even, want_even)
+    np.testing.assert_array_equal(odd, want_odd)
+
+
+@pytest.mark.parametrize("team", SPONGE_TEAMS)
+def test_sponge_thousand_blocks_match_hashlib(lib, team):
+    """Messages of 1,000 to 1,103 rate blocks (up to 150,000 B), absorbed
+    and squeezed (2,111 words: 62 blocks, the last part full) at each team
+    (emulated), against hashlib's SHAKE256 and the one-thread state."""
+    rng = np.random.default_rng(1103)
+    lens = np.array([999 * tk.RATE + 5, 1000 * tk.RATE - 1, 150000], np.int32)
+    rows = -(-(150000 + 1) // tk.RATE) * tk.RATE_WORDS
+    by = rng.integers(0, 256, size=(lens.size, 4 * rows), dtype=np.uint8)
+    by[np.arange(4 * rows)[None, :] >= lens[:, None]] = 0
+    words = torch.from_numpy(by.view(np.int32).T.copy())
+    padded, nblk = tk.pad_words(words, torch.from_numpy(lens), 0x1F, assume_clean=True)
+    assert nblk.tolist() == [1000, 1000, 1103]
+    state = _absorb(lib, padded, nblk, team)
+    np.testing.assert_array_equal(state.numpy(), _absorb(lib, padded, nblk, 1).numpy())
+    got = np.ascontiguousarray(_squeeze(lib, state, 2111, team).numpy().T).view(np.uint8)
+    for i, n in enumerate(lens):
+        assert got[i].tobytes() == shake_256(by[i, :n].tobytes()).digest(4 * 2111), int(n)
 
 
 @pytest.mark.parametrize("pad_head", [0x1F, 0x06], ids=["shake256", "sha3_256"])
 def test_sponge_lanes_rate_edges_and_longest(lib, pad_head):
     """Lengths 0, 135, 136, 137 and 42,787 bytes (315 blocks, the longest
-    aggregation preimage at secpar 256, N = 4), both teams, against the
+    aggregation preimage at secpar 256, N = 4), each team, against the
     plain absorb and hashlib."""
     rng = np.random.default_rng(pad_head + 1)
     lens = np.array([0, 135, 136, 137, 42787], np.int32)
@@ -752,20 +905,21 @@ def test_sponge_lanes_rate_edges_and_longest(lib, pad_head):
     padded, nblk = tk.pad_words(words, torch.from_numpy(lens), pad_head, assume_clean=True)
     assert nblk.tolist() == [1, 1, 2, 2, 315]
     want = tk.absorb_padded(padded, nblk)
-    for team in (1, 2):
+    for team in SPONGE_TEAMS:
         state = _absorb(lib, padded, nblk, team)
         np.testing.assert_array_equal(state.numpy(), want.numpy())
-    got = _squeeze(lib, state, 8).t().contiguous().view(torch.uint8).numpy()
-    for i, n in enumerate(lens):
-        msg = by[i, :n].tobytes()
-        digest = shake_256(msg).digest(32) if pad_head == 0x1F else sha3_256(msg).digest()
-        assert got[i].tobytes() == digest, int(n)
+        got = _squeeze(lib, state, 8, team).t().contiguous().view(torch.uint8).numpy()
+        for i, n in enumerate(lens):
+            msg = by[i, :n].tobytes()
+            digest = shake_256(msg).digest(32) if pad_head == 0x1F else sha3_256(msg).digest()
+            assert got[i].tobytes() == digest, (team, int(n))
 
 
 @pytest.mark.parametrize("n_words", [1, 33, 34, 35, 68, 300])
 def test_squeeze_pair_matches_plain_and_hashlib(lib, n_words):
-    """The squeeze at two threads a sponge (the pair emulated) and at one,
-    into words pre-filled with -1: no permutation (n_words <= 34), a
+    """The squeeze at a warp and at two threads a sponge (the warp and the
+    pair emulated) and at one, into words pre-filled with -1: no
+    permutation (n_words <= 34), a
     partial last block, exactly two blocks and nine; against the plain
     squeeze and hashlib, on states of messages across the rate edges."""
     rng = np.random.default_rng(n_words)
@@ -776,7 +930,7 @@ def test_squeeze_pair_matches_plain_and_hashlib(lib, n_words):
     words = torch.from_numpy(by.view(np.int32).T.copy())
     state = tk.shake256_absorb_words(words, torch.from_numpy(lens))
     want = tk.shake256_squeeze_words(state, n_words)
-    for team in (1, 2):
+    for team in SPONGE_TEAMS:
         got = _squeeze(lib, state, n_words, team)
         np.testing.assert_array_equal(got.numpy(), want.numpy())
     got = np.ascontiguousarray(got.numpy().T).view(np.uint8)

@@ -257,8 +257,9 @@ def test_traced_wide_group_call_has_the_group_spans_and_counters():
     lattice check, agg_fold's prefix launch) opens ``fct.group.fold``,
     ``.sponge``, ``.decode`` inside ``fct.group`` and ``fct.lattice.target``
     inside ``fct.lattice``, each with device work launched in it, counts
-    ``group.signers`` and ``group.agg_words`` without a host sync, and
-    gives the untraced verdicts."""
+    ``group.signers`` and ``group.agg_words`` without a host sync, counts
+    its group sponge under a warp a sponge (``keccak.team.32``), and gives
+    the untraced verdicts."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from fusion_cryptography_tpu_torch import kernels
@@ -286,6 +287,10 @@ def test_traced_wide_group_call_has_the_group_spans_and_counters():
     assert got[0].tolist() == [True, False]
     assert c["group.signers"] == 64
     assert c["group.agg_words"] == ds.agg_fold_table(params, 64).widths[0]
+    # three absorbs and three squeezes; the group stage's two sponges take
+    # a warp each
+    assert sum(v for k, v in c.items() if k.startswith("keccak.team.")) == 6
+    assert c["keccak.team.32"] >= 2
     names = {e.name for e in prof.events()}
     assert GROUP_SPANS | {"fct.lattice.target"} <= names
     from fusion_cryptography_tpu_torch import profile_verify as pv
@@ -293,3 +298,30 @@ def test_traced_wide_group_call_has_the_group_spans_and_counters():
     _, rows, _ = pv.trace(lambda: dp.verify_batch_device(params, vks, msgs, aggs))
     kernels_run = {pv.port_kernel(name) for name, _, _ in rows}
     assert {"agg_fold", "lattice_target", "keccak_absorb", "keccak_squeeze"} <= kernels_run
+
+
+@pytest.mark.cuda
+def test_traced_verify_of_8192_groups_counts_the_pair_team():
+    """A traced verify of 8,192 groups of 4 on the card: its group sponge
+    (8,192 sponges) counts under two threads a sponge, its prehash and
+    challenge (32,768 sponges, and the 8-word digest) under one, and no
+    launch under a warp a sponge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from fusion_cryptography_tpu_torch import kernels
+
+    kernels.library()
+    dev = torch.device("cuda", 0)
+    params = fusion_setup(256, 5)
+    fleet = build_fleet(params, 8192, 4, seed0=43, device=dev)
+    dp.verify_batch_device(params, *fleet)
+    torch.cuda.synchronize()
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        eq, _, _ = dp.verify_batch_device(params, *fleet)
+        torch.cuda.synchronize()
+    c = profiling.counters()
+    profiling.reset_counters()
+    assert bool(eq.all())
+    assert {k: v for k, v in c.items() if k.startswith("keccak.team.")} == {
+        "keccak.team.1": 4, "keccak.team.2": 2}
