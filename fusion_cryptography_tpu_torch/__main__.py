@@ -77,8 +77,8 @@ def main(argv=None) -> int:
     import torch
 
     from .interop import api
-    from .scheme import serde
-    from .scheme.device_pipeline import resolve_device
+    from .ops.upload import resolve_device
+    from .scheme import ring, serde
 
     if args.cmd == "setup":
         params = api.fusion_setup(args.secpar, args.seed)
@@ -103,9 +103,9 @@ def main(argv=None) -> int:
             return 2
         sk = api.OneTimeSigningKey(params, seed, sk_hat, device=dev)
         # the vk (needed for the challenge hash) from the sk: A·sk over the rank
-        F = params.plan.field
-        a_mont = F.to_mont(F.to_unsigned(torch.as_tensor(params.public_challenge, device=dev)))
-        vk_u = F.dot_mod(a_mont, F.to_unsigned(sk.sk_hat), axis=-2)
+        F, q = params.plan.field, params.modulus
+        a_u = F.to_unsigned(torch.as_tensor(params.public_challenge, device=dev))
+        vk_u = ring.mul(a_u, F.to_unsigned(sk.sk_hat), q).sum(dim=-2).remainder_(q)
         vk = api.OneTimeVerificationKey(params, F.to_centered(vk_u))
         sig = api.sign(params, (sk, vk), args.message)
         _write(args.out, serde.encode_signature(params, sig.signature_hat))

@@ -27,7 +27,7 @@ from ..ops.numtheory import (  # re-exports (API parity)
     is_primitive_root,
     is_root_of_unity,
 )
-from ..scheme.device_pipeline import resolve_device
+from ..ops.upload import resolve_device
 
 __all__ = [
     "is_odd_prime",

@@ -27,9 +27,9 @@ import torch
 from ..hashing import decode as _decode
 from ..hashing import xof as _xof
 from ..ops.ntt import ntt_fwd
+from ..ops.upload import input_device, resolve_device
 from ..params import Params, fusion_setup as _tensor_setup
 from ..scheme import lifecycle as _lc
-from ..scheme.device_pipeline import input_device, resolve_device
 from . import serial
 
 __all__ = [
@@ -65,20 +65,15 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def _device_of(device, *objs) -> torch.device:
-    """``device`` if given, else the device of the first tensor carried by
-    ``objs`` (searched through tuples and lists), else the card."""
-    if device is None:
-        todo = list(objs)
-        while todo:
-            o = todo.pop(0)
-            if isinstance(o, (tuple, list)):
-                todo[:0] = o
-                continue
-            for name in _TENSOR_ATTRS:
-                t = getattr(o, name, None)
-                if isinstance(t, torch.Tensor):
-                    return t.device
-    return resolve_device(device)
+    """``input_device`` of the tensors carried by ``objs``, searched through
+    tuples and lists in order."""
+    def carried(o):
+        if isinstance(o, (tuple, list)):
+            for x in o:
+                yield from carried(x)
+        else:
+            yield from (getattr(o, name, None) for name in _TENSOR_ATTRS)
+    return input_device(device, *(t for o in objs for t in carried(o)))
 
 
 def fusion_setup(secpar: int, seed: Optional[int]) -> Params:

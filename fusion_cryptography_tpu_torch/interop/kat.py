@@ -30,8 +30,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..hashing.xof import challenge_xof_len
+from ..ops.upload import resolve_device
 from ..params import Params, _LEVELS, fusion_setup
-from ..scheme.device_pipeline import resolve_device
 from . import api, serial
 
 csv.field_size_limit(sys.maxsize)
@@ -103,27 +103,25 @@ def check_hash_message_to_int(path: Path, *, device=None) -> List[bool]:
 def check_hash_vk_and_int_to_bytes(path: Path, *, device=None) -> List[bool]:
     """intermediate_hash_vk_and_int_to_bytes_to_int_KAT_*: the key on
     ``device``, the hash on the host."""
-    dev = resolve_device(device)
     results = []
     for inp, out in load_rows(path):
         params = params_from_repr(inp)
         m = re.search(r", (\d+), (\d+)\)$", inp)
         i, n = int(m.group(1)), int(m.group(2))
         vk = _vk_from_repr(inp, inp.index("OneTimeVerificationKey("))
-        vk_obj = api.OneTimeVerificationKey(params, vk, device=dev)
+        vk_obj = api.OneTimeVerificationKey(params, vk, device=device)
         results.append(str(api.hash_vk_and_int_to_bytes(params, vk_obj, i, n)) == out)
     return results
 
 
 def check_hash_ch(path: Path, *, device=None) -> List[bool]:
     """intermediate_hash_ch_KAT_*: the challenge NTT on ``device``."""
-    dev = resolve_device(device)
     results = []
     for inp, out in load_rows(path):
         params = params_from_repr(inp)
         msg = re.search(r", '([^']*)'\)$", inp).group(1)
         vk = _vk_from_repr(inp, inp.index("OneTimeVerificationKey("))
-        vk_obj = api.OneTimeVerificationKey(params, vk, device=dev)
+        vk_obj = api.OneTimeVerificationKey(params, vk, device=device)
         results.append(str(api.hash_ch(params, vk_obj, msg)) == out)
     return results
 
@@ -144,7 +142,6 @@ def check_aggregate(path: Path, setup_path: Optional[Path] = None, *,
        reference's aggregate, so this holds the port to it; the JAX
        package's checker compares against a live reference install instead.
     """
-    dev = resolve_device(device)
     if setup_path is None:
         setup_path = path.parent / path.name.replace("fusion_aggregate", "fusion_setup")
     setup_rows = load_rows(setup_path)
@@ -156,7 +153,7 @@ def check_aggregate(path: Path, setup_path: Optional[Path] = None, *,
         otks, msgs, sigs = [], [], []
         for i in range(n_signers):
             sk_seed = random.randint(0, 2**32 - 1)
-            otks.append(api.keygen(params, sk_seed, device=dev))
+            otks.append(api.keygen(params, sk_seed, device=device))
             msgs.append(str(i))
             sigs.append(api.sign(params, otks[i], msgs[i]))
         otvks = [k[1] for k in otks]

@@ -30,7 +30,7 @@ import torch
 from ..hashing.sampler import sample_short_poly_coeffs, sample_uniform_ntt_values
 from ..ops import numtheory
 from ..ops.ntt import make_plan, negacyclic_poly_mult, ntt_fwd, ntt_inv
-from ..scheme.device_pipeline import resolve_device
+from ..ops.upload import input_device, resolve_device
 from . import serial
 
 
@@ -58,8 +58,7 @@ def _as_values(vals, what: str, degree: int, device) -> torch.Tensor:
             raise TypeError(f"{what} must be a list of ints")
         if vals.dim() != 1 or vals.shape[0] != degree:
             raise ValueError(f"{what} must be of length degree")
-        dev = vals.device if device is None else resolve_device(device)
-        return vals.to(device=dev, dtype=torch.int64)
+        return vals.to(device=input_device(device, vals), dtype=torch.int64)
     if not isinstance(vals, list):
         raise TypeError(f"{what} must be a list")
     if not all(isinstance(x, int) and not isinstance(x, bool) for x in vals):

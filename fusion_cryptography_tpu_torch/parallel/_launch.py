@@ -147,3 +147,6 @@ if __name__ == "__main__":
         traceback.print_exc()
         sys.stdout.flush()
         os._exit(1)  # skip interpreter teardown: a broken communicator can hang in it
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)  # the result is written: skip the teardown, which can abort too

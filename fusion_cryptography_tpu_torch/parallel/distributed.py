@@ -20,7 +20,7 @@ from typing import Iterator, Optional
 import torch
 import torch.distributed as dist
 
-from ..scheme.device_pipeline import resolve_device
+from ..ops.upload import resolve_device
 
 DEFAULT_TIMEOUT_S = 600.0
 

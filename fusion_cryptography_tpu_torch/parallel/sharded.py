@@ -34,6 +34,9 @@ from ..ops.ntt import ntt_fwd_u
 from ..ops.upload import upload
 from ..params import Params
 from ..scheme import device_pipeline as dpl
+from ..scheme import device_setup as ds
+from ..scheme import lifecycle as lc
+from ..scheme import ring
 from .distributed import rank_device
 from .mesh import mesh_axis, mesh_device
 
@@ -150,19 +153,17 @@ def sharded_lifecycle_step(params: Params, mesh: DeviceMesh, device=None):
             hi = min(b, lo + STEP_CHUNK)
             # --- keygen: sk_hat = NTT(sk); this rank's rows of A·sk_hat ---
             sk_u = ntt_fwd_u(plan, F.to_unsigned(sk[lo:hi]))  # [n, 2, r_loc, d]
-            vk_u[lo:hi] = (sk_u * a_u).remainder_(q).sum(dim=-2)
-            # --- sign: sig = sk_l ⊙ c + sk_r ---
-            sig_u = (sk_u[:, 0] * c_u[lo:hi, None]).remainder_(q).add_(sk_u[:, 1])
+            vk_u[lo:hi] = ring.mul(sk_u, a_u, q).sum(dim=-2)
+            # --- sign, and this dp shard's aggregate Σ α ⊙ sig ---
+            sig_u = ring.sign(q, sk_u, c_u[lo:hi])
             del sk_u
-            # --- aggregate: this dp shard's Σ α ⊙ sig ---
-            sig_u.remainder_(q).mul_(al_u[lo:hi, None]).remainder_(q)
-            agg_u.add_(sig_u.sum(dim=0)).remainder_(q)
+            agg_u.add_(ring.aggregate(q, al_u[lo:hi], sig_u)).remainder_(q)
             del sig_u
         vk_u = _psum_mod(vk_u, q, tp_group)  # the A·sk sum spans tp
         agg_u = _psum_mod(agg_u, q, dp_group)  # the signer sum spans dp
         # --- verify: target = Σ α ⊙ (c ⊙ vk_l + vk_r) over all B signers ---
-        t = (c_u * vk_u[:, 0]).remainder_(q).add_(vk_u[:, 1]).remainder_(q)
-        target = _psum_mod((al_u * t).remainder_(q).sum(dim=0), q, dp_group)
+        t = ring.aggregate(q, al_u, ring.sign(q, vk_u.unsqueeze(2), c_u))  # [1, d]
+        target = _psum_mod(t[0], q, dp_group)
         agg = F.to_centered(agg_u)
         # this rank's rows: A·agg partial sum, and each row's norm and weight
         observed, nrm, wgt = agg_check(plan, table, agg.unsqueeze(0))
@@ -233,9 +234,6 @@ def prepare_real(params: Params, rank_p: int, seeds, messages, device=None):
     numpy arrays in sorted order, the port's KeyBatch on ``device`` (the
     card unless ``"cpu"``; keygen is kernel ``ntt_centered`` there), and the
     order, list[int])."""
-    from ..scheme import device_setup as ds
-    from ..scheme import lifecycle as lc
-
     seeds = list(seeds)
     B = len(seeds)
     d, rank = params.degree, params.rank

@@ -70,7 +70,7 @@ from ..ops.lattice_target import lattice_target
 from ..ops.keccak import RATE
 from ..ops.keccak_sponge import shake256_words_w
 from ..ops.ntt import ntt_fwd_u
-from ..ops.upload import upload
+from ..ops.upload import input_device, upload
 from ..params import Params
 from ..utils.profiling import count, span
 
@@ -104,26 +104,6 @@ def _geometries(params: Params) -> dict:
             params.secpar, params.modulus, params.degree, bound_ag, params.omega_ag
         ),
     )
-
-
-def resolve_device(device) -> torch.device:
-    """``device``, or the CUDA device when it is None; raises when that
-    device is CUDA and there is none (nothing falls back to the CPU)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    return dev
-
-
-def input_device(device, *inputs) -> torch.device:
-    """The device an entry point runs on: ``device`` if given, else that of
-    the first torch tensor among ``inputs``, else CUDA (numpy inputs; raises
-    without a card)."""
-    if device is None:
-        for x in inputs:
-            if isinstance(x, torch.Tensor):
-                return x.device
-    return resolve_device(device)
 
 
 def make_stages(params: Params, n_signers: int, assembly: str = "fold"):

@@ -8,12 +8,12 @@ Port of the JAX package's ``scheme/device_setup.py``:
           ranks inside each group (fusion.py:661-663), the verifier's hash
           stages (scheme/device_pipeline), sig = sk_l⊙c + sk_r
           (fusion.py:534-557), and the alpha-weighted aggregate
-          (fusion.py:632-677)
+          (fusion.py:632-677); the products are scheme/ring.py's
 
 With integer seeds the reference re-seeds per matrix entry, so all ``rank``
-entries of a key are identical: sk/sig carry one polynomial per side,
-vk = (Σ_r A_r)·sk, and the aggregate is one polynomial per group broadcast
-to the int32[G, rank, d] layout the verifier reads.
+entries of a key are identical: sk/sig carry one polynomial per side (a
+rank axis of 1), vk = (Σ_r A_r)·sk, and the aggregate is one polynomial per
+group broadcast to the int32[G, rank, d] layout the verifier reads.
 """
 from __future__ import annotations
 
@@ -27,10 +27,11 @@ from ..hashing.sampler import sample_short_poly_coeffs
 from ..interop import device_serial as ds
 from ..ops import ragged_words as rw
 from ..ops.ntt import ntt_fwd_u
-from ..ops.upload import upload
+from ..ops.upload import resolve_device, upload
 from ..params import Params
 from ..utils.profiling import span
 from . import device_pipeline as dp
+from . import ring
 
 
 def _sample_sk(params: Params, seeds: Sequence[int]) -> np.ndarray:
@@ -50,25 +51,6 @@ def _sample_sk(params: Params, seeds: Sequence[int]) -> np.ndarray:
             out[b, 0] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s)
             out[b, 1] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s + 1)
         return out
-
-
-def vk_from_sk_hat(params: Params, sk_u: torch.Tensor) -> torch.Tensor:
-    """sk_hat residues int64[B, 2, d], one polynomial per side -> vk
-    int32[B, 2, d] centered: A·sk as (Σ_r A_r)·sk, exact vs the rank-wise
-    dot because all rank entries of sk are identical (per-entry reseed
-    quirk, fusion.py:338-373)."""
-    F = params.plan.field
-    pub = torch.as_tensor(params.public_challenge, device=sk_u.device)
-    a_mont_sum = F.sum_mod(F.to_mont(F.to_unsigned(pub)), axis=0)  # [d], Montgomery form
-    return F.to_centered(F.mont_mul(a_mont_sum, sk_u))
-
-
-def _keygen(params: Params, sk_coeffs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """int[B, 2, d] short coefficients -> (sk_hat_u int64[B, 2, d],
-    vk int32[B, 2, d] centered)."""
-    F = params.plan.field
-    sk_u = ntt_fwd_u(params.plan, F.to_unsigned(sk_coeffs))
-    return sk_u, vk_from_sk_hat(params, sk_u)
 
 
 KEY_BYTES = 12  # str(v) of an int32 (at most 11 bytes) and its terminator
@@ -123,23 +105,6 @@ def vk_sort_ranks(params: Params, vk: torch.Tensor, n_signers: int) -> torch.Ten
                                                 device=vk.device).expand(G, N))
 
 
-def _math(params: Params, n_signers: int, sk_hat_u: torch.Tensor, c_hat_u: torch.Tensor,
-          al: torch.Tensor) -> torch.Tensor:
-    """sig = sk_l⊙c + sk_r; agg = Σ α̂⊙sig -> aggs int32[G, d] centered, one
-    polynomial per group."""
-    plan = params.plan
-    F = plan.field
-    d = params.degree
-    B = sk_hat_u.shape[0]
-    G = B // n_signers
-    sig_u = F.add_mod(F.mont_mul(F.to_mont(c_hat_u), sk_hat_u[:, 0]), sk_hat_u[:, 1])
-    alpha_u = ntt_fwd_u(plan, F.to_unsigned(al))
-    agg_u = F.sum_mod(
-        F.mont_mul(F.to_mont(alpha_u), sig_u.reshape(G, n_signers, d)), axis=1
-    )
-    return F.to_centered(agg_u)
-
-
 def build_fleet(
     params: Params,
     n_groups: int,
@@ -165,31 +130,31 @@ def build_fleet(
     G, N = n_groups, n_signers
     B = G * N
     d = params.degree
-    device = dp.resolve_device(device)
+    device = resolve_device(device)
     if messages is None:
         messages = [f"group{g}:msg{i}" for g in range(G) for i in range(N)]
     messages = list(messages)
     if len(messages) != B:
         raise ValueError(f"need {B} messages, got {len(messages)}")
 
-    sk = _sample_sk(params, [seed0 + k for k in range(B)])
-    # the short coefficients (|c| <= beta_sk = 52) travel as int8
-    sk_hat_u, vk = _keygen(params, torch.from_numpy(sk.astype(np.int8)).to(device))
+    sk_hat, vk = ring.keygen(params, _sample_sk(params, [seed0 + k for k in range(B)]), device)
 
     ranks = vk_sort_ranks(params, vk, N).cpu().numpy()
     order = np.argsort(ranks, axis=1)  # ranks are a permutation per group
     flat = (order + np.arange(G)[:, None] * N).reshape(-1)
     s_msgs = [messages[i] for i in flat]
     oflat = torch.from_numpy(flat).to(device)
-    sk_s = sk_hat_u.index_select(0, oflat)
+    sk_s = sk_hat.index_select(0, oflat)
     vks = vk.index_select(0, oflat).reshape(G, N, 2, d)
 
+    F, q = params.plan.field, params.modulus
     P = dp.get_pipeline(params, N, str(device), assembly)
     aggs = torch.empty((G, params.rank, d), dtype=torch.int32, device=device)
     for lo in range(0, G, max(1, group_chunk)):
         hi = min(G, lo + group_chunk)
         mw, mb, _ = dp._message_tensors(params, s_msgs[lo * N : hi * N], device, N)
         _, c_hat_u, al = P.hash_chunk(vks[lo:hi], mw, mb)
-        agg = _math(params, N, sk_s[lo * N : hi * N], c_hat_u, al)
-        aggs[lo:hi] = agg.unsqueeze(1)
+        sig = ring.sign(q, F.to_unsigned(sk_s[lo * N : hi * N]).unsqueeze(2), c_hat_u)
+        alpha = ntt_fwd_u(params.plan, F.to_unsigned(al))
+        aggs[lo:hi] = F.to_centered(ring.aggregate(q, alpha, sig.view(hi - lo, N, 1, d)))
     return vks, s_msgs, aggs

@@ -28,8 +28,8 @@ keyword.
 
 Devices: ``keygen`` runs on the card unless given ``device="cpu"``; the other
 entry points run where their tensors are, and numpy inputs go to the card
-unless given ``device="cpu"`` (``device_pipeline.input_device``).  Without a
-card they raise.
+unless given ``device="cpu"`` (``ops/upload.input_device``).  Without a
+card they raise.  The NTT-domain products are scheme/ring.py's.
 """
 from __future__ import annotations
 
@@ -44,11 +44,12 @@ from ..hashing.sampler import sample_short_poly_coeffs
 from ..hashing.xof import agg_block_len, challenge_xof_len, hash_message_to_int, shake_digest
 from ..interop import serial
 from ..ops.ntt import ntt_fwd, ntt_fwd_u
-from ..ops.upload import upload
+from ..ops.upload import input_device, resolve_device, upload
 from ..params import Params
 from ..utils.profiling import span
 from . import device_pipeline as dp
 from . import device_setup as ds
+from . import ring
 
 # keys per pass of sign's challenge stages and signature product; the int64
 # temporaries of one pass at secpar=256 are 1.4 GB each
@@ -104,7 +105,7 @@ def key_batch_from_numpy(params: Params, src, *, device=None) -> KeyBatch:
     carries ``seeds``, ``sk_hat`` int32[B, 2, rank, d] and ``vk``
     int32[B, 2, d] as arrays numpy can read (for example the JAX package's
     KeyBatch).  The tensors go to the card unless ``device="cpu"``."""
-    dev = dp.resolve_device(device)
+    dev = resolve_device(device)
     return KeyBatch(
         params=params,
         seeds=list(src.seeds),
@@ -131,18 +132,14 @@ def keygen(params: Params, seeds: Sequence[Optional[int]], *, device=None) -> Ke
                     "keygen requires an integer seed: the reference implementation "
                     "fails on seed=None at fusion.py:352 (seed + 1)"
                 )
-        dev = dp.resolve_device(device)
+        dev = resolve_device(device)
         B, d, rank = len(seeds), params.degree, params.rank
-        sk = ds._sample_sk(params, seeds)  # int32[B, 2, d]
+        sk_hat, vk = ring.keygen(params, ds._sample_sk(params, seeds), dev)
         if B:
             # the reference leaves CPython's global random in the state of its
             # last seeded sample (polynomials.py:447-448); the C sampler does not
             sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk,
                                      seeds[-1] + 1)
-        # the short coefficients (|c| <= beta_sk = 52) travel as int8
-        sk_c = torch.from_numpy(sk.astype(np.int8)).to(dev).to(torch.int32)
-        sk_hat = ntt_fwd(params.plan, sk_c)  # [B, 2, d] centered
-        vk = ds.vk_from_sk_hat(params, params.plan.field.to_unsigned(sk_hat))
         return KeyBatch(params=params, seeds=seeds,
                         sk_hat=sk_hat.unsqueeze(2).expand(B, 2, rank, d), vk=vk)
 
@@ -166,10 +163,8 @@ def sign(params: Params, keys: KeyBatch, messages: Sequence[str]) -> SignatureBa
             mw, mb, _ = dp._message_tensors(params, msgs[lo:hi], dev)
             _, c_hat_u, _, _ = P.challenges(keys.vk[lo:hi], mw, mb)
             with span("fct.sign.product"):
-                c_mont = F.to_mont(c_hat_u).unsqueeze(1)  # [b, 1, d], broadcast over rank
                 sk_u = F.to_unsigned(keys.sk_hat[lo:hi])  # [b, 2, rank, d]
-                sig[lo:hi] = F.to_centered(F.add_mod(F.mont_mul(c_mont, sk_u[:, 0]),
-                                                     sk_u[:, 1]))
+                sig[lo:hi] = F.to_centered(ring.sign(params.modulus, sk_u, c_hat_u))
         return SignatureBatch(params=params, sig=sig)
 
 
@@ -195,16 +190,14 @@ def _group_hash(params: Params, vks_s: torch.Tensor, msgs_s: List[str]):
 def aggregate(params: Params, vks, messages: Sequence[str], sigs, *, device=None) -> torch.Tensor:
     """Aggregate N signatures (fusion.py:655-677): vks int32[N, 2, d],
     messages, sigs int32[N, rank, d] in any order -> int32[rank, d]."""
-    dev = dp.input_device(device, vks, sigs)
+    dev = input_device(device, vks, sigs)
     vks = torch.as_tensor(vks, device=dev)
     sigs = torch.as_tensor(sigs, device=dev)
     if len(messages) != vks.shape[0] or sigs.shape[0] != vks.shape[0]:
         raise ValueError("need exactly one message and one signature per key")
     order, vks_s, msgs_s = _sorted_group(params, vks, messages)
     _, _, al = _group_hash(params, vks_s, msgs_s)
-    F = params.plan.field
-    alpha_mont = F.to_mont(ntt_fwd_u(params.plan, F.to_unsigned(al[0]))).unsqueeze(1)
-    return F.to_centered(F.sum_mod(F.mont_mul(alpha_mont, F.to_unsigned(sigs[order])), axis=0))
+    return aggregate_from_alpha_hat(params, sigs[order], ntt_fwd(params.plan, al[0]))
 
 
 def _reason(eq: bool, norm_ok: bool, weight_ok: bool) -> Tuple[bool, str]:
@@ -227,7 +220,7 @@ def verify(params: Params, vks, messages: Sequence[str], aggregate_signature, *,
         return False, REASON_TOO_MANY
     if N != len(messages):
         return False, REASON_LEN_MISMATCH
-    dev = dp.input_device(device, vks, aggregate_signature)
+    dev = input_device(device, vks, aggregate_signature)
     vks = torch.as_tensor(vks, device=dev)
     agg = torch.as_tensor(aggregate_signature, device=dev)
     _, vks_s, msgs_s = _sorted_group(params, vks, messages)
@@ -255,7 +248,7 @@ def verify_many(params: Params, groups: Sequence[tuple], *, device=None) -> List
     if not by_n:
         return results
     live = [groups[gi] for gis in by_n.values() for gi in gis]
-    dev = dp.input_device(device, *(x for g in live for x in (g[0], g[2])))
+    dev = input_device(device, *(x for g in live for x in (g[0], g[2])))
     d = params.degree
     for N, gis in sorted(by_n.items()):
         Gb = len(gis)
@@ -275,7 +268,7 @@ def verify_batch(params: Params, vks, c_coeffs, alpha_coeffs, aggs, *, device=No
     int32[G, N, 2, d] sorted within groups, challenge and alpha coefficients
     int8 or int32 [G, N, d], aggs int32[G, rank, d] -> (eq, norm_ok,
     weight_ok) bool[G] on the device."""
-    dev = dp.input_device(device, vks, c_coeffs, alpha_coeffs, aggs)
+    dev = input_device(device, vks, c_coeffs, alpha_coeffs, aggs)
     vks, c, al, aggs = (torch.as_tensor(x, device=dev)
                         for x in (vks, c_coeffs, alpha_coeffs, aggs))
     F = params.plan.field
@@ -293,9 +286,7 @@ def sign_from_c_hat(params: Params, sk_hat: torch.Tensor, c_hat: torch.Tensor) -
     int32[..., 2, rank, d], c_hat int32[..., d] centered -> sig int32[...,
     rank, d] = sk_l ⊙ c + sk_r, on the device of the tensors."""
     F = params.plan.field
-    c_mont = F.to_mont(F.to_unsigned(c_hat)).unsqueeze(-2)  # broadcast over rank
-    sk_u = F.to_unsigned(sk_hat)
-    return F.to_centered(F.add_mod(F.mont_mul(c_mont, sk_u[..., 0, :, :]), sk_u[..., 1, :, :]))
+    return F.to_centered(ring.sign(params.modulus, F.to_unsigned(sk_hat), F.to_unsigned(c_hat)))
 
 
 def aggregate_from_alpha_hat(params: Params, sigs: torch.Tensor,
@@ -304,8 +295,8 @@ def aggregate_from_alpha_hat(params: Params, sigs: torch.Tensor,
     int32[..., N, d] centered -> int32[..., rank, d] = Σ α̂ ⊙ sig, on the
     device of the tensors."""
     F = params.plan.field
-    alpha_mont = F.to_mont(F.to_unsigned(alpha_hat)).unsqueeze(-2)
-    return F.to_centered(F.sum_mod(F.mont_mul(alpha_mont, F.to_unsigned(sigs)), axis=-3))
+    return F.to_centered(ring.aggregate(params.modulus, F.to_unsigned(alpha_hat),
+                                        F.to_unsigned(sigs)))
 
 
 def _decode(params: Params, b: bytes, norm_bound: int, weight_bound: int) -> np.ndarray:
@@ -331,7 +322,7 @@ def derive_alphas_grouped(params: Params, vk_reprs_flat: Sequence[str],
     reprs, msgs = list(vk_reprs_flat), list(messages_flat)
     if not len(reprs) == G * N == len(msgs):
         raise ValueError(f"need {G * N} vk reprs and messages, got {len(reprs)} and {len(msgs)}")
-    dev = dp.resolve_device(device)
+    dev = resolve_device(device)
     if G * N == 0:
         return np.zeros((G, N, d), np.int32), np.zeros((G, N, d), np.int32)
     vks = upload(serial.vk_values(params, reprs).reshape(G, N, 2, d), dev)
@@ -355,7 +346,7 @@ def derive_alphas(params: Params, vk_reprs: Sequence[str], messages: Sequence[st
     derivation and the zip-triples preimage alike — the reference's hash_ag
     uses the same key objects for both, fusion.py:632-652; the KAT generator
     hashes (sk, vk) tuple reprs)."""
-    dev = dp.resolve_device(device)
+    dev = resolve_device(device)
     reprs = list(key_reprs) if key_reprs is not None else list(vk_reprs)
     msgs = list(messages)
     N, d = len(reprs), params.degree

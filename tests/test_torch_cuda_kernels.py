@@ -535,6 +535,28 @@ def test_windowed_verify_makes_no_host_sync(dev, assembly):
     assert got[0].tolist() == [True, False, True]
 
 
+def test_keygen_and_sign_make_no_host_sync(dev):
+    """lifecycle.keygen then lifecycle.sign of 64 keys wait for the device
+    nowhere between their entry and their return (the sampled coefficients
+    go up from pinned memory, and A's sum is built once per device), and
+    give the bits of the same calls made before the check."""
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+
+    params = fusion_setup(128, 5)
+    seeds, msgs = list(range(100, 228, 2)), [f"key {i}" for i in range(64)]
+    want_keys = lc.keygen(params, seeds, device=dev)
+    want = lc.sign(params, want_keys, msgs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keys = lc.keygen(params, seeds, device=dev)
+        sigs = lc.sign(params, keys, msgs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(keys.sk_hat, want_keys.sk_hat) and torch.equal(keys.vk, want_keys.vk)
+    assert torch.equal(sigs.sig, want.sig)
+
+
 def _random_words(dev, W, L, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(-(2**31), 2**31, (W, L), dtype=torch.int64, device=dev,

@@ -1,9 +1,17 @@
-"""The PyTorch port imports neither JAX nor the JAX package."""
+"""The PyTorch port imports neither JAX nor the JAX package, and its
+lower layers import nothing from ``scheme/``."""
+import ast
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "fusion_cryptography_tpu_torch"
+# modules below the scheme layer: they read the device rule from ops/upload.py
+BELOW_SCHEME = sorted(str(p.relative_to(PKG)) for p in (PKG / "algebra").glob("*.py")) + [
+    "interop/objects.py", "interop/serial.py", "parallel/distributed.py", "parallel/mesh.py"]
 
 
 def test_port_import_leaves_jax_out():
@@ -65,3 +73,30 @@ def test_parallel_import_leaves_jax_out():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", f"parallel pulled in: {out.stdout.strip()}"
+
+
+def _imports(path: Path):
+    """(level, dotted name) of each name a module's import statements bind;
+    level > 0 for a relative import."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from ((0, a.name) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield from ((node.level, f"{node.module or ''}.{a.name}".strip("."))
+                        for a in node.names)
+
+
+@pytest.mark.parametrize("module", BELOW_SCHEME)
+def test_lower_layer_imports_no_scheme(module):
+    """Read from the source: importing any submodule loads ``scheme`` through
+    the package's ``__init__``, so ``sys.modules`` cannot tell."""
+    names = [n for _, n in _imports(PKG / module) if "scheme" in n.split(".")]
+    assert names == [], f"{module} imports {names}"
+
+
+def test_device_rule_module_is_a_leaf():
+    """``resolve_device`` and ``input_device`` live in a module that imports
+    nothing from the package."""
+    names = [n for level, n in _imports(PKG / "ops" / "upload.py")
+             if level or n.split(".")[0] == PKG.name]
+    assert names == []
