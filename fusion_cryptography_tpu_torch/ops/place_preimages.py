@@ -14,6 +14,14 @@ block counts and byte lengths int32[B].  Lane j reads message
 ``(j % c) * n_signers + j // c`` for ``c = B // n_signers``: the signer-major
 order of a verify chunk of c groups; ``n_signers = 1`` is the natural order.
 
+Where every message of a chunk is a compact ASCII ``str`` in a list (the
+benchmark's traffic, and any ASCII text), :func:`direct_offsets` and
+:func:`direct_buffer` make the same buffer straight from the ``str`` objects
+(``csrc/pack_messages.c``, built with gcc at first use): one pass for the
+offsets, one copy of each message's bytes, split over threads for a large
+payload.  :func:`encode` and :func:`stream_buffer` stay the route for
+anything else, and the tests' reference.
+
 On a CUDA tensor :func:`place_preimages` is one launch of
 ``csrc/place_preimages.cu``; on a CPU tensor it runs
 :func:`place_preimages_plain`.  The JAX package lays the rows out on the host
@@ -22,15 +30,31 @@ kernel.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+import os
+import shutil
+import sysconfig
+import threading
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .. import kernels
+from .._build import build_shared_library
 from .keccak import RATE, RATE_WORDS
 
 SHA3_DOMAIN = 0x06
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "pack_messages.c"
+# One copy thread for every this many payload bytes, up to half the cores:
+# the copy is bound by memory (on an H100 host of 8 cores, 54 MB took
+# 13.6-16.5 ms on one thread, 4.1-11.2 ms on 4 and no less on 6 or 8), and
+# a thread's start costs more than it saves on a few MB.
+BYTES_A_THREAD = 8 << 20
+_lock = threading.Lock()
+_lib: Optional[ctypes.PyDLL] = None
+_tried = False
 
 
 def encode(messages: Sequence[str]) -> Tuple[bytes, np.ndarray, int]:
@@ -69,6 +93,60 @@ def stream_buffer(data: bytes, lengths: np.ndarray, pin: bool) -> torch.Tensor:
     np.cumsum(lengths, out=offsets[1:])
     a[head:head + n] = np.frombuffer(data, np.uint8)
     a[head + n:] = 0
+    return buf
+
+
+def _library() -> Optional[ctypes.PyDLL]:
+    """``csrc/pack_messages.c`` built and loaded once, or None without gcc or
+    the interpreter's ``Python.h``."""
+    global _lib, _tried
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        include = sysconfig.get_paths()["include"]
+        if shutil.which("gcc") is None or not (Path(include) / "Python.h").exists():
+            return None
+        path = build_shared_library(
+            "pack_messages", [_SRC],
+            lambda out: ["gcc", "-O3", "-shared", "-fPIC", "-pthread", f"-I{include}",
+                         "-o", str(out), str(_SRC)],
+            timeout_s=120.0)
+        lib = ctypes.PyDLL(str(path))
+        lib.fct_pack_offsets.argtypes = [ctypes.py_object, ctypes.c_int64, ctypes.c_void_p]
+        lib.fct_pack_offsets.restype = ctypes.c_int64
+        lib.fct_pack_fill.argtypes = [ctypes.py_object, ctypes.c_void_p, ctypes.c_int64,
+                                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+        lib.fct_pack_fill.restype = ctypes.c_int
+        _lib = lib
+        return _lib
+
+
+def direct_offsets(messages: Sequence[str]) -> Optional[Tuple[np.ndarray, int]]:
+    """The offsets int64[B + 1] of the messages' bytes and the longest
+    message's byte length, read from the ``str`` objects in one pass; None
+    where the one-pass route does not apply (no gcc or ``Python.h`` to
+    build it with, ``messages`` is not a list, or one is not a compact ASCII
+    ``str``)."""
+    lib = _library()
+    if lib is None or type(messages) is not list:
+        return None
+    offsets = np.empty(len(messages) + 1, np.int64)
+    longest = lib.fct_pack_offsets(messages, len(messages), offsets.ctypes.data)
+    return None if longest < 0 else (offsets, longest)
+
+
+def direct_buffer(messages: Sequence[str], offsets: np.ndarray, pin: bool) -> torch.Tensor:
+    """:func:`stream_buffer` of ``messages`` with the offsets of
+    :func:`direct_offsets`, each message's bytes copied once from its
+    ``str``: by one thread, or by one for every :data:`BYTES_A_THREAD`
+    bytes of payload up to half the cores this process may run on."""
+    B, n = len(offsets) - 1, int(offsets[-1])
+    buf = torch.empty(8 * (B + 1) + stream_bytes(n), dtype=torch.uint8, pin_memory=pin)
+    threads = max(1, min(len(os.sched_getaffinity(0)) // 2, n // BYTES_A_THREAD))
+    if _library().fct_pack_fill(messages, offsets.ctypes.data, B, buf.data_ptr(), buf.numel(),
+                                threads):
+        raise RuntimeError("the messages changed while they were packed")
     return buf
 
 

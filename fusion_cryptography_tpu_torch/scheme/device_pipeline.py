@@ -296,26 +296,39 @@ def _message_tensors(params: Params, messages: Sequence[str], device, n_signers:
     SHA3-256, lanes in the signer-major order of B / ``n_signers`` groups of
     ``n_signers`` (the natural order for one).
 
-    The host encodes the messages as one byte string, writes it and its
-    offsets into one buffer (pinned for a CUDA device) and uploads it
+    The host writes the messages' offsets and bytes into one buffer (pinned
+    for a CUDA device), straight from a list of ASCII ``str`` objects
+    (``pp.direct_offsets``, ``pp.direct_buffer``), else from one encoded
+    byte string (``pp.encode``, ``pp.stream_buffer``), and uploads it
     without waiting for the device; kernel ``place_preimages`` lays the
     words out there.  Counts the message bytes (``pack.payload_bytes``),
-    the uploaded stream's (``pack.shipped_bytes``) and the messages encoded
+    the uploaded stream's (``pack.shipped_bytes``), the messages copied
+    straight from their ``str`` (``pack.rows_direct``) and those encoded
     one by one because their chunk was not all ASCII
     (``pack.rows_fallback``)."""
     dev = torch.device(device)
     prefix = bytes(params.sign_pre_hash_dst) + b","
+    pin = dev.type == "cuda"
     with span("fct.pack"):
         with span("fct.pack.encode"):
-            data, lens, fallback = pp.encode(messages)
-            rows = pp.rows_for(len(prefix) + int(lens.max(initial=0)))
-        count("pack.payload_bytes", len(data))
-        count("pack.shipped_bytes", pp.stream_bytes(len(data)))
+            direct = pp.direct_offsets(messages)
+            if direct is None:
+                data, lens, fallback = pp.encode(messages)
+                n, longest = len(data), int(lens.max(initial=0))
+            else:
+                (host_offsets, longest), fallback = direct, 0
+                n = int(host_offsets[-1])
+            rows = pp.rows_for(len(prefix) + longest)
+        count("pack.payload_bytes", n)
+        count("pack.shipped_bytes", pp.stream_bytes(n))
+        count("pack.rows_direct", 0 if direct is None else len(messages))
         count("pack.rows_fallback", fallback)
         with span("fct.pack.upload"):
-            buf = upload(pp.stream_buffer(data, lens, pin=dev.type == "cuda"), dev)
+            buf = (pp.stream_buffer(data, lens, pin) if direct is None
+                   else pp.direct_buffer(messages, host_offsets, pin))
+            buf = upload(buf, dev)
         with span("fct.pack.scatter"):
-            offsets, stream = pp.split(buf, len(lens))
+            offsets, stream = pp.split(buf, len(messages))
             return pp.place_preimages(_prefix_on(prefix, str(dev)), offsets, stream, n_signers,
                                       rows)
 

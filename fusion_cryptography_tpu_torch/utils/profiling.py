@@ -15,8 +15,9 @@ one flag check.  Neither waits for the device.
 
 The program's spans, all named ``fct.*``: ``fct.verify`` (a grouped verify
 call), ``fct.pack`` with ``fct.pack.encode``, ``fct.pack.scatter`` and
-``fct.pack.upload`` (packing a chunk's messages: the join and encoding,
-the flat stream's copy into pinned memory and its upload, and the launch of
+``fct.pack.upload`` (packing a chunk's messages: their offsets and
+lengths, read from the ``str`` objects or after one join and encoding, the
+flat stream's copy into pinned memory and its upload, and the launch of
 kernel ``place_preimages``), ``fct.prehash``, ``fct.signer``,
 ``fct.group`` with ``fct.group.fold`` (kernel ``agg_fold``),
 ``fct.group.sponge`` (the aggregation preimage's SHAKE256 absorb and
@@ -25,7 +26,8 @@ squeeze) and ``fct.group.decode`` (the alphas' decode), ``fct.lattice`` with
 ``fct.keygen`` with ``fct.sample`` (the host sampler), ``fct.sign`` with
 ``fct.sign.product`` (the signature product).  Its counters:
 ``pack.payload_bytes`` (the messages' bytes), ``pack.shipped_bytes`` (the
-uploaded stream's bytes, word padding included), ``pack.rows_fallback``
+uploaded stream's bytes, word padding included), ``pack.rows_direct``
+(messages copied straight from their ``str``), ``pack.rows_fallback``
 (messages encoded one by one because their chunk was not all ASCII),
 ``group.signers`` (N, once a group stage) and ``group.agg_words`` (the
 padded aggregation preimage's width in words, from the op table, once a

@@ -756,6 +756,38 @@ def test_place_preimages_kernel_matches_plain(dev, n_signers):
     assert kernels.LAUNCHES["place_preimages"] == before + len(sets)
 
 
+def test_message_tensors_one_pass_on_the_card(dev, monkeypatch):
+    """``_message_tensors`` on the card, through the one-pass route into a
+    pinned block, at the nist cell's shape (32,768 messages of 33 * k bytes,
+    k = 1..100) on outputs filled with -1, equals the CPU plain route's words,
+    block counts and lengths, for two calls in a row with different payloads
+    and no wait between them (a reused pinned block is never read stale)."""
+    from fusion_cryptography_tpu_torch.scheme import device_pipeline as dp
+
+    def filled(outs, shapes, device, dtype=torch.int32):
+        if outs is None:
+            outs = [torch.full(shape, -1, dtype=dtype, device=device) for shape in shapes]
+        return outs
+
+    params = fusion_setup(256, 3)
+    rng = np.random.default_rng(25)
+    sets = []
+    for _ in range(2):
+        k = rng.integers(1, 101, 32768)
+        text = rng.integers(0x20, 0x7F, int(33 * k.sum()), dtype=np.uint8).tobytes().decode()
+        ends = np.cumsum(33 * k)
+        sets.append([text[e - 33 * n:e] for e, n in zip(ends.tolist(), k.tolist())])
+    assert pp.direct_offsets(sets[0]) is not None
+    monkeypatch.setattr(kernels, "outputs", filled)
+    got = [dp._message_tensors(params, msgs, dev, 4) for msgs in sets]
+    torch.cuda.synchronize()
+    monkeypatch.setattr(pp, "direct_offsets", lambda messages: None)
+    for msgs, g in zip(sets, got):
+        want = dp._message_tensors(params, msgs, "cpu", 4)
+        for x, y in zip(g, want):
+            assert x.device == dev and torch.equal(x.cpu(), y)
+
+
 def test_card_paths_run_no_plain_glue(dev, monkeypatch):
     """With the plain XOF decode, prehash render, lattice target and
     preimage placement made to fail, the fleet build, the grouped verify

@@ -10,8 +10,12 @@ zero-padded to whole rate blocks and padded by ``keccak.pad_words(...,
 serial loop over the lanes and words in place of the grid, is held against
 the plain placement on the same stream.  The launch itself runs only on the
 card (``tests/test_torch_cuda_kernels.py``, marked ``cuda``, and
-``chip_smoke.py``)."""
+``chip_smoke.py``).  The one-pass buffer made from the ``str`` objects
+(``csrc/pack_messages.c``) is held byte for byte against
+``stream_buffer(*encode(...))``, its copy split over any number of
+threads."""
 import ctypes
+import random
 import shutil
 import subprocess
 from pathlib import Path
@@ -152,9 +156,11 @@ def test_kernel_words_equal_plain(host_lib, params, case, n_signers):
 @pytest.mark.parametrize("case", list(CASES))
 def test_pack_counters(params, case):
     """``pack.payload_bytes`` counts the message bytes, ``pack.shipped_bytes``
-    the uploaded stream's (whole words, one past the last byte), and
-    ``pack.rows_fallback`` the messages encoded one by one: all of a chunk
-    that holds a non-ASCII message, else none."""
+    the uploaded stream's (whole words, one past the last byte),
+    ``pack.rows_direct`` the messages copied straight from their ``str``:
+    all of an ASCII chunk, else none, and ``pack.rows_fallback`` the
+    messages encoded one by one: all of a chunk that holds a non-ASCII
+    message, else none."""
     tp, _ = params
     msgs = CASES[case]
     payload = sum(len(m.encode("utf-8")) for m in msgs)
@@ -164,6 +170,7 @@ def test_pack_counters(params, case):
     assert profiling.counters() == {
         "pack.payload_bytes": payload,
         "pack.shipped_bytes": 4 * (payload // 4 + 1),
+        "pack.rows_direct": 0 if case == "non_ascii" else len(msgs),
         "pack.rows_fallback": len(msgs) if case == "non_ascii" else 0}
     assert int(lengths.sum()) == payload + PREFIX * len(msgs)
     profiling.reset_counters()
@@ -182,3 +189,91 @@ def test_lanes_must_fill_the_groups(params):
     offsets, stream = pp.split(pp.stream_buffer(data, lens, pin=False), 3)
     with pytest.raises(ValueError, match="signers a group"):
         pp.place_preimages(torch.zeros(3, dtype=torch.uint8), offsets, stream, 2, 34)
+
+
+def _plain_buffer(msgs):
+    data, lens, _ = pp.encode(msgs)
+    return pp.stream_buffer(data, lens, pin=False)
+
+
+@pytest.mark.parametrize("n_signers", [1, 4])
+@pytest.mark.parametrize("case", list(CASES))
+def test_direct_buffer_equals_plain(params, case, n_signers, monkeypatch):
+    """The buffer copied straight from the ``str`` objects equals
+    ``stream_buffer(*encode(msgs))`` byte for byte (offsets and zero tail
+    included), and ``_message_tensors`` places the same words, block counts
+    and lengths from it as from the plain route; a chunk with a non-ASCII
+    message takes the plain route."""
+    msgs = CASES[case]
+    direct = pp.direct_offsets(msgs)
+    if case == "non_ascii":
+        assert direct is None
+    else:
+        offsets, longest = direct
+        assert longest == max(map(len, msgs))
+        assert torch.equal(pp.direct_buffer(msgs, offsets, pin=False), _plain_buffer(msgs))
+    got = _placed(params[0], msgs, n_signers)
+    monkeypatch.setattr(pp, "direct_offsets", lambda messages: None)
+    want = _placed(params[0], msgs, n_signers)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("threads", [1, 2, 3, 7, 64])
+def test_direct_copy_split_over_threads(threads):
+    """The copy, made by one thread as it walks the list or split into
+    ``threads`` byte ranges (shares that start and end inside messages, and
+    empty messages), gives the plain buffer, whatever the block held
+    before."""
+    g = random.Random(threads)
+    msgs = [_text(g.randrange(1 << 30), g.choice([0, 1, 33, 700, 3300])) for _ in range(257)]
+    offsets, _ = pp.direct_offsets(msgs)
+    want = _plain_buffer(msgs)
+    got = torch.full_like(want, 0xAB)
+    assert pp._library().fct_pack_fill(msgs, offsets.ctypes.data, len(msgs), got.data_ptr(),
+                                       got.numel(), threads) == 0
+    assert torch.equal(got, want)
+
+
+def test_direct_buffer_above_the_thread_threshold():
+    """A chunk of more than two threads' payload (the threads it gets depend
+    on the cores) against the plain buffer."""
+    msgs = [_text(k, 3300) for k in range(8)] * (2 * pp.BYTES_A_THREAD // (8 * 3300) + 9)
+    offsets, _ = pp.direct_offsets(msgs)
+    assert offsets[-1] > 2 * pp.BYTES_A_THREAD
+    assert torch.equal(pp.direct_buffer(msgs, offsets, pin=False), _plain_buffer(msgs))
+
+
+def test_direct_buffer_refuses_changed_messages():
+    """Offsets that no longer match the list (a message replaced by a longer
+    one, one taken away) raise."""
+    msgs = ["ab", "cd", "ef", "gh"]
+    offsets, _ = pp.direct_offsets(msgs)
+    for changed in (["ab", "cde", "ef", "gh"], msgs[:3]):
+        with pytest.raises(RuntimeError, match="changed"):
+            pp.direct_buffer(changed, offsets, pin=False)
+
+
+@pytest.mark.parametrize("kind", ["tuple", "int", "bytes", "none"])
+def test_other_inputs_take_the_plain_route(params, kind):
+    """A tuple of messages places what the list does through the plain
+    route (no row copied straight); a list holding a non-``str`` item raises
+    the ``TypeError`` that ``encode`` raises."""
+    msgs = CASES["rate_edges"]
+    if kind == "tuple":
+        profiling.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = _placed(params[0], tuple(msgs), 4)
+        assert profiling.counters()["pack.rows_direct"] == 0
+        profiling.reset_counters()
+        for g, w in zip(got, _placed(params[0], msgs, 4)):
+            assert torch.equal(g, w)
+        return
+    bad = list(msgs)
+    bad[2] = {"int": 7, "bytes": b"abc", "none": None}[kind]
+    assert pp.direct_offsets(bad) is None
+    with pytest.raises(TypeError) as plain:
+        pp.encode(bad)
+    with pytest.raises(TypeError) as placed:
+        _placed(params[0], bad, 4)
+    assert str(placed.value) == str(plain.value)

@@ -171,6 +171,7 @@ def test_pack_counters_count_exact_bytes(params, messages):
     fallback = 0 if all(m.isascii() for m in messages) else B
     assert profiling.counters() == {"pack.payload_bytes": payload,
                                     "pack.shipped_bytes": 4 * (payload // 4 + 1),
+                                    "pack.rows_direct": B - fallback,
                                     "pack.rows_fallback": fallback}
     assert int(ml.sum()) == payload + B * len(prefix)
     profiling.reset_counters()
