@@ -37,6 +37,7 @@ from ..scheme import device_pipeline as dpl
 from ..scheme import device_setup as ds
 from ..scheme import lifecycle as lc
 from ..scheme import ring
+from ..utils.profiling import count, span
 from .distributed import rank_device
 from .mesh import mesh_axis, mesh_device
 
@@ -287,15 +288,26 @@ def sharded_verify_local(params: Params, mesh: DeviceMesh, vks, messages: Sequen
     int32[G/dp, N, 2, d], the G/dp*N messages and aggs int32[G/dp, rank, d]
     are groups [r·G/dp, (r+1)·G/dp) of the global inputs (every rank passes
     the same G/dp), so no rank holds the others' groups.  Returns the
-    all-gathered (eq, norm_ok, weight_ok) bool[G] on the rank's device."""
+    all-gathered (eq, norm_ok, weight_ok) bool[G] on the rank's device.
+
+    While a profiler records, the rank's share is span ``fct.shard``, and
+    the verdicts' exchange in it (the uint8 stack, the all-gather, the
+    unpack to bool) span ``fct.shard.gather``; counters ``shard.groups``
+    (G/dp) and ``shard.gather_bytes`` (the gathered tensor's 3·G bytes).
+    Neither waits for the device."""
     Gl, N = int(vks.shape[0]), int(vks.shape[1])
     ndp, _, group = mesh_axis(mesh, axis)
     dev = mesh_device(mesh)
-    mine = dpl.verify_batch_device(params, _on(vks, dev), messages, _on(aggs, dev),
-                                   group_chunk=group_chunk, group_hash_chunk=group_hash_chunk,
-                                   device=dev, assembly=assembly)
-    # NCCL carries bool as bytes: gather the three verdict rows as uint8
-    every = torch.empty((ndp * 3, Gl), dtype=torch.uint8, device=dev)
-    dist.all_gather_into_tensor(every, torch.stack(mine).to(torch.uint8), group=group)
-    out = every.view(ndp, 3, Gl).transpose(0, 1).reshape(3, Gl * ndp).to(torch.bool)
+    with span("fct.shard"):
+        count("shard.groups", Gl)
+        mine = dpl.verify_batch_device(params, _on(vks, dev), messages, _on(aggs, dev),
+                                       group_chunk=group_chunk,
+                                       group_hash_chunk=group_hash_chunk, device=dev,
+                                       assembly=assembly)
+        with span("fct.shard.gather"):
+            # NCCL carries bool as bytes: gather the three verdict rows as uint8
+            every = torch.empty((ndp * 3, Gl), dtype=torch.uint8, device=dev)
+            count("shard.gather_bytes", every.numel())
+            dist.all_gather_into_tensor(every, torch.stack(mine).to(torch.uint8), group=group)
+            out = every.view(ndp, 3, Gl).transpose(0, 1).reshape(3, Gl * ndp).to(torch.bool)
     return tuple(out.unbind(0))

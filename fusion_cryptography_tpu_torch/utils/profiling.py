@@ -24,14 +24,18 @@ kernel ``place_preimages``), ``fct.prehash``, ``fct.signer``,
 squeeze) and ``fct.group.decode`` (the alphas' decode), ``fct.lattice`` with
 ``fct.lattice.target`` (kernel ``lattice_target``) (the pipeline's stages),
 ``fct.keygen`` with ``fct.sample`` (the host sampler), ``fct.sign`` with
-``fct.sign.product`` (the signature product).  Its counters:
+``fct.sign.product`` (the signature product), ``fct.shard`` with
+``fct.shard.gather`` (a rank's share of the sharded verify, and the
+verdicts' all-gather with its uint8 pack and unpack).  Its counters:
 ``pack.payload_bytes`` (the messages' bytes), ``pack.shipped_bytes`` (the
 uploaded stream's bytes, word padding included), ``pack.rows_direct``
 (messages copied straight from their ``str``), ``pack.rows_fallback``
 (messages encoded one by one because their chunk was not all ASCII),
 ``group.signers`` (N, once a group stage) and ``group.agg_words`` (the
 padded aggregation preimage's width in words, from the op table, once a
-group stage); none of them reads the device.
+group stage), ``shard.groups`` (the groups a rank verified) and
+``shard.gather_bytes`` (the bytes of the gathered verdicts); none of them
+reads the device.
 """
 from __future__ import annotations
 

@@ -3,8 +3,11 @@ parallel/sharded.py) in a gloo world of 4 CPU processes, at dp = 4 and at
 (2, 2), in both assemblies: the verdicts of a G=8, N=2, secpar=128 fleet with
 one tampered group equal the JAX package's ``sharded_verify_device`` on
 conftest's virtual devices at the same mesh shape and the port's one-device
-``verify_batch_device``; the mesh's and the verify's ValueErrors are JAX's;
-and a world of one rank equals the unsharded port."""
+``verify_batch_device``; ``sharded_verify_local`` on each rank's own groups,
+several signer chunks a rank, equals the plain reference
+(``portbench/reference/fusion_ref.py``) and opens the parallel layer's
+spans and counters; the mesh's and the verify's ValueErrors are JAX's; and
+a world of one rank equals the unsharded port."""
 import re
 from pathlib import Path
 
@@ -20,6 +23,7 @@ from fusion_cryptography_tpu_torch.parallel import _launch
 from fusion_cryptography_tpu_torch.scheme import device_pipeline as tdp
 from fusion_cryptography_tpu_torch.scheme import lifecycle as tlc
 from fusion_cryptography_tpu_torch.scheme.device_setup import build_fleet
+from portbench.reference import fusion_ref as ref
 
 RANKS = str(Path(__file__).with_name("torch_parallel_ranks.py"))
 WORLD = 4
@@ -27,6 +31,9 @@ SECPAR, PSEED, G, N, BAD = 128, 7, 8, 2, 4
 SHAPES = [(4, 1), (2, 2)]
 CASES = {f"{assembly}-{shape}": (shape, assembly)
          for shape in SHAPES for assembly in ("fold", "spec")}
+# sharded_verify_local's signer chunk and window, in groups: each rank's 2
+# groups go as 2 chunks in one window, as a card's 65,536 go as 8 in 4
+LOCAL_CHUNKS = (1, 2)
 
 
 @pytest.fixture(scope="module")
@@ -44,7 +51,7 @@ def fleet():
 def world(fleet):
     vks, msgs, aggs, _ = fleet
     return _launch.launch(WORLD, RANKS + ":verify_cases", SECPAR, PSEED, vks, msgs, aggs, CASES,
-                          device="cpu", timeout_s=300)
+                          LOCAL_CHUNKS, device="cpu", timeout_s=300)
 
 
 @pytest.fixture(scope="module")
@@ -67,6 +74,30 @@ def test_sharded_verify_matches_jax(fleet, world, jax_verdicts, name):
             np.testing.assert_array_equal(got, one, err_msg=f"rank {rank}")
     eq = world[0][name][0]
     assert not eq[BAD] and eq[np.arange(G) != BAD].all()
+
+
+def test_sharded_verify_local_matches_reference(fleet, world):
+    """Every rank's gathered verdicts equal the plain reference's verify of
+    the global groups; under a profiler each rank opens ``fct.shard``
+    around its grouped verify and, after it, ``fct.shard.gather``, packs
+    one chunk a group, and counts its own G/4 groups and the 3·G gathered
+    bytes."""
+    vks, msgs, aggs, _ = fleet
+    want = ref.verify_groups(ref.setup(SECPAR, PSEED), vks,
+                             [msgs[g * N:(g + 1) * N] for g in range(G)], aggs).T
+    assert not want[0, BAD] and want[:, np.arange(G) != BAD].all()
+    for rank, res in enumerate(world):
+        local = res["local"]
+        for got, w in zip(local["verdicts"], want):
+            assert got.dtype == np.bool_
+            np.testing.assert_array_equal(got, w, err_msg=f"rank {rank}")
+        spans = local["spans"]
+        (shard,), (gather,), (verify,) = (spans[n] for n in
+                                         ("fct.shard", "fct.shard.gather", "fct.verify"))
+        assert shard[0] <= verify[0] <= verify[1] <= gather[0] <= gather[1] <= shard[1]
+        assert len(spans["fct.pack"]) == G // WORLD // LOCAL_CHUNKS[0]
+        assert local["counters"]["shard.groups"] == G // WORLD
+        assert local["counters"]["shard.gather_bytes"] == 3 * G
 
 
 def test_errors_match_jax(world):

@@ -67,16 +67,44 @@ def lifecycle_cases(step_cases, real_case, local_case):
     return out
 
 
-def verify_cases(secpar, pseed, vks, msgs, aggs, cases):
+def verify_cases(secpar, pseed, vks, msgs, aggs, cases, local_chunks):
     """cases {name: (mesh shape, assembly)}: sharded_verify_device on the
     global fleet (vks, msgs, aggs) -> (eq, norm_ok, weight_ok) per case;
-    "errors": the ValueErrors of :func:`mesh_errors`."""
+    "local": :func:`local_verify_traced` at ``local_chunks``; "errors": the
+    ValueErrors of :func:`mesh_errors`."""
     params = fusion_setup(secpar, pseed)
     out = {name: _numpy(sharded_verify_device(params, _mesh(shape), vks, msgs, aggs,
                                               assembly=assembly))
            for name, (shape, assembly) in cases.items()}
+    out["local"] = local_verify_traced(params, vks, msgs, aggs, *local_chunks)
     out["errors"] = mesh_errors()
     return out
+
+
+SPANS = ("fct.shard", "fct.shard.gather", "fct.verify", "fct.pack")
+
+
+def local_verify_traced(params, vks, msgs, aggs, group_chunk, group_hash_chunk):
+    """sharded_verify_local at mesh (world, 1) on this rank's own groups of
+    the global fleet, in signer chunks of ``group_chunk`` groups and windows
+    of ``group_hash_chunk``, under a profiler -> {"verdicts": the gathered
+    (eq, norm_ok, weight_ok), "spans": {name: [(start, end) us]} of the
+    ``SPANS`` it opened, "counters": the program's counters}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fusion_cryptography_tpu_torch.utils import profiling
+
+    world, rank = torch.distributed.get_world_size(), torch.distributed.get_rank()
+    G, N = vks.shape[0], vks.shape[1]
+    lo, hi = rank * G // world, (rank + 1) * G // world
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = sharded_verify_local(params, _mesh((world, 1)), vks[lo:hi], msgs[lo * N:hi * N],
+                                   aggs[lo:hi], group_chunk=group_chunk,
+                                   group_hash_chunk=group_hash_chunk)
+    spans = {name: sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                          if e.name == name) for name in SPANS}
+    return {"verdicts": _numpy(out), "spans": spans, "counters": profiling.counters()}
 
 
 def world_of_one(secpar, pseed, seeds, msgs, fleet):
