@@ -57,7 +57,10 @@ Phases (each fails loudly; any failure exits non-zero):
      message stream) at the verify call's launch (captured) and at the nist
      traffic's 32,768 messages of 33 * k bytes, k = 1..100, each equal to
      its plain version, on words memory filled with -1 just before, and
-     timed beside its bound
+     timed beside its bound; ``sample_short`` (the keys' short
+     coefficients) at the sign cell's 2,048 streams at d = 64 and the
+     fleet's 65,536 at d = 256, on -1-filled outputs, equal to the C
+     sampler and timed beside its bound and the C sampler's host time
   X. wide aggregates (BASELINE config 3), with phase 3's fleet alive: a
      fleet of 32 groups of 1,024 built (timed) and verified (a tampered
      aggregate fails alone); ``agg_fold``, ``lattice_target`` and the
@@ -167,8 +170,9 @@ MAIN_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight",
 # the "spec" assembly: assemble_spec in place of the signer folds
 SPEC_PATH_KERNELS = ("keccak_absorb", "keccak_squeeze", "intt_norm_weight", "agg_fold",
                      "ntt_u", "assemble_spec", "place_preimages") + GLUE_KERNELS
-# the lifecycle: the main path's kernels and keygen's sk_hat = NTT(sk)
-LIFECYCLE_KERNELS = MAIN_PATH_KERNELS + ("ntt_centered",)
+# the lifecycle: the main path's kernels and keygen's short coefficients and
+# sk_hat = NTT(sk)
+LIFECYCLE_KERNELS = MAIN_PATH_KERNELS + ("sample_short", "ntt_centered")
 # the object API: keygen and the challenge/coefficient NTTs, verify's pipeline
 OBJECT_API_KERNELS = LIFECYCLE_KERNELS
 # phase W: the windowed verify, derive_alphas_grouped, the segmented absorb
@@ -177,7 +181,7 @@ AUX_KERNELS = LIFECYCLE_KERNELS
 ALL_KERNELS = LIFECYCLE_KERNELS + ("assemble_spec",)
 # phase D: the sharded verify in both assemblies (kernels 1-8 and the glue
 # kernels), the step (kernels 3 and 4: no hash stage, no lattice target)
-# and prepare_real's keygen (kernel 9)
+# and prepare_real's keygen (kernels 9 and 14)
 SHARDED_KERNELS = ALL_KERNELS
 STEP_KERNELS = ("intt_norm_weight", "ntt_u")
 WIDE_GROUPS, WIDE_SIGNERS = 32, 1024  # BASELINE config 3: aggregates of 2^10 signatures
@@ -1381,6 +1385,75 @@ def phase_place_preimages(params, fleet, kernel_rows: list, per_call: dict,
     torch.cuda.empty_cache()
 
 
+def phase_sample_short(dev, kernel_rows: list, per_fleet: dict) -> None:
+    """Kernel ``sample_short`` at the sign cell's shape (1,024 keys, every
+    other seed from 2**32 - 1,024 as the sign cell takes them, so that keys
+    cross into two-word seeds: 2,048 streams at secpar 128's d = 64) and at
+    the main path's fleet (32,768 keys from seed 1: 65,536 streams at
+    d = 256): each on an int32 output filled with -1, equal to the C sampler
+    (``native.sample_short_batch``, its plain version) on the same seeds
+    exactly, and timed (the kernel's device time in a trace, and a wrapper
+    call's back to back) beside its bound (``bounds.sample_short``) and the C
+    sampler's host time (as the host path runs it: one thread below 4,096
+    streams, else a thread per 2,048 up to the cores).  Also the launches
+    of one ``lifecycle.keygen`` at the sign cell's shape.  The row's ms,
+    plain_ms and bound are the sign cell's shape; ``fleet`` holds the
+    other."""
+    from fusion_cryptography_tpu_torch import kernels, native
+    from fusion_cryptography_tpu_torch import profile_verify as pv
+    from fusion_cryptography_tpu_torch.ops import sample_short as ss
+    from fusion_cryptography_tpu_torch.params import fusion_setup
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+
+    shapes, errs = {}, []
+    for label, secpar, seeds in (
+            ("sign cell", 128, np.arange(2**32 - 1024, 2**32 + 1024, 2, dtype=np.uint64)),
+            ("fleet", SECPAR, np.arange(1, 1 + N_GROUPS * N_SIGNERS, dtype=np.uint64))):
+        p = fusion_setup(secpar, SEED)
+        B, d = seeds.size, p.degree
+        args = (d, p.beta_sk, p.omega_sk, p.modulus)
+        out = torch.full((B, 2, d), -1, dtype=torch.int32, device=dev)
+        got = ss.sample_short(seeds, *args, dev, out=out)
+        plain = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            want = native.sample_short_batch([x for s in seeds.tolist() for x in (s, s + 1)],
+                                             *args)
+            plain.append((time.perf_counter() - t0) * 1e3)
+        errs.append(max_abs_err(got.cpu(), torch.from_numpy(want.reshape(B, 2, d))))
+        require(got is out and errs[-1] == 0,
+                f"sample_short ({label}) != the C sampler on the -1-filled output")
+        _, _, prof = pv.trace(lambda: [ss.sample_short(seeds, *args, dev, out=out)
+                                       for _ in range(20)])
+        t_k = median(pv.launch_times(prof)["sample_short"])
+        t_call = cuda_ms(lambda: ss.sample_short(seeds, *args, dev, out=out), 20)
+        b = bounds.sample_short(B, *args)
+        shapes[label] = dict(keys=B, streams=2 * B, degree=d, ms=t_k, call_ms=t_call,
+                             plain_ms=median(plain), **b)
+        log(f"sample_short, {label}: {B} keys ({2 * B} streams) at d = {d}: equals the C "
+            f"sampler on the -1-filled output; kernel {t_k:.4f} ms (median of 20 traced "
+            f"launches), {t_call:.4f} ms a wrapper call back to back (seed upload included), "
+            f"C sampler {median(plain):.3f} ms (median of 3), bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']} ({t_k / b['bound_ms']:.2f}x; {b['words_per_stream']:.1f} words a "
+            f"stream, {b['waves']} waves)")
+        del out, got
+    before = kernels.LAUNCHES["sample_short"]
+    lc.keygen(fusion_setup(128, SEED), range(2**32 - 1024, 2**32 + 1024, 2), device=dev)
+    per_keygen = kernels.LAUNCHES["sample_short"] - before
+    require(per_keygen == 1, f"one keygen call launched sample_short {per_keygen} times")
+    call = shapes["sign cell"]
+    kernel_rows.append(dict(
+        name="sample_short", route="cuda",
+        source="fusion_cryptography_tpu_torch/csrc/sample_short.cu",
+        replaces="none: the JAX package samples on the host "
+                 "(native/fusion_native.c fn_sample_short_batch)",
+        library_ms=None, max_abs_err=max(errs), ms=call["ms"], plain_ms=call["plain_ms"],
+        call_ms=call["call_ms"], bound_ms=call["bound_ms"], bound_by=call["bound_by"],
+        fleet=shapes["fleet"], launches_per_keygen_call=per_keygen,
+        launches_per_fleet_build=per_fleet.get("sample_short", 0)))
+    torch.cuda.empty_cache()
+
+
 def drive_main_path(params, G: int, N: int, dev) -> tuple:
     """Fleet build (twice, fresh seeds) and grouped verify -> (fleet tensors,
     metrics, kernel launches while they ran)."""
@@ -2462,6 +2535,7 @@ def main(argv) -> int:
     phase_fold_shapes(params, fleet, kernel_rows)
     per_call, per_fleet = phase_glue_shapes(params, fleet, kernel_rows)
     phase_place_preimages(params, fleet, kernel_rows, per_call, per_fleet)
+    phase_sample_short(dev, kernel_rows, per_fleet)
     metrics.update(phase_wide(params, dev, kernel_rows))
 
     # -- S. the "spec" assembly ---------------------------------------------

@@ -39,6 +39,15 @@ RENDER_OPS, WORD_OPS, AGG_WORD_OPS = 70, 4, 20
 # multiply-add), per row (one 32-bit `%`, ~20), per swap placed.
 PREHASH_RENDER_OPS, LATTICE_TERM_OPS = 1500, 36
 DECODE_BYTE_OPS, DECODE_ROW_OPS, DECODE_SWAP_OPS = 3, 20, 8
+# Kernel sample_short, one CPython MT19937 stream a thread: a stream's
+# seeding is init_by_array's 1,247 dependent steps of 5 instructions (a
+# shift, two XORs, a multiply, an add); a word drawn twists and tempers one
+# state word (~15 instructions).  Its third bound is one stream's chain of
+# steps, seeding and draws, at ~12 cycles a step of the 1.98-GHz clock,
+# once a wave of the kernel's 8,448 streams (two 32-stream blocks an SM:
+# the 78-KiB shared state of a block).
+MT_SEED_STEPS, MT_STEP_OPS, MT_WORD_OPS = 1247, 5, 15
+MT_STEP_CYCLES, MT_WAVE_STREAMS, CLOCK_HZ = 12, 132 * 2 * 32, 1.98e9
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -174,3 +183,27 @@ def place_preimages(lanes: int, rows: int, n_bytes: int) -> dict:
     out.  Operations: ~``WORD_OPS`` a word (a funnel shift of two loads,
     the compare and the store)."""
     return bound(n_bytes + 8 * (lanes + 1) + 4 * (rows + 2) * lanes, rows * lanes * WORD_OPS)
+
+
+def _draws(n: int) -> float:
+    """Words _randbelow(n) draws on average: 2**bit_length(n) / n."""
+    return (1 << n.bit_length()) / n
+
+
+def sample_short(keys: int, degree: int, norm_bound: int, weight_bound: int,
+                 modulus: int) -> dict:
+    """Kernel ``sample_short``: the seeds uint64[keys] and the 624-word table
+    in, int32[keys, 2, degree] out; the larger of that, the streams'
+    operations and the chain of steps one stream takes, once a wave
+    (``bound_by`` "chain"), at the words a stream draws on average."""
+    streams, num = 2 * keys, max(0, min(degree, weight_bound))
+    words = num * (_draws(max(1, min(norm_bound, modulus // 2))) + _draws(2))
+    if num < degree:  # the Fisher-Yates pass: randrange(n) for n = degree .. 2
+        words += sum(_draws(n) for n in range(2, degree + 1))
+    out = bound(8 * keys + 4 * 624 + 4 * streams * degree,
+                streams * (MT_SEED_STEPS * MT_STEP_OPS + words * MT_WORD_OPS))
+    waves = -(-streams // MT_WAVE_STREAMS)
+    t_chain = waves * (MT_SEED_STEPS + words) * MT_STEP_CYCLES / CLOCK_HZ * 1e3
+    if t_chain > out["bound_ms"]:
+        out = dict(bound_ms=t_chain, bound_by="chain")
+    return dict(out, words_per_stream=words, waves=waves)

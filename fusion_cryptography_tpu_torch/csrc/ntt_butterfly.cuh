@@ -31,14 +31,7 @@
 // emulation of the warp's 32 lanes in place of the shuffles).
 #pragma once
 
-#include <cstdint>
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-#define FCT_HD __device__ __forceinline__
-#else
-#define FCT_HD static inline
-#endif
+#include "fct_hd.cuh"
 
 namespace {
 

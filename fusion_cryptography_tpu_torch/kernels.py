@@ -7,9 +7,9 @@ ctypes through a plain C interface (no PyTorch headers, so a build takes
 seconds).  Only the wrappers in ``ops/keccak_sponge.py``, ``ops/ntt.py``,
 ``ops/intt_norm_weight.py``, ``ops/preimage_fold.py``, ``ops/assemble_spec.py``,
 ``ops/xof_decode.py``, ``ops/ragged_words.py`` (``render_bigint_dec_w``),
-``ops/lattice_target.py`` and ``ops/place_preimages.py`` call into the library; each adds one to
-``LAUNCHES[name]`` where it launches its kernel, so a run can show that its
-main path went through the kernels.
+``ops/lattice_target.py``, ``ops/place_preimages.py`` and ``ops/sample_short.py``
+call into the library; each adds one to ``LAUNCHES[name]`` where it launches
+its kernel, so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
@@ -72,6 +72,9 @@ SOURCES = {
     },
     "place_preimages.cu": {
         "fct_place_preimages": [_P, _I32, _P, _P, _I64, _I32, _I32, _P, _P, _P, _P],
+    },
+    "sample_short.cu": {
+        "fct_sample_short": [_P, _I64, _P, _I32, _I32, _I32, _I64, _P, _P],
     },
 }
 

@@ -59,7 +59,7 @@ KERNEL_FUNCTIONS = {
     "signer_fold_b_kernel": "signer_fold_b", "agg_fold_kernel": "agg_fold",
     "assemble_spec_kernel": "assemble_spec", "xof_decode_kernel": "xof_decode",
     "render_prehash_kernel": "render_prehash", "lattice_target_kernel": "lattice_target",
-    "place_preimages_kernel": "place_preimages",
+    "place_preimages_kernel": "place_preimages", "sample_short_kernel": "sample_short",
     # the second launches of a split check and of a wide group's fold
     "lattice_partial_kernel": "lattice_target", "lattice_combine_kernel": "lattice_target",
     "agg_prefix_kernel": "agg_fold",

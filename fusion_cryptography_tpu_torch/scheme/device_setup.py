@@ -2,9 +2,11 @@
 
 Port of the JAX package's ``scheme/device_setup.py``:
 
-  host:   C MT19937 sampling of the short secret coefficients
-          (native/fusion_native.c, CPython-exact), message byte packing
-  device: NTT keygen + vk = A·sk (fusion.py:338-373), the sort-by-str(vk)
+  host:   message byte packing
+  device: the short secret coefficients (kernel ``sample_short``, one
+          CPython-exact MT19937 a seed; on the CPU the C sampler of
+          native/fusion_native.c), NTT keygen + vk = A·sk
+          (fusion.py:338-373), the sort-by-str(vk)
           ranks inside each group (fusion.py:661-663), the verifier's hash
           stages (scheme/device_pipeline), sig = sk_l⊙c + sk_r
           (fusion.py:534-557), and the alpha-weighted aggregate
@@ -17,6 +19,8 @@ group broadcast to the int32[G, rank, d] layout the verifier reads.
 """
 from __future__ import annotations
 
+from array import array
+from itertools import repeat
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -27,30 +31,63 @@ from ..hashing.sampler import sample_short_poly_coeffs
 from ..interop import device_serial as ds
 from ..ops import ragged_words as rw
 from ..ops.ntt import ntt_fwd_u
+from ..ops.sample_short import sample_short
 from ..ops.upload import resolve_device, upload
 from ..params import Params
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import device_pipeline as dp
 from . import ring
 
 
-def _sample_sk(params: Params, seeds: Sequence[int]) -> np.ndarray:
-    """Short secret coefficients int32[B, 2, d]: left from seed, right from
-    seed+1 (reference keygen, fusion.py:339-362)."""
+def _uint64_seeds(seeds: Sequence[int]) -> Optional[np.ndarray]:
+    """``seeds`` as uint64[B] when every one is an int s with 0 <= s and
+    s + 1 < 2**64 (the seeds of the C sampler and of the kernel), else
+    None."""
+    if not all(map(isinstance, seeds, repeat(int))):
+        return None
+    try:
+        arr = np.frombuffer(array("Q", seeds), dtype=np.uint64)
+    except OverflowError:  # a seed below 0 or past 2**64 - 1
+        return None
+    return None if (arr == np.uint64(2**64 - 1)).any() else arr
+
+
+def _sample_sk(params: Params, seeds: Sequence[int], device=None):
+    """Short secret coefficients [B, 2, d]: left from seed, right from
+    seed+1 (reference keygen, fusion.py:339-362).
+
+    With no ``device``, host numpy int32 (the sharded step's inputs).  On a
+    ``device``, an int32 tensor there: on a CUDA device, with every seed an
+    int s with 0 <= s and s + 1 < 2**64, drawn by kernel ``sample_short``;
+    else drawn on the host (the C sampler for such seeds, otherwise
+    CPython's random) and uploaded as int8 (|c| <= beta_sk = 52).  Counts
+    the seeds drawn each way (``sample.seeds_device``, ``sample.seeds_host``:
+    two a key) while a profiler records."""
     with span("fct.sample"):
         B = len(seeds)
         d = params.degree
-        # the C sampler takes uint64 seeds; others go through CPython's random
-        if native.available() and all(isinstance(s, int) and 0 <= s and s + 1 < 2**64 for s in seeds):
+        # the C sampler and the kernel take uint64 seeds; others go through CPython's random
+        as_u64 = _uint64_seeds(seeds)
+        if as_u64 is not None and device is not None and torch.device(device).type == "cuda":
+            count("sample.seeds_device", 2 * B)
+            return sample_short(as_u64, d, params.beta_sk, params.omega_sk, params.modulus,
+                                device)
+        count("sample.seeds_host", 2 * B)
+        if as_u64 is not None and native.available():
             interleaved = [x for s in seeds for x in (s, s + 1)]
-            return native.sample_short_batch(
+            out = native.sample_short_batch(
                 interleaved, d, params.beta_sk, params.omega_sk, params.modulus
             ).reshape(B, 2, d)
-        out = np.empty((B, 2, d), dtype=np.int32)
-        for b, s in enumerate(seeds):
-            out[b, 0] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s)
-            out[b, 1] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk, s + 1)
-        return out
+        else:
+            out = np.empty((B, 2, d), dtype=np.int32)
+            for b, s in enumerate(seeds):
+                out[b, 0] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk,
+                                                     params.omega_sk, s)
+                out[b, 1] = sample_short_poly_coeffs(params.modulus, d, params.beta_sk,
+                                                     params.omega_sk, s + 1)
+        if device is None:
+            return out
+        return upload(out.astype(np.int8), device).to(torch.int32)
 
 
 KEY_BYTES = 12  # str(v) of an int32 (at most 11 bytes) and its terminator
@@ -137,7 +174,8 @@ def build_fleet(
     if len(messages) != B:
         raise ValueError(f"need {B} messages, got {len(messages)}")
 
-    sk_hat, vk = ring.keygen(params, _sample_sk(params, [seed0 + k for k in range(B)]), device)
+    sk_hat, vk = ring.keygen(params, _sample_sk(params, range(seed0, seed0 + B), device),
+                             device)
 
     ranks = vk_sort_ranks(params, vk, N).cpu().numpy()
     order = np.argsort(ranks, axis=1)  # ranks are a permutation per group

@@ -6,8 +6,9 @@ of B one-time keys is a dense int32 tensor, and every stage runs on the
 device of its tensors: on a CUDA device the port's kernels, on the CPU their
 plain versions.
 
-* keygen: short coefficients from the CPython-exact sampler, sk_hat =
-  NTT(sk) (kernel ``ntt_centered``), vk = A·sk (fusion.py:338-373);
+* keygen: short coefficients from the CPython-exact sampler (on the card
+  kernel ``sample_short``), sk_hat = NTT(sk) (kernel ``ntt_centered``),
+  vk = A·sk (fusion.py:338-373);
 * sign: the challenge from the verifier's prehash and signer stages
   (scheme/device_pipeline), sig = sk_l ⊙ c + sk_r (fusion.py:534-557);
 * aggregate: the signers in str(vk) order (device_setup.vk_sort_ranks), the
@@ -134,10 +135,11 @@ def keygen(params: Params, seeds: Sequence[Optional[int]], *, device=None) -> Ke
                 )
         dev = resolve_device(device)
         B, d, rank = len(seeds), params.degree, params.rank
-        sk_hat, vk = ring.keygen(params, ds._sample_sk(params, seeds), dev)
+        sk_hat, vk = ring.keygen(params, ds._sample_sk(params, seeds, dev), dev)
         if B:
             # the reference leaves CPython's global random in the state of its
-            # last seeded sample (polynomials.py:447-448); the C sampler does not
+            # last seeded sample (polynomials.py:447-448); the C sampler and
+            # the kernel do not
             sample_short_poly_coeffs(params.modulus, d, params.beta_sk, params.omega_sk,
                                      seeds[-1] + 1)
         return KeyBatch(params=params, seeds=seeds,

@@ -37,12 +37,12 @@ def _a_sum(params: Params, device: str) -> torch.Tensor:
     return upload(a.sum(axis=0) % params.modulus, device)
 
 
-def keygen(params: Params, coeffs: np.ndarray, device: torch.device):
-    """Sampled short coefficients int[B, 2, d] -> (sk_hat, vk) int32[B, 2, d]
-    centered on ``device``: sk_hat = NTT(sk), vk = A·sk (fusion.py:338-373),
-    which is (Σ_r A_r)·sk, since the reference reseeds per matrix entry (all
-    rank entries of a key are one polynomial); Σ_r A_r is made once a device."""
+def keygen(params: Params, coeffs: torch.Tensor, device: torch.device):
+    """Sampled short coefficients int32[B, 2, d] on ``device``
+    (``device_setup._sample_sk``) -> (sk_hat, vk) int32[B, 2, d] centered
+    there: sk_hat = NTT(sk), vk = A·sk (fusion.py:338-373), which is
+    (Σ_r A_r)·sk, since the reference reseeds per matrix entry (all rank
+    entries of a key are one polynomial); Σ_r A_r is made once a device."""
     F, q = params.plan.field, params.modulus
-    # the short coefficients (|c| <= beta_sk = 52) travel as int8
-    sk_hat = ntt_fwd(params.plan, upload(coeffs.astype(np.int8), device).to(torch.int32))
+    sk_hat = ntt_fwd(params.plan, coeffs)
     return sk_hat, F.to_centered(mul(F.to_unsigned(sk_hat), _a_sum(params, str(device)), q))

@@ -34,8 +34,10 @@ uploaded stream's bytes, word padding included), ``pack.rows_direct``
 ``group.signers`` (N, once a group stage) and ``group.agg_words`` (the
 padded aggregation preimage's width in words, from the op table, once a
 group stage), ``shard.groups`` (the groups a rank verified) and
-``shard.gather_bytes`` (the bytes of the gathered verdicts); none of them
-reads the device.
+``shard.gather_bytes`` (the bytes of the gathered verdicts),
+``sample.seeds_device`` and ``sample.seeds_host`` (the keys' seeds, two a
+key, drawn by kernel ``sample_short`` or on the host); none of them reads
+the device.
 """
 from __future__ import annotations
 

@@ -23,6 +23,7 @@ from fusion_cryptography_tpu_torch.ops.field import Q
 from fusion_cryptography_tpu_torch.ops.intt_norm_weight import agg_check, agg_check_plain, agg_table
 from fusion_cryptography_tpu_torch.ops import ntt
 from fusion_cryptography_tpu_torch.ops import place_preimages as pp
+from fusion_cryptography_tpu_torch.ops import sample_short as ss
 from fusion_cryptography_tpu_torch.ops.ntt import make_plan
 
 pytestmark = pytest.mark.cuda
@@ -887,3 +888,76 @@ def test_agg_fold_and_lattice_target_at_the_cells_shapes(dev, G, N):
         for x, y in zip(got, want):
             assert x.dtype == torch.bool and torch.equal(x, y)
     assert (lattice_split(G, N, sms) > 1) == (N > 4)
+
+
+# 2**32 - 1 + 1 takes two key words in CPython's seeding; 1,024 consecutive
+# keys from below 2**32 to above it
+SAMPLE_SEEDS = [0, 1, 42, 2**31, 2**32 - 1, 2**32, 2**63, 2**64 - 2] + \
+    list(range(2**32 - 512, 2**32 + 512))
+
+
+@pytest.mark.parametrize("degree,norm_bound,weight_bound", [(64, 52, 64), (256, 52, 60),
+                                                            (256, 52, 256)])
+def test_sample_short_kernel_matches_c_sampler_and_cpython(dev, degree, norm_bound,
+                                                          weight_bound):
+    """Kernel ``sample_short`` on an output filled with -1: key b's row 0
+    from seed s, row 1 from s + 1, equal to the C sampler and to CPython's
+    random at secpar 128's keys, a partial weight (the Fisher-Yates pass) and
+    secpar 256's keys."""
+    from fusion_cryptography_tpu_torch import native
+    from fusion_cryptography_tpu_torch.hashing.sampler import sample_short_poly_coeffs
+
+    seeds = np.array(SAMPLE_SEEDS, dtype=np.uint64)
+    out = torch.full((len(seeds), 2, degree), -1, dtype=torch.int32, device=dev)
+    before = kernels.LAUNCHES["sample_short"]
+    got = ss.sample_short(seeds, degree, norm_bound, weight_bound, Q, dev, out=out)
+    assert got is out and kernels.LAUNCHES["sample_short"] == before + 1
+    got = got.cpu().numpy().reshape(-1, degree)
+    streams = [x for s in SAMPLE_SEEDS for x in (s, s + 1)]
+    assert np.array_equal(got, native.sample_short_batch(streams, degree, norm_bound,
+                                                         weight_bound, Q))
+    want = np.stack([sample_short_poly_coeffs(Q, degree, norm_bound, weight_bound, s)
+                     for s in streams])
+    assert np.array_equal(got, want)
+
+
+def test_sample_short_wrapper_checks_its_inputs(dev):
+    seeds = np.arange(4, dtype=np.uint64)
+    with pytest.raises(ValueError):  # int64 seeds
+        ss.sample_short(seeds.astype(np.int64), 64, 52, 64, Q, dev)
+    with pytest.raises(ValueError):  # seeds on the card
+        ss.sample_short(torch.zeros(4, dtype=torch.int64, device=dev), 64, 52, 64, Q, dev)
+    with pytest.raises(ValueError):  # s + 1 past 2**64
+        ss.sample_short(np.array([2**64 - 1], dtype=np.uint64), 64, 52, 64, Q, dev)
+    with pytest.raises(ValueError):  # an empty range for the magnitudes
+        ss.sample_short(seeds, 64, 0, 64, Q, dev)
+    with pytest.raises(ValueError):  # a bound past int32
+        ss.sample_short(seeds, 64, 2**31, 64, Q, dev)
+    with pytest.raises(ValueError):  # an output of another shape
+        ss.sample_short(seeds, 64, 52, 64, Q, dev,
+                        out=torch.zeros((4, 64), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):  # an output on the CPU
+        ss.sample_short(seeds, 64, 52, 64, Q, dev, out=torch.zeros((4, 2, 64), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("secpar", [128, 256])
+def test_card_keygen_samples_on_the_card(dev, secpar):
+    """lifecycle.keygen of 1,024 keys on the card (kernel ``sample_short``)
+    gives the CPU's sk_hat and vk, and leaves CPython's global random as
+    the CPU keygen does."""
+    import random
+
+    from fusion_cryptography_tpu_torch.scheme import lifecycle as lc
+
+    params = fusion_setup(secpar, 3)
+    seeds = list(range(2**32 - 1000, 2**32 + 1048, 2))
+    before = kernels.LAUNCHES["sample_short"]
+    random.seed(5)
+    on_card = lc.keygen(params, seeds, device=dev)
+    card_state = random.getstate()
+    assert kernels.LAUNCHES["sample_short"] == before + 1
+    random.seed(5)
+    on_cpu = lc.keygen(params, seeds, device="cpu")
+    assert random.getstate() == card_state
+    assert torch.equal(on_card.sk_hat.cpu(), on_cpu.sk_hat)
+    assert torch.equal(on_card.vk.cpu(), on_cpu.vk)

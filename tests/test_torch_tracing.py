@@ -159,6 +159,19 @@ def test_keygen_and_sign_spans(traced_lifecycle):
         assert _inside(s, sign), name
 
 
+def test_sampler_counts_host_seeds_under_a_profiler(params):
+    """A keygen on the CPU counts ``sample.seeds_host``, two seeds a key,
+    only while a profiler records."""
+    profiling.reset_counters()
+    lc.keygen(params, [11, 13, 15], device=CPU)
+    assert profiling.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        lc.keygen(params, [11, 13, 15], device=CPU)
+    c = profiling.counters()
+    profiling.reset_counters()
+    assert c == {"sample.seeds_host": 6}
+
+
 @pytest.mark.parametrize("messages", [MESSAGES, ["m" * 59] * 7], ids=["mixed", "59B"])
 def test_pack_counters_count_exact_bytes(params, messages):
     prefix = bytes(params.sign_pre_hash_dst) + b","
@@ -326,3 +339,22 @@ def test_traced_verify_of_8192_groups_counts_the_pair_team():
     assert bool(eq.all())
     assert {k: v for k, v in c.items() if k.startswith("keccak.team.")} == {
         "keccak.team.1": 4, "keccak.team.2": 2}
+
+
+@pytest.mark.cuda
+def test_card_keygen_counts_device_seeds():
+    """A keygen on the card counts ``sample.seeds_device`` under a profiler
+    (kernel ``sample_short``), and the host's count only for seeds the
+    kernel cannot take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    params = fusion_setup(128, 5)
+    profiling.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        lc.keygen(params, [11, 13, 15, 17], device=dev)
+        lc.keygen(params, [2**64 - 1], device=dev)
+        torch.cuda.synchronize()
+    c = profiling.counters()
+    profiling.reset_counters()
+    assert c == {"sample.seeds_device": 8, "sample.seeds_host": 2}
